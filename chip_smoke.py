@@ -1,0 +1,593 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, each reported on its own line:
+
+1. build   — compile the CUDA kernels from ``kernels/csrc`` (nvcc).
+2. kernels — each kernel against its plain PyTorch version on the card,
+             first at small shapes (all four mask kinds, GQA, a fully
+             masked row, a trash step; f32 and bf16), then at the shapes
+             the serving path gives it; times (CUDA events around 10
+             launches back to back, median of 21 such windows), bounds
+             and, for decode, the library yardstick.
+3. serve   — full-width StableLM-2-1.6B (bf16, random seeded weights) on
+             a stacked (4 data x 2 model) mesh: warmup, then 16 requests
+             through FCP prefill and CP decode, with both kernels'
+             launch counters read around that run; the first prefill
+             batch is replayed through the plain versions and compared
+             (f32 weights to TOL_SERVE_F32; bf16 weights to a multiple
+             of bf16's own noise floor on that batch).
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero before that line.  Without a CUDA device the script fails.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PEAK_BF16 = 989e12          # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bytes/s
+TOL_O = 1e-4                # max |o_kernel - o_plain| / max |o_plain|
+TOL_LSE = 1e-4              # max |lse_kernel - lse_plain| on live rows
+TOL_SERVE_F32 = 1e-4        # prefill logits, kernels vs plain, f32 weights
+BF16_FLOORS = 2.0           # bf16 weights: at most this many noise floors
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# helpers
+# --------------------------------------------------------------------------
+
+def time_ms(fn, n: int = 10, windows: int = 21) -> float:
+    """Device ms per call of ``fn``: ``n`` calls back to back between one
+    pair of CUDA events, so the host's checks and launches overlap the
+    device's work; the median over ``windows`` such windows, after three
+    untimed calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(windows):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
+def compare(name: str, o_k, l_k, o_p, l_p) -> float:
+    """Max normalized o error and max abs live-lse error; raises past
+    the tolerances.  Returns the max abs o error."""
+    import torch
+    scale = max(float(o_p.abs().max()), 1.0)
+    err_o = float((o_k - o_p).abs().max()) / scale
+    live = l_p > -1e29
+    err_l = float((l_k - l_p)[live].abs().max()) if live.any() else 0.0
+    dead_ok = bool(torch.all(l_k[~live] < -1e29)) and bool(
+        torch.equal(o_k[~live], o_p[~live]))
+    if not (err_o <= TOL_O and err_l <= TOL_LSE and dead_ok
+            and bool(torch.isfinite(o_k).all())):
+        raise AssertionError(
+            f"{name}: o err {err_o:.3e} (tol {TOL_O}), lse err "
+            f"{err_l:.3e} (tol {TOL_LSE}), dead rows ok {dead_ok}")
+    return float((o_k - o_p).abs().max())
+
+
+def _meta(rng, n, docs, pad_frac=0.1):
+    """(seg, pos) of ``n`` tokens cut into ``docs`` documents + padding."""
+    npad = int(n * pad_frac)
+    body = n - npad
+    cuts = np.sort(rng.choice(np.arange(1, body), docs - 1, replace=False))
+    seg = np.full(n, -1, np.int32)
+    pos = np.zeros(n, np.int32)
+    lo = 0
+    for i, hi in enumerate(list(cuts) + [body]):
+        seg[lo:hi] = i
+        pos[lo:hi] = np.arange(hi - lo)
+        lo = hi
+    return seg, pos
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels
+# --------------------------------------------------------------------------
+
+def small_flash_cases(fa, masks, dev):
+    import torch
+    rng = np.random.default_rng(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for mask in masks:
+            for (B, H, KH, Sq, Sk, D) in ((2, 4, 2, 128, 256, 64),
+                                          (1, 8, 1, 96, 160, 32)):
+                q = torch.tensor(rng.normal(size=(B, H, Sq, D)),
+                                 dtype=dtype, device=dev)
+                k = torch.tensor(rng.normal(size=(B, KH, Sk, D)),
+                                 dtype=dtype, device=dev)
+                v = torch.tensor(rng.normal(size=(B, KH, Sk, D)),
+                                 dtype=dtype, device=dev)
+                # q and kv share one document structure; q rows are the
+                # stream's tail, so causal masking is meaningful
+                seg_k, pos_k = _meta(rng, Sk, 3)
+                seg_q, pos_q = seg_k[-Sq:].copy(), pos_k[-Sq:].copy()
+                seg_q[5] = -1                      # a fully masked row
+                t = [torch.from_numpy(np.stack([x] * B)).to(dev)
+                     for x in (seg_q, pos_q, seg_k, pos_k)]
+                o_k, l_k = fa.flash_attention_fwd(q, k, v, *t, mask=mask)
+                o_p, l_p = fa.flash_attention_fwd_plain(q, k, v, *t,
+                                                        mask=mask)
+                torch.cuda.synchronize()
+                compare(f"flash_attention_fwd {mask} {dtype} "
+                        f"{(B, H, KH, Sq, Sk, D)}", o_k, l_k, o_p, l_p)
+    # decode shape: Sq = 1 against a strided [B, S, KH, D] cache view
+    for dtype in (torch.float32, torch.bfloat16):
+        B, S, KH, H, D = 3, 300, 2, 4, 64
+        cache_k = torch.tensor(rng.normal(size=(B, S, KH, D)), dtype=dtype,
+                               device=dev)
+        cache_v = torch.tensor(rng.normal(size=(B, S, KH, D)), dtype=dtype,
+                               device=dev)
+        q = torch.tensor(rng.normal(size=(B, H, 1, D)), dtype=dtype,
+                         device=dev)
+        lengths = torch.tensor([1, 170, 300], device=dev)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        seg = torch.where(pos[None] < lengths[:, None], 0, -1).int()
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        args = (q, cache_k.transpose(1, 2), cache_v.transpose(1, 2), zero,
+                zero, seg, pos.expand(B, S).contiguous())
+        o_k, l_k = fa.flash_attention_fwd(*args, mask=False)
+        o_p, l_p = fa.flash_attention_fwd_plain(*args, mask=False)
+        compare(f"flash_attention_fwd decode {dtype}", o_k, l_k, o_p, l_p)
+
+
+def small_fused_cases(fa, masks, dev):
+    import torch
+    rng = np.random.default_rng(1)
+    N, SL, H, KH, EX = 2, 5, 4, 2, 6
+    for dtype in (torch.float32, torch.bfloat16):
+        for mask in masks:
+            # bs = 80: ragged q tiles and kv tiles (not a multiple of 32)
+            for D, bs in ((64, 128), (32, 80), (128, 128)):
+                qs = torch.tensor(rng.normal(size=(N, SL, H, bs, D)),
+                                  dtype=dtype, device=dev)
+                kxt = torch.tensor(rng.normal(size=(N, EX, KH, bs, D)),
+                                   dtype=dtype, device=dev)
+                vxt = torch.tensor(rng.normal(size=(N, EX, KH, bs, D)),
+                                   dtype=dtype, device=dev)
+                # one document stream: slot s / kv row r at s*bs / r*bs
+                q_pos = (np.arange(bs)[None] + np.arange(SL)[:, None] * bs)
+                q_seg = np.zeros((SL, bs), np.int32)
+                q_seg[SL - 1] = -1                 # trash slot
+                q_seg[0, 7] = -1                   # a fully masked row
+                kv_pos = (np.arange(bs)[None] + np.arange(EX)[:, None] * bs)
+                kv_seg = np.zeros((EX, bs), np.int32)
+                kv_seg[EX - 1] = -1                # kv trash row
+                # worker 0: slot 0 <- {0}, slot 2 <- {0, 1, 2}, trash step;
+                # worker 1: slot 1 <- {0, 1}, slot 2 <- {2}; slot 3 of
+                # both workers is never visited (must pass through)
+                sq = np.array([[0, 2, 2, 2, SL - 1], [1, 1, 2, SL - 1,
+                                                     SL - 1]], np.int32)
+                skv = np.array([[0, 0, 1, 2, EX - 1],
+                                [0, 1, 2, EX - 1, EX - 1]], np.int32)
+                tabs = [torch.from_numpy(x).to(dev) for x in (
+                    sq, skv, np.stack([q_seg] * N),
+                    np.stack([q_pos] * N).astype(np.int32),
+                    kv_seg[skv], kv_pos[skv].astype(np.int32))]
+                acc_o = torch.tensor(rng.normal(size=(N, SL, H, bs, D)),
+                                     dtype=torch.float32, device=dev)
+                acc_l = torch.tensor(rng.normal(size=(N, SL, H, bs)) + 5,
+                                     dtype=torch.float32, device=dev)
+                acc_l[:, 0] = -1e30                # fresh slot: empty acc
+                acc_o[:, 0] = 0
+                ko, kl = acc_o.clone(), acc_l.clone()
+                po, pl = acc_o.clone(), acc_l.clone()
+                st_q, st_kv, qsg, qps, ksg, kps = tabs
+                fa.fused_flash_fwd(st_q, st_kv, qs, kxt, vxt, qsg, qps, ksg,
+                                   kps, ko, kl, mask=mask)
+                fa.fused_flash_fwd_plain(st_q, st_kv, qs, kxt, vxt, qsg,
+                                         qps, ksg, kps, po, pl, mask=mask)
+                torch.cuda.synchronize()
+                name = f"fused_flash_fwd {mask} {dtype} D={D}"
+                vis = [0, 1, 2]
+                compare(name, ko[:, vis], kl[:, vis], po[:, vis],
+                        pl[:, vis])
+                if not (torch.equal(ko[:, 3], acc_o[:, 3])
+                        and torch.equal(kl[:, 3], acc_l[:, 3])):
+                    raise AssertionError(f"{name}: untouched slot changed")
+                # worker 0 never visits slot 1, worker 1 never slot 0
+                if not (torch.equal(ko[0, 1], acc_o[0, 1])
+                        and torch.equal(ko[1, 0], acc_o[1, 0])):
+                    raise AssertionError(f"{name}: unvisited slot changed")
+
+
+def main_path_fused(fa, ex, servelib, cfg, pcfg, dev):
+    """The fused kernel at the serving path's shapes: the widest run of
+    the bucket-2048 prefill plan (8192 tokens, 4 workers, 512 blocks)."""
+    import torch
+    from repro_torch.core import plan_cache as pc
+    from repro_torch.kernels import ref
+    budget, n_cp, E = 8192, 4, 2048
+    sched = servelib.build_schedule(
+        cfg, pcfg, list(pc.prefill_composition(E, budget)), n_cp,
+        budget // n_cp)
+    t = ex.schedule_tables(sched, dev)
+    run = max((r for r in t["runs"] if r is not None),
+              key=lambda r: r["step_q"].shape[1])
+    spec = sched.spec
+    H, D, KH = cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
+    SL, EX, bs = spec.slots + 1, spec.slots + spec.ext_slots + 1, \
+        spec.block_size
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    qs, kxt, vxt = rnd(n_cp, SL, H, bs, D), rnd(n_cp, EX, KH, bs, D), \
+        rnd(n_cp, EX, KH, bs, D)
+    acc_o0 = rnd(n_cp, SL, H, bs, D, dtype=torch.float32)
+    acc_l0 = rnd(n_cp, SL, H, bs, dtype=torch.float32) + 5
+    ko, kl = acc_o0.clone(), acc_l0.clone()
+    po, pl = acc_o0.clone(), acc_l0.clone()
+
+    def kernel():
+        return fa.fused_flash_fwd(
+            run["step_q"], run["step_kv"], qs, kxt, vxt, run["q_seg"],
+            run["q_pos"], run["k_seg"], run["k_pos"], ko, kl,
+            mask=spec.mask, segments=run["segments"])
+
+    def plain():
+        return fa.fused_flash_fwd_plain(
+            run["step_q"], run["step_kv"], qs, kxt, vxt, run["q_seg"],
+            run["q_pos"], run["k_seg"], run["k_pos"], po, pl,
+            mask=spec.mask)
+    kernel()
+    plain()
+    torch.cuda.synchronize()
+    err = compare("fused_flash_fwd main path", ko, kl, po, pl)
+    # timed calls fold into the accumulators in place: the values drift
+    # (they stay finite), the work does not, since it depends only on
+    # the run's tables
+    ms = time_ms(kernel)
+    plain_ms = time_ms(plain)
+    # the work this run's data needs: valid (q, k) pairs of real steps,
+    # the q slots and kv rows the steps touch, accumulators in and out
+    wk = torch.arange(n_cp, device=dev)[:, None]
+    sq = run["step_q"].long()
+    real = sq != spec.q_trash
+    vm = ref.mask_matrix(run["q_seg"][wk, sq], run["q_pos"][wk, sq],
+                         run["k_seg"], run["k_pos"], spec.mask)
+    pairs = int((vm & real[..., None, None]).sum())
+    flops = 4.0 * pairs * H * D
+    n_q = sum(len(set(r[m].tolist())) for r, m in zip(sq, real))
+    n_kv = sum(len(set(r[m].tolist())) for r, m in
+               zip(run["step_kv"].long(), real))
+    nbytes = (n_q * H * bs * D * 2 + 2 * n_kv * KH * bs * D * 2
+              + 2 * n_q * H * bs * (D + 1) * 4)
+    return {"name": "fused_flash_fwd", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            **bound(flops, PEAK_BF16, nbytes),
+            "shape": f"N={n_cp} S={sq.shape[1]} SL={SL} EX={EX} H={H} "
+                     f"bs={bs} D={D} bf16"}
+
+
+def main_path_decode(fa, cfg, dev):
+    """The decode kernel at the serving path's shapes: 8 slots x 2 cache
+    shards of a 4096-token bf16 cache, one layer."""
+    import torch
+    import torch.nn.functional as F
+    B, S, n_sh = 8, 4096, 2
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sl = S // n_sh
+    g = torch.Generator(device=dev).manual_seed(3)
+    ck = torch.randn((B, S, KH, D), generator=g, device=dev).bfloat16()
+    cv = torch.randn((B, S, KH, D), generator=g, device=dev).bfloat16()
+    q = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
+    lengths = torch.tensor(
+        np.random.default_rng(4).integers(65, 2081, B), device=dev)
+    kc = ck.view(B * n_sh, sl, KH, D).transpose(1, 2)
+    vc = cv.view(B * n_sh, sl, KH, D).transpose(1, 2)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    seg = torch.where(pos[None] < lengths[:, None], 0, -1).int()
+    seg = seg.view(B * n_sh, sl)
+    pos_k = pos.view(n_sh, sl).repeat(B, 1)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    qq = q[:, None].expand(B, n_sh, H, D).reshape(B * n_sh, H, 1, D)
+    args = (qq, kc, vc, zero, zero, seg, pos_k)
+    o_k, l_k = fa.flash_attention_fwd(*args, mask=False)
+    o_p, l_p = fa.flash_attention_fwd_plain(*args, mask=False)
+    torch.cuda.synchronize()
+    err = compare("flash_attention_fwd main path", o_k, l_k, o_p, l_p)
+    ms = time_ms(lambda: fa.flash_attention_fwd(*args, mask=False))
+    plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(*args,
+                                                            mask=False))
+    # yardstick only (the port never calls it): one library call over
+    # the same cache with a length mask
+    amask = (pos[None] < lengths[:, None])[:, None, None, :]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2),
+        attn_mask=amask))
+    n_keys = int(lengths.sum())
+    flops = 4.0 * n_keys * H * D
+    nbytes = 2 * n_keys * KH * D * 2 + B * n_sh * H * D * (2 + 4) \
+        + B * n_sh * H * 4
+    return {"name": "flash_attention_fwd", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            **bound(flops, PEAK_BF16, nbytes),
+            "shape": f"B={B}x{n_sh} shards H={H} Sq=1 Sk={sl} D={D} bf16, "
+                     f"{n_keys} live keys"}
+
+
+def bound(flops: float, peak: float, nbytes: float) -> dict:
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+# --------------------------------------------------------------------------
+# phase 3: serve
+# --------------------------------------------------------------------------
+
+def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
+    import torch
+    from repro_torch.launch import serve as servelib
+    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.models import Model
+    from repro_torch.runtime.serving import ServingLoop
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    loop = ServingLoop(model, params, StackedMesh((4, 2), ("data", "model")),
+                       pcfg, scfg, device=dev)
+    t0 = time.perf_counter()
+    loop.warmup()
+    warm_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, (int(L),)).astype(np.int32)
+               for L in rng.integers(64, max_len + 1, n_req)]
+    first = []
+    inner = loop._prefill_and_insert
+
+    def spy(reqs, free):                   # remember the first batch
+        if not first:
+            first.append((reqs[0].bucket, list(reqs)))
+        return inner(reqs, free)
+    loop._prefill_and_insert = spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.fused_flash_fwd.launches = 0
+    fa.flash_attention_fwd.launches = 0
+    report = loop.run(prompts, max_new=scfg.max_new_tokens)
+    launches = {"fused_flash_fwd": fa.fused_flash_fwd.launches,
+                "flash_attention_fwd": fa.flash_attention_fwd.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    loop._prefill_and_insert = inner
+    if report["requests"] != len(prompts):
+        raise AssertionError(f"served {report['requests']} of "
+                             f"{len(prompts)} requests")
+    for r in loop.stats.finished:
+        if r.tokens is None or len(r.tokens) != scfg.max_new_tokens:
+            raise AssertionError(f"request {r.rid} did not finish")
+    if not bool(torch.isfinite(loop.last_logits.float()).all()):
+        raise AssertionError("decode logits not finite")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+    # the first prefill batch again, through the kernels and through the
+    # plain versions, on the same schedule and weights.  With f32 copies
+    # of the weights the two agree to a few 1e-6, so TOL_SERVE_F32 catches
+    # a kernel that is wrong on a few rows.  With the bf16 weights a
+    # 1-ulp difference in any attention output cascades through 24
+    # layers of bf16 rounding to the format's own noise floor (~2e-2), so
+    # that comparison is held to a multiple of the floor measured below.
+    E, reqs = first[0]
+    batch, last = loop.assemble(E, reqs)
+    params32 = {k: ({n: w.float() for n, w in v.items()}
+                    if isinstance(v, dict) else v.float())
+                for k, v in params.items()}
+    logits = {}
+    for tag, prm in (("bf16", params), ("f32", params32)):
+        for impl in ("fused", "plain"):
+            lg = loop.prefill_fn(E, impl)(prm, batch, last)[0].float()
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"prefill logits not finite ({tag}, "
+                                     f"{impl})")
+            logits[tag, impl] = lg
+    del params32
+
+    def nerr(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+    errs = {"f32": nerr(logits["f32", "fused"], logits["f32", "plain"]),
+            "bf16": nerr(logits["bf16", "fused"], logits["bf16", "plain"]),
+            "bf16_vs_f32_plain": nerr(logits["bf16", "plain"],
+                                      logits["f32", "plain"])}
+    # bf16's noise floor on this batch: the plain path against itself with
+    # every attention output nudged by one f32 ulp (relative 2**-23); the
+    # largest of three nudges, so one lucky draw cannot set it low
+    plain_attn = servelib.make_fcp_attn_fn(loop._schedule_for(E), dev,
+                                           pcfg, "plain")
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def nudged(q, k, v):
+        o = plain_attn(q, k, v)
+        sign = torch.randn(o.shape, generator=g, device=dev).sign()
+        return o * (1 + 2.0 ** -23 * sign)
+    step = servelib.build_prefill_step(model, nudged, loop.budget // E, E,
+                                       ragged=True)
+    errs["bf16_floor"] = max(
+        nerr(step(params, batch, last)[0].float(), logits["bf16", "plain"])
+        for _ in range(3))
+    if errs["f32"] > TOL_SERVE_F32:
+        raise AssertionError(f"prefill logits kernels vs plain (f32 "
+                             f"weights) {errs['f32']:.3e} > "
+                             f"{TOL_SERVE_F32}")
+    if errs["bf16"] > BF16_FLOORS * errs["bf16_floor"]:
+        raise AssertionError(
+            f"prefill logits kernels vs plain (bf16 weights) "
+            f"{errs['bf16']:.3e} > {BF16_FLOORS} x the bf16 noise floor "
+            f"{errs['bf16_floor']:.3e}")
+    # where the time goes: one decode step (all slots, as in the loop)
+    # and the first prefill batch, timed plain and then under the
+    # profiler for the device's busy share and its top kernels
+    decode_ms = wall_ms(loop._loop_step, 10)
+    prefill_ms = wall_ms(lambda: loop.prefill_fn(E)(params, batch, last), 3)
+    prof = {"decode_step": profile(loop._loop_step, 5),
+            "prefill_batch": profile(
+                lambda: loop.prefill_fn(E)(params, batch, last), 1)}
+    return {"warmup_s": warm_s, "wall_s": report["wall_s"],
+            "sustained_tok_s": report["sustained_tok_s"],
+            "requests": report["requests"],
+            "generated_tokens": report["generated_tokens"],
+            "prefill_batches": report["prefill_batches"],
+            "prefill_fill": report["prefill_fill"],
+            "decode_steps": report["decode_steps"],
+            "prefill_ms_p50": report["prefill_ms"]["p50"],
+            "prefill_ms_p99": report["prefill_ms"]["p99"],
+            "decode_ms_p50": report["decode_ms"]["p50"],
+            "decode_ms_p99": report["decode_ms"]["p99"],
+            "plan_cache_hit_rate": report["plan_cache"]["hit_rate"],
+            "peak_mem_gib": peak_gb, "launches": launches,
+            "first_batch_bucket": E, "prefill_logits_err": errs,
+            "decode_step_ms": decode_ms, "prefill_batch_ms": prefill_ms,
+            "profile": prof}
+
+
+def wall_ms(fn, n: int) -> float:
+    """Mean wall ms of ``fn`` (host and device: synchronized), after
+    one untimed call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def profile(fn, n: int) -> dict:
+    """Device busy share and top kernels of ``n`` calls of ``fn`` under
+    ``torch.profiler`` (its host-side instrumentation inflates the wall,
+    so the share is a lower bound).  Device fields are None when the
+    profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.name] = dev.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(dev.values()) / 1e3 / n
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall * 1e3 / n,
+            "device_ms": busy_ms if dev else None,
+            "busy_share": busy_ms / (wall * 1e3 / n) if dev else None,
+            "top_ms": [[name[:70], us / 1e3 / n] for name, us in top]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.base import (ParallelConfig, ServeConfig,
+                                          get_config)
+    from repro_torch.core import executor as ex
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as servelib
+    from repro_torch.masks import CAUSAL, FULL, chunked, sliding_window
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}")
+
+    secs = build.LIBRARIES.build()
+    log(f"phase build: ok {secs:.2f}s")
+    for name, out in build.LIBRARIES.build_log.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    masks = (CAUSAL, sliding_window(96), chunked(96), FULL)
+    t0 = time.perf_counter()
+    small_flash_cases(fa, masks, dev)
+    small_fused_cases(fa, masks, dev)
+    log(f"phase kernels (small shapes): ok {time.perf_counter() - t0:.2f}s")
+    cfg = get_config("stablelm_1_6b")
+    pcfg = ParallelConfig(block_size=512, in_dtype_bytes=2)
+    rows = [main_path_fused(fa, ex, servelib, cfg, pcfg, dev),
+            main_path_decode(fa, cfg, dev)]
+    for r in rows:
+        log(f"phase kernels {r['name']} [{r['shape']}]: ok "
+            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, "
+            f"{r['flops']:.3e} flop, {r['bytes']:.3e} B) "
+            f"library_ms={r['library_ms']} max_abs_err="
+            f"{r['max_abs_err']:.3e}")
+
+    scfg = ServeConfig(cache_len=4096, decode_slots=8, queue_depth=64,
+                       max_new_tokens=32, prefill_tokens_per_worker=2048,
+                       bucket_min=64)
+    s = serve(fa, cfg, pcfg, scfg, dev)
+    log(f"phase serve: ok {json.dumps(s)}")
+
+    sources = {"fused_flash_fwd": (
+        "src/repro_torch/kernels/csrc/fused_flash_fwd.cu",
+        "src/repro/kernels/flash_attention.py:463"),
+        "flash_attention_fwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+        "src/repro/kernels/flash_attention.py:126")}
+    kernels = []
+    for r in rows:
+        src, rep = sources[r["name"]]
+        kernels.append({
+            "name": r["name"], "route": "cuda", "source": src,
+            "replaces": rep, "launches": s["launches"][r["name"]],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

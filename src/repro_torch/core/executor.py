@@ -1,0 +1,315 @@
+"""FCP attention executor on stacked workers (port of ``repro.core.executor``).
+
+Runs a host-built :class:`~repro_torch.core.schedule.Schedule` on one
+device: the plan's N context-parallel workers sit on a leading tensor
+dimension, and every ppermute of the reference becomes
+:func:`repro_torch.runtime.wire.ship` (an index copy through the
+schedule's wire format).
+
+* **transparent reshuffle** — (q, k, v) blocks move from the stream
+  layout to the schedule layout through the plan's reshuffle rounds (and
+  ``o`` moves back through the restore rounds);
+* **serial round loop** — per coalesced round ``r``: ship the round's
+  KV stacks, compute run ``r``, then commit the arrivals into the
+  colored receive slots (consumers of round ``r`` sit in runs ``> r``);
+* **compute runs** — with ``impl="fused"`` each run is ONE
+  ``fused_run_attention`` call covering all N workers (one CUDA launch;
+  the plain version on CPU tensors); ``impl="plain"`` runs the plain
+  PyTorch version on any device.
+
+Also provides ``cp_decode_attention`` / ``cp_cache_update``: decode
+against a KV cache whose sequence dim is split into shards; the
+per-shard partials merge with a plain reduction over the shard dim (the
+reference's pmax/psum).
+
+Not ported yet (queued in ROADMAP): the software-pipelined round loop
+(``spec.overlap``), the layer-pipelined ``layout="sched"`` path with
+``fcp_reshuffle``, and the backward pass.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from ..kernels import ops
+from ..kernels.flash_attention import run_segments
+from ..kernels.ref import NEG_INF
+from ..runtime import wire as wirelib
+from .schedule import PlanArrays, Schedule, StaticSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecConfig:
+    # "fused": one launch per run of the hand-written CUDA kernels (their
+    # plain versions on CPU tensors); "plain": the plain PyTorch versions
+    # on any device — the yardstick the kernels are held against
+    impl: str = "fused"
+    out_dtype: str | None = None    # e.g. "bfloat16": halve restore bytes
+
+    def __post_init__(self):
+        if self.impl not in ("fused", "plain"):
+            raise ValueError(f"unknown executor impl {self.impl!r} "
+                             f"(expected 'fused' or 'plain')")
+
+    @property
+    def kernel_impl(self) -> str:
+        """The ``kernels.ops`` impl this executor impl runs."""
+        return "kernel" if self.impl == "fused" else "plain"
+
+
+def plan_tables(arrays: PlanArrays, device) -> dict[str, torch.Tensor]:
+    """numpy plan tables → device tensors (leading dim = CP workers)."""
+    return {f.name: torch.from_numpy(getattr(arrays, f.name)).to(device)
+            for f in dataclasses.fields(arrays)}
+
+
+def schedule_tables(sched: Schedule, device) -> dict:
+    """Device tables for :func:`fcp_attention`, memoized on the schedule
+    (per device): plan-cache hits return the same ``Schedule``, so
+    repeated batches reuse the uploaded tables.
+
+    Beyond the raw :class:`PlanArrays`, the memo holds what the fused
+    kernel reads per run, sliced contiguous once: the run's step tables,
+    the kv mask metadata of each step, and its segment table (one
+    ``(lo, hi)`` step range per distinct q slot; trash steps get none,
+    so they never touch a real slot)."""
+    device = torch.device(device)
+    memo = sched._device_tables
+    if memo is None:
+        memo = sched._device_tables = {}
+    key = str(device)
+    if key in memo:
+        return memo[key]
+    spec, arr = sched.spec, sched.arrays
+    t = plan_tables(arr, device)
+    N = spec.n_workers
+    t["q_seg"] = t["blk_seg"][t["sched_blk"].long()]      # [N, SL, bs]
+    t["q_pos"] = t["blk_pos"][t["sched_blk"].long()]
+    runs = []
+    for r in range(spec.n_runs):
+        lo, hi = spec.run_starts[r], spec.run_starts[r + 1]
+        if hi == lo:
+            runs.append(None)
+            continue
+        blk = t["step_kv_blk"][:, lo:hi].long()
+        seg_lo, seg_hi = run_segments(arr.step_q[:, lo:hi],
+                                      skip_slot=spec.q_trash)
+        runs.append({
+            "step_q": t["step_q"][:, lo:hi].contiguous(),
+            "step_kv": t["step_kv"][:, lo:hi].contiguous(),
+            "q_seg": t["q_seg"], "q_pos": t["q_pos"],
+            "k_seg": t["blk_seg"][blk], "k_pos": t["blk_pos"][blk],
+            "segments": (torch.from_numpy(seg_lo).to(device),
+                         torch.from_numpy(seg_hi).to(device)),
+        })
+    t["runs"] = runs
+    t["workers"] = torch.arange(N, device=device)[:, None]
+    memo[key] = t
+    return t
+
+
+def _gather_rows(buf: torch.Tensor, idx: torch.Tensor,
+                 workers: torch.Tensor) -> torch.Tensor:
+    """Per worker ``buf[w, idx[w]]`` (``[N, k, ...]``); ``idx == -1`` →
+    zeros."""
+    safe = idx.clamp(0, buf.shape[1] - 1).long()
+    out = buf[workers, safe]
+    keep = (idx >= 0).reshape(idx.shape + (1,) * (out.ndim - 2))
+    return torch.where(keep, out, 0)
+
+
+def _with_trash(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros((x.shape[0], 1) + x.shape[2:])], dim=1)
+
+
+def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
+                  cfg: ExecConfig = ExecConfig(),
+                  layout: str = "stream") -> torch.Tensor:
+    """FCP attention over N stacked workers.
+
+    q: ``[N, tpw, HQ, D]``; k/v: ``[N, tpw, KH, D]`` in the stream
+    layout (frame ``w`` is worker ``w``'s share of the packed stream).
+    Returns o (f32, or ``cfg.out_dtype``) in the same layout — the
+    caller never sees the schedule layout (§4.3).
+    """
+    if layout != "stream":
+        raise NotImplementedError(
+            "layout='sched' (the layer-pipelined reshuffle) is not ported "
+            "yet")
+    if spec.overlap:
+        raise NotImplementedError(
+            "the software-pipelined round loop (spec.overlap) is not "
+            "ported yet; plan with overlap=False")
+    bs, slots, ext = spec.block_size, spec.slots, spec.ext_slots
+    N, tpw, hq, d = q.shape
+    kh = k.shape[2]
+    if N != spec.n_workers or tpw != slots * bs:
+        raise ValueError(f"q {tuple(q.shape)} does not match the plan "
+                         f"({spec.n_workers} workers x {slots * bs} tokens)")
+    fmt = spec.wire
+    t = tables
+    wk = t["workers"]
+
+    def ship(payload, perm):
+        return wirelib.ship(payload, perm, fmt)
+
+    # stream layout -> [N, slots, heads, bs, d] (head-leading kernel layout)
+    def frame(x, h):
+        return x.reshape(N, slots, bs, h, d).permute(0, 1, 3, 2, 4)
+
+    q_u, k_u, v_u = frame(q, hq), frame(k, kh), frame(v, kh)
+
+    # ---- transparent reshuffle: stream layout -> schedule layout ----------
+    src = t["resh_local_src"]
+    qs = _with_trash(_gather_rows(q_u, src, wk))
+    ks = _with_trash(_gather_rows(k_u, src, wk))
+    vs = _with_trash(_gather_rows(v_u, src, wk))
+    if spec.n_resh_rounds:
+        # senders gather through a trash row: idle lanes ship zeros
+        q_ut, k_ut, v_ut = _with_trash(q_u), _with_trash(k_u), _with_trash(v_u)
+    for r in range(spec.n_resh_rounds):
+        snd = t["resh_send_slot"][:, r]                # [N, S2] payload rows
+        dst = t["resh_dst_slot"][:, r]
+        off = 0
+        for g in spec.resh_rounds[r].groups:
+            idx = snd[:, off:off + g.rows]
+            payload = torch.cat([_gather_rows(q_ut, idx, wk),
+                                 _gather_rows(k_ut, idx, wk),
+                                 _gather_rows(v_ut, idx, wk)], dim=2)
+            recv = ship(payload, g.perm)
+            # one scatter per group (idle rows land on the trash row)
+            didx = dst[:, off:off + g.rows].long()
+            qs[wk, didx] = recv[:, :, :hq]
+            ks[wk, didx] = recv[:, :, hq:hq + kh]
+            vs[wk, didx] = recv[:, :, hq + kh:]
+            off += g.rows
+
+    # ---- extended KV buffer (local slots + colored receive slots + trash) -
+    zpad = ks.new_zeros((N, ext + 1, kh, bs, d))
+    kxt = torch.cat([ks[:, :slots], zpad], dim=1)
+    vxt = torch.cat([vs[:, :slots], zpad], dim=1)
+    acc_o = torch.zeros((N, slots + 1, hq, bs, d), dtype=torch.float32,
+                        device=q.device)
+    acc_lse = torch.full((N, slots + 1, hq, bs), NEG_INF,
+                         dtype=torch.float32, device=q.device)
+
+    def issue(r):
+        # one ship per group; each moves a stack of up to C KV blocks
+        snd = t["send_slot"][:, r]                     # [N, S] payload rows
+        out, off = [], 0
+        for g in spec.comm_rounds[r].groups:
+            idx = snd[:, off:off + g.rows]
+            payload = torch.cat([_gather_rows(kxt, idx, wk),
+                                 _gather_rows(vxt, idx, wk)], dim=2)
+            out.append((off, g, ship(payload, g.perm)))
+            off += g.rows
+        return out
+
+    # run r computes between the ship and the arrival commit of round r:
+    # consumers of round r's blocks sit in runs > r (§4.2)
+    for r in range(spec.n_runs):
+        arrivals = issue(r) if r < spec.n_rounds else []
+        run = t["runs"][r]
+        if run is not None:
+            # ONE launch for the whole run, all workers: step tables drive
+            # the KV gathers, the accumulators update in place
+            ops.fused_run_attention(qs, kxt, vxt, acc_o, acc_lse, run,
+                                    mask=spec.mask, impl=cfg.kernel_impl)
+        dst = t["recv_slot"][:, r] if arrivals else None
+        for off, g, recv in arrivals:
+            didx = dst[:, off:off + g.rows].long()
+            kxt[wk, didx] = recv[:, :, :kh]
+            vxt[wk, didx] = recv[:, :, kh:]
+
+    # ---- restore: schedule layout -> stream layout -------------------------
+    if cfg.out_dtype is not None:
+        # cast before the restore ships: halves restore traffic
+        acc_o = acc_o.to(getattr(torch, cfg.out_dtype))
+    o_u = _with_trash(_gather_rows(acc_o, t["restore_local_src"], wk))
+    for r in range(spec.n_resh_rounds):
+        snd = t["restore_send_slot"][:, r]
+        dst = t["restore_dst_slot"][:, r]
+        off = 0
+        for g in spec.resh_rounds[r].groups:
+            # reversed partial permutation is a partial permutation
+            perm = tuple((d_, s_) for s_, d_ in g.perm)
+            recv = ship(_gather_rows(acc_o, snd[:, off:off + g.rows], wk),
+                        perm)
+            o_u[wk, dst[:, off:off + g.rows].long()] = recv
+            off += g.rows
+    return o_u[:, :slots].permute(0, 1, 3, 2, 4).reshape(N, tpw, hq, d)
+
+
+def timed_call(fn, *args):
+    """``out, seconds = timed_call(fn, *args)``: wall clock of ``fn``
+    including the device work it queued (synchronizes the card)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+# --------------------------------------------------------------------------
+# context-parallel decode (KV cache split into sequence shards)
+# --------------------------------------------------------------------------
+
+def cp_decode_attention(q, k_cache, v_cache, lengths, *, n_shards: int = 1,
+                        cfg: ExecConfig = ExecConfig()) -> torch.Tensor:
+    """One-token decode against a cache split into ``n_shards`` sequence
+    shards.  q: ``[B, HQ, D]``; k/v_cache: ``[B, S, KH, D]``; lengths:
+    ``[B]`` valid cache lengths.  Returns o ``[B, HQ, D]`` f32.
+
+    Each shard attends over its own S range (one kernel launch covers
+    every (slot, shard) pair as a batch row); the per-shard partials
+    merge with a flash reduction over the shard dim — the reference's
+    pmax/psum across the sequence axes."""
+    B, S, KH, D = k_cache.shape
+    if S % n_shards:
+        raise ValueError(f"cache length {S} not divisible into "
+                         f"{n_shards} shards")
+    shard_len = S // n_shards
+    # The cache is read in its own layout through strides: [B*n, KH,
+    # shard_len, D] below is a view, not a copy.  The reference's
+    # kb.transpose(1, 0, 2) (src/repro/core/executor.py:487) is free
+    # under XLA, but in eager PyTorch a transposed copy would move the
+    # whole cache once per layer per token.
+    kc = k_cache.view(B * n_shards, shard_len, KH, D).transpose(1, 2)
+    vc = v_cache.view(B * n_shards, shard_len, KH, D).transpose(1, 2)
+    pos_k = torch.arange(S, dtype=torch.int32, device=q.device)
+    seg_k = torch.where(pos_k[None] < lengths[:, None], 0, -1)
+    seg_k = seg_k.to(torch.int32).view(B * n_shards, shard_len)
+    pos_k = pos_k.view(n_shards, shard_len).repeat(B, 1)
+    zero = torch.zeros((1,), dtype=torch.int32, device=q.device)
+    qq = q[:, None].expand(B, n_shards, *q.shape[1:])
+    qq = qq.reshape(B * n_shards, q.shape[1], 1, D)
+    o, lse = ops.block_attention(qq, kc, vc, zero, zero, seg_k, pos_k,
+                                 mask=False, impl=cfg.kernel_impl)
+    o = o.view(B, n_shards, -1, D)
+    lse = lse.view(B, n_shards, -1)
+    # flash merge across sequence shards (numerically exact)
+    m = lse.amax(dim=1, keepdim=True)
+    w = torch.exp(lse - m)
+    num = (o * w[..., None]).sum(dim=1)
+    den = w.sum(dim=1)
+    return num / torch.clamp(den, min=1e-37)[..., None]
+
+
+def cp_cache_update(cache, new, pos):
+    """Write one token per row into a ``[B, S, KH, D]`` cache, **in
+    place** (and return it).  new: ``[B, KH, D]``; pos: ``[B]``.
+
+    On stacked shards the reference's per-shard masked write collapses
+    into one masked row write: the row at ``pos`` takes ``new`` when
+    ``0 <= pos < S`` and keeps its bytes otherwise (an overrun drops
+    the write, as no shard owns it)."""
+    B, S = cache.shape[:2]
+    rows = torch.arange(B, device=cache.device)
+    lp = pos.clamp(0, S - 1).long()
+    in_range = ((pos >= 0) & (pos < S))[:, None, None]
+    cache[rows, lp] = torch.where(in_range, new.to(cache.dtype),
+                                  cache[rows, lp])
+    return cache

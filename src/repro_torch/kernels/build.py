@@ -1,0 +1,105 @@
+"""Build the CUDA kernels at first use and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles on its own (all ``nvcc`` processes
+start together) into ``build/kernels/lib<name>.so`` at the repository
+root, with a plain C interface: every pointer and the stream travel as
+``c_void_p``, and each entry point returns ``cudaGetLastError()``.
+The libraries are rebuilt from the sources the first time a process
+asks for them, so a stale build is never loaded.  Building through
+``torch.utils.cpp_extension`` is avoided on purpose: sources that
+include PyTorch's headers take minutes to compile, these take seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+SOURCES = ("fused_flash_fwd", "flash_attention_fwd")
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH); the "
+            "CUDA kernels are built from kernels/csrc at first use")
+    return found
+
+
+class _Libraries:
+    """The loaded kernel libraries of this process (built once)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._libs: dict[str, ctypes.CDLL] = {}
+        self.build_seconds: float | None = None
+        self.build_log: dict[str, str] = {}
+
+    def build(self) -> float:
+        """Compile every source in parallel; returns the wall seconds."""
+        with self._lock:
+            if self.build_seconds is None:
+                self._build_locked()
+            return self.build_seconds
+
+    def _build_locked(self) -> None:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        t0 = time.perf_counter()
+        procs = {}
+        for name in SOURCES:
+            # compile to a private name, then rename: concurrent builders
+            # never load a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            self.build_log[name] = out
+            if proc.returncode != 0:
+                failed.append(name)
+                os.unlink(tmp)
+            else:
+                os.replace(tmp, BUILD_DIR / f"lib{name}.so")
+        if failed:
+            raise RuntimeError(
+                "nvcc failed for " + ", ".join(failed) + ":\n"
+                + "\n".join(self.build_log[n] for n in failed))
+        self.build_seconds = time.perf_counter() - t0
+
+    def get(self, name: str) -> ctypes.CDLL:
+        self.build()
+        with self._lock:
+            if name not in self._libs:
+                self._libs[name] = ctypes.CDLL(
+                    str(BUILD_DIR / f"lib{name}.so"))
+            return self._libs[name]
+
+
+LIBRARIES = _Libraries()
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built at first use)."""
+    return LIBRARIES.get(name)

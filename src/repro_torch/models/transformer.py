@@ -1,0 +1,166 @@
+"""Dense decoder-only transformer, GQA + RoPE + SwiGLU (port of
+``repro.models.transformer``, dense family).
+
+The parameter tree is a dict of tensors in the reference's layout
+(``wq [L, d, H, Dh]``, ``wo [L, H, Dh, d]``, ...), so every einsum maps
+one to one.  Entry points:
+
+* ``forward_prefill`` — packed stream ``[F, T]``; attention is pluggable
+  (``attn_fn``), so the same code runs the dense oracle or FCP attention
+  on stacked workers — the transparency property of §4.3;
+* ``decode_step`` — one token per row against a KV cache; cache read and
+  update are pluggable (dense or sequence-sharded).
+
+PyTorch runs eagerly, so the layer stack is a Python loop (the
+reference's ``lax.scan``) and no activation checkpointing is needed for
+inference.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import layers as L
+
+
+def _dt(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda", tp: int = 1) -> dict:
+    """Random weights drawn from ``generator`` (which must live on
+    ``device``), with the reference's shapes and scales.  A given seed
+    gives other numbers than ``jax.random``; to run both packages on
+    the same weights, convert the reference's with
+    :func:`repro_torch.models.convert.params_from_numpy`."""
+    if cfg.n_experts:
+        raise NotImplementedError("MoE layers are not ported yet")
+    nh, nkv = cfg.padded_heads(tp)
+    vpad = cfg.padded_vocab(tp)
+    d, dh, ff, nl = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.n_layers
+    dt = _dt(cfg)
+
+    def normal(shape, scale):
+        return L.normal(generator, shape, scale, dt, device)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    wq = normal((nl, d, nh, dh), d ** -0.5)
+    wo = normal((nl, nh, dh, d), (nh * dh) ** -0.5)
+    # zero the padded heads (exactness of head padding)
+    wq[:, :, cfg.n_heads:] = 0
+    wo[:, cfg.n_heads:] = 0
+    lyr = {
+        "ln1": ones(nl, d), "ln2": ones(nl, d), "wq": wq,
+        "wk": normal((nl, d, nkv, dh), d ** -0.5),
+        "wv": normal((nl, d, nkv, dh), d ** -0.5), "wo": wo,
+        "wi": normal((nl, d, ff), d ** -0.5),
+        "wg": normal((nl, d, ff), d ** -0.5),
+        "wdown": normal((nl, ff, d), ff ** -0.5),
+    }
+    if cfg.qkv_bias:
+        for name, h in (("bq", nh), ("bk", nkv), ("bv", nkv)):
+            lyr[name] = torch.zeros((nl, h, dh), dtype=dt, device=device)
+    params = {"embed": normal((vpad, d), 1.0), "layers": lyr,
+              "final_norm": ones(d)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, vpad), d ** -0.5)
+    return params
+
+
+def layer_params(params: dict, i: int) -> dict:
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _attention_qkv(lp, cfg: ModelConfig, h, pos):
+    """h: [..., T, d] -> q [..., T, H, Dh], k/v [..., T, KH, Dh] (roped)."""
+    q = torch.einsum("...d,dhk->...hk", h, lp["wq"])
+    k = torch.einsum("...d,dhk->...hk", h, lp["wk"])
+    v = torch.einsum("...d,dhk->...hk", h, lp["wv"])
+    if "bq" in lp:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    return L.rope(q, pos, cfg.rope_theta), L.rope(k, pos, cfg.rope_theta), v
+
+
+def _ffn(x, lp, cfg: ModelConfig):
+    h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.swiglu(h2, lp["wi"], lp["wg"], lp["wdown"])
+
+
+def embed_tokens(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    return params["embed"][batch["tokens"].long()]
+
+
+def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return torch.matmul(x, params["embed"].T)
+    return torch.matmul(x, params["lm_head"])
+
+
+def forward_prefill(params, cfg: ModelConfig, batch: dict,
+                    attn_fn: Callable, return_features: bool = False):
+    """batch: tokens/positions ``[F, T]``.  Returns ``(logits, k, v)``
+    with the per-layer roped ``k``/``v`` ``[L, F, T, KH, Dh]`` for cache
+    construction; with ``return_features`` the pre-unembed hidden state
+    ``[F, T, d]`` comes back instead of the logits (the serving loop
+    unembeds only each prompt's last token)."""
+    if cfg.n_experts:
+        raise NotImplementedError("MoE layers are not ported yet")
+    x = embed_tokens(params, cfg, batch)
+    pos = batch["positions"]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = _attention_qkv(lp, cfg, h, pos)
+        o = attn_fn(q, k, v)                                 # [F,T,H,Dh]
+        x = x + torch.einsum("fthk,hkd->ftd", o.to(x.dtype), lp["wo"])
+        x = _ffn(x, lp, cfg)
+        ks.append(k.to(x.dtype))
+        vs.append(v.to(x.dtype))
+    out = x if return_features else unembed(params, cfg, x)
+    return out, torch.stack(ks), torch.stack(vs)
+
+
+# --------------------------------------------------------------------------
+# decode
+# --------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, tp: int = 1,
+                  device="cuda") -> dict:
+    nh, nkv = cfg.padded_heads(tp)
+    shape = (cfg.n_layers, batch, seq_len, nkv, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=_dt(cfg), device=device),
+            "v": torch.zeros(shape, dtype=_dt(cfg), device=device)}
+
+
+def decode_step(params, cfg: ModelConfig, tokens, pos, cache,
+                decode_attn_fn: Callable, cache_update_fn: Callable):
+    """tokens: ``[B]``; pos: ``[B]`` current positions; cache:
+    ``{"k", "v"}`` ``[L, B, S, KH, Dh]``.  Returns ``(logits [B, V],
+    cache)``.  ``cache_update_fn(cache_layer, new, pos)`` writes the
+    layer's cache **in place** (it receives a view), so the returned
+    cache is the same dict.
+
+    ``decode_attn_fn(q [B,H,Dh], k_cache, v_cache, lengths) -> o`` and
+    ``cache_update_fn`` abstract over dense vs CP-sharded caches.
+    """
+    x = params["embed"][tokens.long()]                       # [B, d]
+    posf = pos[:, None]                                      # [B, 1]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = _attention_qkv(lp, cfg, h[:, None], posf)
+        q, k, v = q[:, 0], k[:, 0], v[:, 0]
+        kc = cache_update_fn(cache["k"][i], k, pos)
+        vc = cache_update_fn(cache["v"][i], v, pos)
+        o = decode_attn_fn(q, kc, vc, pos + 1)               # [B, H, Dh]
+        x = x + torch.einsum("bhk,hkd->bd", o.to(x.dtype), lp["wo"])
+        x = _ffn(x, lp, cfg)
+    return unembed(params, cfg, x), cache

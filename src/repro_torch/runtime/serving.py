@@ -1,0 +1,530 @@
+"""Continuous-batching FCP serving loop on stacked workers (port of
+``repro.runtime.serving``, attention families).
+
+* :class:`RequestQueue` — bounded admission-controlled queue; a request
+  that cannot fit the decode cache is rejected up front with the
+  required length.
+* **Bucketed FCP prefill** — prompts prefill in uniform batches of
+  ``budget / E`` sequences padded to one bucket edge ``E``; every batch
+  of a bucket re-hits the same plan-cache key, so a mixed-length stream
+  plans once per bucket.  Unlike the reference, the port runs FCP
+  prefill on a one-worker mesh too: on the card, prefill always goes
+  through the fused run kernel.
+* **Exactness** — pad-up plus the ragged last-index gather is exact
+  under the causal mask; a prompt longer than the budget chunks down and
+  its tail teacher-forces through the decode loop on the device.
+* :class:`ServingLoop` — slot-based continuous batching against the
+  sequence-sharded cache.  Per-slot state (next token, position,
+  tail, generated tokens) lives in device tensors updated in place;
+  the host mirrors completion counters and reads a slot's tokens only
+  when its request finishes — no per-token host sync.
+* :class:`LatencyStats` — per-request queue/prefill/decode p50/p99 and
+  sustained tokens/sec, on ``time.perf_counter``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..configs.base import ParallelConfig, ServeConfig
+from ..core import plan_cache as pc
+from ..launch import serve as servelib
+from ..models import Model
+
+
+class QueueFull(RuntimeError):
+    """Admission control: the request queue is at ``queue_depth``."""
+
+
+# --------------------------------------------------------------------------
+# requests + latency accounting
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray              # int32 [prompt_len]
+    max_new: int
+    bucket: int                     # prefill bucket edge E
+    mode: str                       # "pad" | "chunk"
+    submit_t: float = 0.0
+    queue_ms: float = 0.0
+    prefill_ms: float = 0.0         # wall of the prefill batch it rode
+    insert_t: float = 0.0
+    finish_t: float = 0.0
+    decode_ms: float = 0.0
+    total_ms: float = 0.0
+    tokens: np.ndarray | None = None
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.prompt.shape[0])
+
+    @property
+    def tail_tokens(self) -> int:
+        """Prompt tokens teacher-forced through the decode loop (0 for
+        the pad-up path: the whole prompt rides the one prefill call)."""
+        return self.prompt_len - self.bucket if self.mode != "pad" else 0
+
+
+def _pct(xs: Sequence[float]) -> dict:
+    if not xs:
+        return {"p50": 0.0, "p99": 0.0, "mean": 0.0}
+    a = np.asarray(xs, np.float64)
+    return {"p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99)),
+            "mean": float(a.mean())}
+
+
+class LatencyStats:
+    """Per-request latency accounting (``time.perf_counter`` ms)."""
+
+    def __init__(self):
+        self.finished: list[Request] = []
+
+    def add(self, req: Request) -> None:
+        self.finished.append(req)
+
+    def summary(self) -> dict:
+        rs = self.finished
+        return {
+            "requests": len(rs),
+            "generated_tokens": int(sum(r.max_new for r in rs)),
+            "tail_tokens": int(sum(r.tail_tokens for r in rs)),
+            "queue_ms": _pct([r.queue_ms for r in rs]),
+            "prefill_ms": _pct([r.prefill_ms for r in rs]),
+            "decode_ms": _pct([r.decode_ms for r in rs]),
+            "total_ms": _pct([r.total_ms for r in rs]),
+        }
+
+
+class RequestQueue:
+    """Bounded FIFO with up-front cache-overrun validation."""
+
+    def __init__(self, scfg: ServeConfig):
+        self.scfg = scfg
+        self._q: deque[Request] = deque()
+        self._next_rid = 0
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+    def validate(self, prompt_len: int, max_new: int, bucket: int,
+                 mode: str) -> None:
+        scfg = self.scfg
+        if prompt_len < 1:
+            raise ValueError("empty prompt")
+        if not 1 <= max_new <= scfg.max_new_tokens:
+            raise ValueError(
+                f"max_new {max_new} outside [1, {scfg.max_new_tokens}] "
+                f"(ServeConfig.max_new_tokens caps the generation "
+                f"buffer)")
+        # the decode loop writes positions [start, prompt_len + max_new)
+        # and the pad-up prefill writes [0, bucket); past cache_len the
+        # masked cache write would drop silently, so reject here
+        need = max(bucket if mode == "pad" else 0, prompt_len + max_new)
+        if need > scfg.cache_len:
+            raise ValueError(
+                f"request overruns the decode cache: prompt_len="
+                f"{prompt_len} + max_new={max_new} (prefill bucket "
+                f"{bucket}) requires cache_len >= {need}, got "
+                f"{scfg.cache_len}; raise --cache-len or shorten the "
+                f"request")
+
+    def submit(self, prompt: np.ndarray, max_new: int, bucket: int,
+               mode: str, now: float) -> Request:
+        self.validate(int(prompt.shape[0]), max_new, bucket, mode)
+        if len(self._q) >= self.scfg.queue_depth:
+            raise QueueFull(
+                f"queue at depth {self.scfg.queue_depth}; retry later")
+        req = Request(rid=self._next_rid, prompt=prompt, max_new=max_new,
+                      bucket=bucket, mode=mode, submit_t=now)
+        self._next_rid += 1
+        self._q.append(req)
+        return req
+
+    def peek(self) -> Request | None:
+        return self._q[0] if self._q else None
+
+    def pop_batch(self, limit: int) -> list[Request]:
+        """Up to ``limit`` requests sharing the head request's bucket
+        (FIFO within the bucket)."""
+        if not self._q or limit < 1:
+            return []
+        head = self._q[0]
+        out, keep = [], deque()
+        for r in self._q:
+            if len(out) < limit and r.bucket == head.bucket:
+                out.append(r)
+            else:
+                keep.append(r)
+        self._q = keep
+        return out
+
+
+# --------------------------------------------------------------------------
+# slot bookkeeping (host mirror of the device counters)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _SlotMeta:
+    req: Request
+    tail_len: int                   # teacher-forced steps before gen
+    gen0: int                       # tokens already produced at insert
+    steps: int = 0                  # decode steps since insert
+
+    @property
+    def generated(self) -> int:
+        # mirrors the device: gen_idx advances iff the tail is exhausted
+        return self.gen0 + max(0, self.steps - self.tail_len)
+
+    @property
+    def done(self) -> bool:
+        return self.generated >= self.req.max_new
+
+
+# --------------------------------------------------------------------------
+# the serving loop
+# --------------------------------------------------------------------------
+
+class ServingLoop:
+    """Continuous-batching serving driver (see module docstring).
+
+    ``device`` defaults to ``"cuda"`` and raises when no card is
+    present; prefill and decode run the CUDA kernels (their plain
+    versions on the CPU).  ``run(prompts)`` drives an offline stream end to
+    end; ``submit``/``_refill``/``_dispatch_step`` are the building
+    blocks an online server would call.
+    """
+
+    def __init__(self, model: Model, params, mesh,
+                 pcfg: ParallelConfig, scfg: ServeConfig, *,
+                 plan_cache: pc.PlanCache | None = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.model, self.mesh = model, mesh
+        self.pcfg, self.scfg = pcfg, scfg
+        cfg = model.cfg
+        axis_sizes = dict(mesh.shape)
+        if axis_sizes.get("pod", 1) > 1:
+            raise ValueError("pod meshes are not ported yet")
+        self.n_cp = axis_sizes.get("data", 1)
+        self.tpw = int(scfg.prefill_tokens_per_worker)
+        self.budget = self.n_cp * self.tpw
+        if scfg.prefill_impl != "fcp":
+            # the reference's dense escape hatch is not ported: on the
+            # card, prefill always goes through the fused run kernel
+            raise NotImplementedError(
+                f"prefill_impl {scfg.prefill_impl!r} is not ported; "
+                f"only 'fcp' is")
+        if self.tpw % pcfg.block_size:
+            raise ValueError(
+                f"prefill_tokens_per_worker {self.tpw} must be a "
+                f"multiple of block_size {pcfg.block_size} for FCP "
+                f"prefill")
+        self.edges = pc.prefill_bucket_edges(scfg.bucket_min, self.budget)
+        self.queue = RequestQueue(scfg)
+        self.plan_cache = plan_cache or pc.PlanCache(pcfg.plan_cache_size)
+        nh, nkv = cfg.padded_heads(1)
+        self._heads = (max(nh, 1), max(nkv, 1), max(cfg.head_dim, 1))
+        self._gen_cap = int(scfg.max_new_tokens)
+        self._tail_cap = int(scfg.cache_len)
+
+        # ---- decode side -------------------------------------------------
+        B = int(scfg.decode_slots)
+        self._decode_step, batch_axis, _ = servelib.build_decode_step(
+            model, mesh, scfg.kind)
+        if batch_axis in axis_sizes and B % axis_sizes[batch_axis]:
+            raise ValueError(
+                f"decode_slots {B} must be a multiple of the "
+                f"{batch_axis!r} mesh axis ({axis_sizes[batch_axis]})")
+        self.params = params
+        self.cache = model.init_cache(B, scfg.cache_len, self.device)
+        self.state = self._init_state(B)
+        self._slots: list[_SlotMeta | None] = [None] * B
+        self._prefill_fns: dict = {}        # E -> prefill step
+        self.last_logits = None             # decode logits (tests)
+        self.reset_counters()
+
+    # -- counters / introspection -----------------------------------------
+
+    def reset_counters(self) -> None:
+        self.stats = LatencyStats()
+        self.plan_cache.stats = pc.PlanCacheStats()
+        self.prefill_batches = 0
+        self.prefill_rows = 0
+        self.prefill_rows_real = 0
+        self.decode_steps = 0
+
+    def n_active(self) -> int:
+        return sum(m is not None for m in self._slots)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- admission ---------------------------------------------------------
+
+    def bucket_of(self, prompt_len: int) -> tuple[int, str]:
+        """(bucket edge E, mode): pad UP to the smallest covering edge
+        (exact under the causal mask; one prefill call, no tail); a
+        prompt beyond the budget chunks DOWN to the largest edge and
+        teacher-forces the remainder through the decode loop."""
+        L = int(prompt_len)
+        for e in self.edges:
+            if L <= e:
+                return e, "pad"
+        return self.edges[-1], "chunk"
+
+    def submit(self, prompt, max_new: int | None = None) -> Request:
+        prompt = np.asarray(prompt, np.int32).ravel()
+        max_new = int(max_new if max_new is not None
+                      else self.scfg.max_new_tokens)
+        bucket, mode = self.bucket_of(prompt.shape[0])
+        return self.queue.submit(prompt, max_new, bucket, mode,
+                                 now=time.perf_counter())
+
+    # -- device state ------------------------------------------------------
+
+    def _init_state(self, B: int) -> dict:
+        def z(*s):
+            return torch.zeros(s, dtype=torch.int32, device=self.device)
+        return {
+            "tok": z(B), "pos": z(B),
+            "active": torch.zeros((B,), dtype=torch.bool,
+                                  device=self.device),
+            "tail_buf": z(B, self._tail_cap),
+            "tail_idx": z(B), "tail_len": z(B),
+            "gen_buf": z(B, self._gen_cap),
+            "gen_idx": z(B),
+            "max_new": torch.ones((B,), dtype=torch.int32,
+                                  device=self.device),
+        }
+
+    def _loop_step(self) -> torch.Tensor:
+        """One decode step for every slot; the state updates in place."""
+        st = self.state
+        nxt, logits, self.cache = self._decode_step(
+            self.params, st["tok"], st["pos"], self.cache)
+        b = torch.arange(st["tok"].shape[0], device=self.device)
+        act = st["active"]
+        in_tail = st["tail_idx"] < st["tail_len"]
+        ti = st["tail_idx"].clamp(max=self._tail_cap - 1).long()
+        gi = st["gen_idx"].clamp(max=self._gen_cap - 1).long()
+        # a slot in its tail feeds the next prompt token and drops the
+        # prediction; past the tail the prediction is the next generated
+        # token and feeds back as the next input
+        new_tok = torch.where(in_tail, st["tail_buf"][b, ti], nxt)
+        record = act & ~in_tail
+        st["gen_buf"][b, gi] = torch.where(record, nxt, st["gen_buf"][b, gi])
+        st["gen_idx"] += record.to(torch.int32)
+        st["tok"].copy_(torch.where(act, new_tok, st["tok"]))
+        st["pos"] += act.to(torch.int32)
+        st["tail_idx"] += (act & in_tail).to(torch.int32)
+        # self-freezing: a finished slot stops moving entirely
+        st["active"] &= st["gen_idx"] < st["max_new"]
+        return logits
+
+    def _state_insert(self, slot: int, tok0, pos0: int, gen0: int,
+                      first_gen, tail_row: np.ndarray, tail_len: int,
+                      max_new: int) -> None:
+        st = self.state
+        st["tok"][slot] = tok0
+        st["pos"][slot] = pos0
+        st["active"][slot] = gen0 < max_new
+        st["tail_buf"][slot] = torch.from_numpy(tail_row).to(self.device)
+        st["tail_idx"][slot] = 0
+        st["tail_len"][slot] = tail_len
+        st["gen_buf"][slot] = 0
+        st["gen_buf"][slot, 0] = first_gen
+        st["gen_idx"][slot] = gen0
+        st["max_new"][slot] = max_new
+
+    # -- prefill -----------------------------------------------------------
+
+    def _schedule_for(self, E: int):
+        """Plan-cache-backed FCP schedule for bucket ``E`` — looked up
+        on every prefill batch, so the cache stats prove the reuse."""
+        pcfg = self.pcfg
+        key = pc.prefill_plan_key(
+            E, self.budget, self.n_cp, pcfg.block_size, mask=True,
+            coalesce=pcfg.coalesce, locality=pcfg.locality,
+            wire=pcfg.comm_dtype, in_dtype_bytes=pcfg.in_dtype_bytes,
+            overlap=pcfg.overlap, extra=self._heads)
+        comp = list(pc.prefill_composition(E, self.budget))
+        return self.plan_cache.get_or_build(
+            key, lambda: servelib.build_schedule(
+                self.model.cfg, pcfg, comp, self.n_cp, self.tpw,
+                mask=True))
+
+    def prefill_fn(self, E: int, impl: str = "fused"):
+        """The ragged prefill step of bucket ``E`` (built once per
+        bucket and impl): ``fn(params, batch, last_idx)``.  ``impl``
+        is the executor's (``"plain"`` holds the kernels against their
+        plain versions)."""
+        sched = self._schedule_for(E)       # per-batch key reuse (stats)
+        if (E, impl) in self._prefill_fns:
+            return self._prefill_fns[(E, impl)]
+        attn = servelib.make_fcp_attn_fn(sched, self.device, self.pcfg, impl)
+        fn = servelib.build_prefill_step(self.model, attn,
+                                         batch_size=self.budget // E,
+                                         seq_len=E, ragged=True)
+        self._prefill_fns[(E, impl)] = fn
+        return fn
+
+    def assemble(self, E: int, reqs: list[Request]):
+        """(batch, last_idx) device tensors of one prefill batch."""
+        Pn = self.budget // E
+        toks = np.zeros((Pn, E), np.int32)
+        last = np.zeros((Pn,), np.int32)
+        for i, r in enumerate(reqs):
+            L = r.prompt_len
+            if r.mode == "pad":
+                toks[i, :L] = r.prompt
+                last[i] = L - 1
+            else:                          # chunk: first E tokens
+                toks[i] = r.prompt[:E]
+                last[i] = E - 1
+        posf = np.tile(np.arange(E, dtype=np.int32), Pn)
+        shape = (self.n_cp, self.tpw)      # stream is sequence-major
+        dev = self.device
+        batch = {"tokens": torch.from_numpy(toks.reshape(shape)).to(dev),
+                 "positions": torch.from_numpy(posf.reshape(shape)).to(dev)}
+        return batch, torch.from_numpy(last).to(dev)
+
+    def _tail_arrays(self, req: Request, E: int):
+        """(pos0, first_tail, has_tail, tail_row, tail_len) host-side."""
+        L = req.prompt_len
+        tail_row = np.zeros((self._tail_cap,), np.int32)
+        if req.mode == "pad":
+            return L, 0, False, tail_row, 0
+        has_tail = L > E
+        first_tail = int(req.prompt[E]) if has_tail else 0
+        tail = req.prompt[E + 1:L]
+        tail_row[:tail.shape[0]] = tail
+        return E, first_tail, has_tail, tail_row, int(tail.shape[0])
+
+    def _prefill_and_insert(self, reqs: list[Request],
+                            free: list[int]) -> None:
+        E = reqs[0].bucket
+        fn = self.prefill_fn(E)
+        batch, last = self.assemble(E, reqs)
+        t0 = time.perf_counter()
+        plogits, pcache = fn(self.params, batch, last)
+        self._sync()                       # one sync per BATCH (timing)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self.prefill_batches += 1
+        self.prefill_rows += self.budget // E
+        self.prefill_rows_real += len(reqs)
+        first = torch.argmax(plogits, dim=-1).to(torch.int32)
+        for i, (req, slot) in enumerate(zip(reqs, free)):
+            pos0, ft, ht, tail_row, tl = self._tail_arrays(req, E)
+            for k, c in self.cache.items():
+                c[:, slot, :E] = pcache[k][:, i]
+            # first generated token: argmax of the prefill's last-token
+            # logits — computed on the device, never synced to the host
+            self._state_insert(
+                slot, ft if ht else first[i], pos0, 0 if ht else 1,
+                0 if ht else first[i], tail_row, tl, req.max_new)
+            req.queue_ms = (t0 - req.submit_t) * 1e3
+            req.prefill_ms = dt_ms
+            req.insert_t = time.perf_counter()
+            self._slots[slot] = _SlotMeta(req, tail_len=tl,
+                                          gen0=0 if ht else 1)
+
+    # -- scheduling rounds -------------------------------------------------
+
+    def _refill(self) -> None:
+        free = [i for i, m in enumerate(self._slots) if m is None]
+        while free and len(self.queue):
+            head = self.queue.peek()
+            cap = min(len(free), self.budget // head.bucket)
+            reqs = self.queue.pop_batch(limit=cap)
+            if not reqs:
+                break
+            take, free = free[:len(reqs)], free[len(reqs):]
+            self._prefill_and_insert(reqs, take)
+
+    def _dispatch_step(self) -> None:
+        self.last_logits = self._loop_step()
+        self.decode_steps += 1
+        for m in self._slots:
+            if m is not None and not m.done:
+                m.steps += 1
+
+    def _collect_finished(self) -> list[Request]:
+        done = []
+        if not any(m is not None and m.done for m in self._slots):
+            return done
+        # one transfer for every completion in this round — the only
+        # device->host sync in the decode loop
+        gen = self.state["gen_buf"].cpu().numpy()
+        for slot, m in enumerate(self._slots):
+            if m is None or not m.done:
+                continue
+            req = m.req
+            req.tokens = gen[slot, :req.max_new].copy()
+            req.finish_t = time.perf_counter()
+            req.decode_ms = (req.finish_t - req.insert_t) * 1e3
+            req.total_ms = (req.finish_t - req.submit_t) * 1e3
+            self.stats.add(req)
+            done.append(req)
+            self._slots[slot] = None
+        return done
+
+    # -- driver ------------------------------------------------------------
+
+    def warmup(self) -> None:
+        """Touch every steady-state path once — one filler request per
+        admissible prefill bucket, with enough generation to run the
+        decode loop — so kernels are built and every bucket is planned
+        before the measured stream; then reset the counters."""
+        mn = min(2, self.scfg.max_new_tokens)
+        prompts = []
+        for e in self.edges:
+            L = min(e, self.scfg.cache_len - mn)
+            if L >= 1 and self.bucket_of(L)[0] == e:
+                prompts.append(np.ones((L,), np.int32))
+        self.run(prompts, max_new=mn)
+        self.reset_counters()
+
+    def run(self, prompts: Sequence, max_new: int | None = None) -> dict:
+        """Serve an offline stream of prompts end to end and return the
+        report.  Admission respects ``queue_depth``; free slots refill
+        every scheduling round; the loop ends when every request has
+        finished."""
+        pending = deque(prompts)
+        t_run = time.perf_counter()
+        while pending or len(self.queue) or self.n_active():
+            while pending and len(self.queue) < self.scfg.queue_depth:
+                self.submit(pending.popleft(), max_new)
+            self._refill()
+            self._collect_finished()
+            if any(m is not None and not m.done for m in self._slots):
+                self._dispatch_step()
+                self._collect_finished()
+        self._sync()
+        return self.report(time.perf_counter() - t_run)
+
+    def report(self, wall_s: float) -> dict:
+        s = self.stats.summary()
+        toks = s["generated_tokens"]
+        return {
+            "wall_s": wall_s,
+            "sustained_tok_s": toks / wall_s if wall_s > 0 else 0.0,
+            "decode_steps": self.decode_steps,
+            "prefill_batches": self.prefill_batches,
+            "prefill_fill": (self.prefill_rows_real
+                             / max(self.prefill_rows, 1)),
+            "bucket_edges": list(self.edges),
+            "prefill_impl": "fcp",
+            **s,
+            "plan_cache": self.plan_cache.stats.to_dict(),
+        }

@@ -1,0 +1,245 @@
+"""Kernel parity on the CPU: the plain PyTorch versions of the two ported
+kernels, which the wrappers take for CPU tensors, against the reference
+Pallas kernels run in interpret mode (as ``tests/test_kernels.py`` runs
+them), plus the torch oracles against the jnp oracles.
+
+Tolerances: the fused run 2e-5 (the reference's own fused-vs-oracle
+bound), the per-step kernel and the oracles 1e-5; slots a run does not
+visit pass through bitwise."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import masks as jmasks
+from repro.kernels import flash_attention as jfa
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch import masks as tmasks
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+# tile-boundary window / chunk (W % 64 != 0) on purpose
+MASKS = ["causal", "swa:96", "chunked:96", "full"]
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _stream_meta(rng, n, docs, pad_frac=0.1):
+    npad = int(n * pad_frac)
+    body = n - npad
+    cuts = np.sort(rng.choice(np.arange(1, body), docs - 1, replace=False))
+    seg = np.full(n, -1, np.int32)
+    pos = np.zeros(n, np.int32)
+    lo = 0
+    for i, hi in enumerate(list(cuts) + [body]):
+        seg[lo:hi] = i
+        pos[lo:hi] = np.arange(hi - lo)
+        lo = hi
+    return seg, pos
+
+
+# --------------------------------------------------------------------------
+# fused run forward
+# --------------------------------------------------------------------------
+
+def _fused_inputs(rng, SL=5, H=4, KH=2, bs=128, d=32, EX=6):
+    """Executor-shaped buffers over one document stream and a q-sorted
+    run: slot 0 <- kv {0}; slot 1 <- kv {1} (kv 0 arrived through the
+    incoming accumulator); slot 2 <- kv {0, 1, 2}; a trash step on
+    (SL-1, EX-1); slot 3 is never visited."""
+    qs = rng.normal(size=(SL, H, bs, d)).astype(np.float32)
+    kxt = rng.normal(size=(EX, KH, bs, d)).astype(np.float32)
+    vxt = rng.normal(size=(EX, KH, bs, d)).astype(np.float32)
+    q_seg = np.zeros((SL, bs), np.int32)
+    q_seg[SL - 1] = -1
+    q_seg[2, 5] = -1                                 # a fully masked row
+    q_pos = (np.arange(bs)[None] + np.arange(SL)[:, None] * bs)
+    kv_seg = np.zeros((EX, bs), np.int32)
+    kv_seg[EX - 1] = -1
+    kv_pos = (np.arange(bs)[None] + np.arange(EX)[:, None] * bs)
+    step_q = np.array([0, 1, 2, 2, 2, SL - 1], np.int32)
+    step_kv = np.array([0, 1, 0, 1, 2, EX - 1], np.int32)
+    acc_o = np.zeros((SL, H, bs, d), np.float32)
+    acc_lse = np.full((SL, H, bs), -1e30, np.float32)
+    o_prev, l_prev = jref.reference_attention(
+        qs[1], kxt[0], vxt[0], q_seg[1], q_pos[1].astype(np.int32),
+        kv_seg[0], kv_pos[0].astype(np.int32), True)
+    acc_o[1], acc_lse[1] = np.asarray(o_prev), np.asarray(l_prev)
+    acc_o[3] = rng.normal(size=(H, bs, d))           # untouched, nonzero
+    acc_lse[3] = rng.normal(size=(H, bs))
+    tabs = dict(step_q=step_q, step_kv=step_kv, q_seg=q_seg,
+                q_pos=q_pos.astype(np.int32), k_seg=kv_seg[step_kv],
+                k_pos=kv_pos[step_kv].astype(np.int32))
+    return qs, kxt, vxt, acc_o, acc_lse, tabs
+
+
+@pytest.mark.parametrize("mask", MASKS)
+def test_fused_plain_matches_interpret_kernel(mask):
+    rng = np.random.default_rng(11)
+    qs, kxt, vxt, acc_o, acc_lse, tabs = _fused_inputs(rng)
+    jo, jl = jops.fused_run_attention(
+        jnp.asarray(qs), jnp.asarray(kxt), jnp.asarray(vxt),
+        jnp.asarray(acc_o), jnp.asarray(acc_lse),
+        {k: jnp.asarray(v) for k, v in tabs.items()},
+        mask=jmasks.parse_mask(mask), impl="pallas", block_q=64,
+        block_k=64, interpret=True)
+    to, tl = _t(acc_o), _t(acc_lse)
+    out = tops.fused_run_attention(
+        _t(qs), _t(kxt), _t(vxt), to, tl,
+        {k: _t(v) for k, v in tabs.items()}, mask=tmasks.parse_mask(mask))
+    assert out[0] is to and out[1] is tl             # updated in place
+    jo, jl = np.asarray(jo), np.asarray(jl)
+    for slot in (0, 1, 2):
+        np.testing.assert_allclose(to[slot].numpy(), jo[slot], atol=2e-5,
+                                   rtol=2e-5)
+        live = jl[slot] > -1e29
+        np.testing.assert_allclose(tl[slot].numpy()[live], jl[slot][live],
+                                   atol=2e-5, rtol=2e-5)
+        assert np.all(tl[slot].numpy()[~live] < -1e29)
+    # the untouched slot passes through bitwise, in both packages
+    np.testing.assert_array_equal(to[3].numpy(), acc_o[3])
+    np.testing.assert_array_equal(tl[3].numpy(), acc_lse[3])
+    np.testing.assert_array_equal(jo[3], acc_o[3])
+    assert tfa.fused_flash_fwd.launches == 0          # CPU: plain version
+
+
+def test_fused_plain_stacks_workers():
+    """A leading worker dim runs every worker's run in one call, each
+    equal to its own single-worker call."""
+    rng = np.random.default_rng(12)
+    one = [_fused_inputs(rng) for _ in range(2)]
+    outs = []
+    for qs, kxt, vxt, acc_o, acc_lse, tabs in one:
+        o, l = _t(acc_o), _t(acc_lse)
+        tops.fused_run_attention(_t(qs), _t(kxt), _t(vxt), o, l,
+                                 {k: _t(v) for k, v in tabs.items()})
+        outs.append((o, l))
+    st = [torch.stack([_t(x[i]) for x in one]) for i in range(5)]
+    tabs = {k: torch.stack([_t(x[5][k]) for x in one]) for k in one[0][5]}
+    tops.fused_run_attention(*st, tabs)
+    for w, (o, l) in enumerate(outs):
+        torch.testing.assert_close(st[3][w], o, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(st[4][w], l, atol=1e-6, rtol=1e-6)
+
+
+def test_run_segments():
+    lo, hi = tfa.run_segments(np.array([[0, 0, 2, 2, 2, 4],
+                                        [1, 4, 4, 4, 4, 4]]), skip_slot=4)
+    assert lo.tolist() == [[0, 2], [0, 0]]
+    assert hi.tolist() == [[2, 5], [1, 0]]
+    with pytest.raises(ValueError, match="sorted"):
+        tfa.run_segments(np.array([[0, 1, 0]]))
+
+
+# --------------------------------------------------------------------------
+# per-step varlen forward (decode kernel at Sq = 1)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sq", [128, 1])
+@pytest.mark.parametrize("mask", MASKS)
+def test_flash_plain_matches_interpret_kernel(mask, sq):
+    rng = np.random.default_rng(21)
+    h, kh, sk, d = 4, 2, 256, 64
+    q = rng.normal(size=(h, sq, d)).astype(np.float32)
+    k = rng.normal(size=(kh, sk, d)).astype(np.float32)
+    v = rng.normal(size=(kh, sk, d)).astype(np.float32)
+    seg_k, pos_k = _stream_meta(rng, sk, 3)
+    # q rows are the tail of the kv stream (causal masking bites); row
+    # 0 is a padding row: fully masked
+    seg_q, pos_q = seg_k[sk - sq - 30:sk - 30].copy(), \
+        pos_k[sk - sq - 30:sk - 30].copy()
+    seg_q[0] = -1
+    args = (q, k, v, seg_q, pos_q, seg_k, pos_k)
+    jo, jl = jfa.flash_attention_fwd(
+        *map(jnp.asarray, args), mask=jmasks.parse_mask(mask),
+        block_q=min(128, sq), block_k=128, interpret=True)
+    to, tl = tops.block_attention(*map(_t, args),
+                                  mask=tmasks.parse_mask(mask))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5,
+                               rtol=1e-5)
+    live = np.asarray(jl) > -1e29
+    np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live],
+                               atol=1e-5, rtol=1e-5)
+    assert np.all(to.numpy()[:, 0] == 0) and np.all(tl.numpy()[:, 0]
+                                                    == -1e30)
+    assert tfa.flash_attention_fwd.launches == 0
+
+
+def test_flash_plain_batched_strided_cache():
+    """The decode layout: q [B, H, 1, D] against a [B, S, KH, D] cache
+    passed as a strided view, per-row lengths; equal to per-row calls."""
+    rng = np.random.default_rng(22)
+    B, S, KH, H, D = 3, 40, 2, 4, 32
+    cache_k = _t(rng.normal(size=(B, S, KH, D)).astype(np.float32))
+    cache_v = _t(rng.normal(size=(B, S, KH, D)).astype(np.float32))
+    q = _t(rng.normal(size=(B, H, 1, D)).astype(np.float32))
+    lengths = torch.tensor([1, 17, 40])
+    pos = torch.arange(S, dtype=torch.int32)
+    seg = torch.where(pos[None] < lengths[:, None], 0, -1).int()
+    zero = torch.zeros(1, dtype=torch.int32)
+    o, lse = tfa.flash_attention_fwd(q, cache_k.transpose(1, 2),
+                                     cache_v.transpose(1, 2), zero, zero,
+                                     seg, pos.expand(B, S).contiguous(),
+                                     mask=False)
+    for b in range(B):
+        ob, lb = tref.reference_attention(
+            q[b], cache_k[b].transpose(0, 1), cache_v[b].transpose(0, 1),
+            zero, zero, seg[b], pos, mask=False)
+        torch.testing.assert_close(o[b], ob, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(lse[b], lb, atol=1e-6, rtol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# oracles
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mask", MASKS)
+def test_oracles_match_reference(mask):
+    rng = np.random.default_rng(31)
+    h, kh, sq, sk, d = 4, 2, 96, 200, 32
+    q = rng.normal(size=(h, sq, d)).astype(np.float32)
+    k = rng.normal(size=(kh, sk, d)).astype(np.float32)
+    v = rng.normal(size=(kh, sk, d)).astype(np.float32)
+    seg_k, pos_k = _stream_meta(rng, sk, 2)
+    seg_q, pos_q = seg_k[-sq:].copy(), pos_k[-sq:].copy()
+    args = (q, k, v, seg_q, pos_q, seg_k, pos_k)
+    jm, tm = jmasks.parse_mask(mask), tmasks.parse_mask(mask)
+    np.testing.assert_array_equal(
+        tref.mask_matrix(*map(_t, args[3:]), tm).numpy(),
+        np.asarray(jref.mask_matrix(*map(jnp.asarray, args[3:]), jm)))
+    for jfn, tfn, kw in ((jref.reference_attention,
+                          tref.reference_attention, {}),
+                         (jref.chunked_attention, tref.chunked_attention,
+                          {"chunk": 64})):
+        jo, jl = jfn(*map(jnp.asarray, args), jm, **kw)
+        to, tl = tfn(*map(_t, args), tm, **kw)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5,
+                                   rtol=1e-5)
+    # merges of disjoint partials
+    oa, la = jref.reference_attention(*map(jnp.asarray, args), jm)
+    parts = [rng.normal(size=(3, h, sq, d)).astype(np.float32),
+             (rng.normal(size=(3, h, sq)) * 3).astype(np.float32)]
+    jo, jl = jref.merge_many(*map(jnp.asarray, parts))
+    to, tl = tref.merge_many(*map(_t, parts))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5)
+    jo, jl = jref.merge_partials(oa, la, jnp.asarray(parts[0][0]),
+                                 jnp.asarray(parts[1][0]))
+    to, tl = tref.merge_partials(_t(oa), _t(la), _t(parts[0][0]),
+                                 _t(parts[1][0]))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5)
+
+
+def test_kernel_impl_rejects_unknown():
+    with pytest.raises(ValueError, match="impl"):
+        tops.block_attention(*[torch.zeros(1)] * 7, impl="xla")
+    jax.clear_caches()
