@@ -4,7 +4,7 @@ Runs a host-built :class:`~repro_torch.core.schedule.Schedule` on one
 device: the plan's N context-parallel workers sit on a leading tensor
 dimension, and every ppermute of the reference becomes
 :func:`repro_torch.runtime.wire.ship` (an index copy through the
-schedule's wire format).
+schedule's wire format, differentiable like the reference's).
 
 * **transparent reshuffle** — (q, k, v) blocks move from the stream
   layout to the schedule layout through the plan's reshuffle rounds (and
@@ -12,10 +12,30 @@ schedule's wire format).
 * **serial round loop** — per coalesced round ``r``: ship the round's
   KV stacks, compute run ``r``, then commit the arrivals into the
   colored receive slots (consumers of round ``r`` sit in runs ``> r``);
-* **compute runs** — with ``impl="fused"`` each run is ONE
-  ``fused_run_attention`` call covering all N workers (one CUDA launch;
-  the plain version on CPU tensors); ``impl="plain"`` runs the plain
-  PyTorch version on any device.
+* **compute runs** — ``ExecConfig.impl`` takes the reference's four
+  ``attention_impl`` names:
+
+  - ``fused``: ONE ``fused_run_attention`` call per run covering all N
+    workers — CUDA kernel 1 forward, kernels 3 and 4 backward;
+  - ``pallas``: per step index, ONE batched ``block_attention`` over the
+    N workers' (q slot, kv slot) pairs plus ``merge_partials`` into the
+    accumulators — kernel 2 forward, kernels 5 and 6 backward;
+  - ``fused_xla`` / ``xla``: the same two groupings on the plain
+    PyTorch versions, on any device (the yardsticks the kernels are
+    held against).
+
+  On CPU tensors the kernel impls take the plain versions too.
+
+The executor is differentiable.  Its writes are in place only while no
+gradient is needed (serving): the reshuffle scatters into ``qs``/``ks``/
+``vs``, the fused runs on the accumulators, the arrival commits into
+``kxt``/``vxt`` and the restore scatter into ``o_u``.  Under autograd
+every one of them is out of place (``index_put``, and the fused run
+returns fresh accumulators): a run saves the ``kxt``/``vxt`` it read for
+its backward, and the receive slots are live-range colored, so a later
+round's commit reuses a slot an earlier run read — an in-place commit
+would both fail autograd's version check and be wrong.  Both modes give
+the same bytes (``tests/test_torch_train.py``).
 
 Also provides ``cp_decode_attention`` / ``cp_cache_update``: decode
 against a KV cache whose sequence dim is split into shards; the
@@ -23,8 +43,8 @@ per-shard partials merge with a plain reduction over the shard dim (the
 reference's pmax/psum).
 
 Not ported yet (queued in ROADMAP): the software-pipelined round loop
-(``spec.overlap``), the layer-pipelined ``layout="sched"`` path with
-``fcp_reshuffle``, and the backward pass.
+(``spec.overlap``) and the layer-pipelined ``layout="sched"`` path with
+``fcp_reshuffle``.
 """
 
 from __future__ import annotations
@@ -40,24 +60,34 @@ from ..kernels.ref import NEG_INF
 from ..runtime import wire as wirelib
 from .schedule import PlanArrays, Schedule, StaticSpec
 
+# impl -> (grouping, kernels.ops impl)
+_IMPLS = {"fused": ("fused", "kernel"), "pallas": ("step", "kernel"),
+          "fused_xla": ("fused", "plain"), "xla": ("step", "plain")}
+
 
 @dataclasses.dataclass(frozen=True)
 class ExecConfig:
-    # "fused": one launch per run of the hand-written CUDA kernels (their
-    # plain versions on CPU tensors); "plain": the plain PyTorch versions
-    # on any device — the yardstick the kernels are held against
+    # "fused" / "pallas": the hand-written CUDA kernels (their plain
+    # versions on CPU tensors), one launch per run / per step index;
+    # "fused_xla" / "xla": the same groupings on the plain PyTorch
+    # versions on any device
     impl: str = "fused"
     out_dtype: str | None = None    # e.g. "bfloat16": halve restore bytes
 
     def __post_init__(self):
-        if self.impl not in ("fused", "plain"):
+        if self.impl not in _IMPLS:
             raise ValueError(f"unknown executor impl {self.impl!r} "
-                             f"(expected 'fused' or 'plain')")
+                             f"(expected one of {tuple(_IMPLS)})")
+
+    @property
+    def fused(self) -> bool:
+        """One launch per run (else one per step index)."""
+        return _IMPLS[self.impl][0] == "fused"
 
     @property
     def kernel_impl(self) -> str:
         """The ``kernels.ops`` impl this executor impl runs."""
-        return "kernel" if self.impl == "fused" else "plain"
+        return _IMPLS[self.impl][1]
 
 
 def plan_tables(arrays: PlanArrays, device) -> dict[str, torch.Tensor]:
@@ -71,11 +101,13 @@ def schedule_tables(sched: Schedule, device) -> dict:
     (per device): plan-cache hits return the same ``Schedule``, so
     repeated batches reuse the uploaded tables.
 
-    Beyond the raw :class:`PlanArrays`, the memo holds what the fused
-    kernel reads per run, sliced contiguous once: the run's step tables,
-    the kv mask metadata of each step, and its segment table (one
-    ``(lo, hi)`` step range per distinct q slot; trash steps get none,
-    so they never touch a real slot)."""
+    Beyond the raw :class:`PlanArrays`, the memo holds what the kernels
+    read per run, sliced contiguous once: the run's step tables and the
+    kv mask metadata of each step, in the forward (q-slot-sorted) order
+    and in the backward (kv-row-sorted) order, the segment tables over
+    both (one ``(lo, hi)`` step range per distinct q slot / kv row;
+    trash steps get none, so they never touch a real slot), and the
+    per-step-index tables of the ``pallas``/``xla`` impls."""
     device = torch.device(device)
     memo = sched._device_tables
     if memo is None:
@@ -86,8 +118,14 @@ def schedule_tables(sched: Schedule, device) -> dict:
     spec, arr = sched.spec, sched.arrays
     t = plan_tables(arr, device)
     N = spec.n_workers
+    wk = torch.arange(N, device=device)
     t["q_seg"] = t["blk_seg"][t["sched_blk"].long()]      # [N, SL, bs]
     t["q_pos"] = t["blk_pos"][t["sched_blk"].long()]
+
+    def segs(keys, skip):
+        lo, hi = run_segments(keys, skip_slot=skip)
+        return torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device)
+
     runs = []
     for r in range(spec.n_runs):
         lo, hi = spec.run_starts[r], spec.run_starts[r + 1]
@@ -95,18 +133,29 @@ def schedule_tables(sched: Schedule, device) -> dict:
             runs.append(None)
             continue
         blk = t["step_kv_blk"][:, lo:hi].long()
-        seg_lo, seg_hi = run_segments(arr.step_q[:, lo:hi],
-                                      skip_slot=spec.q_trash)
-        runs.append({
+        blk_b = t["bwd_kv_blk"][:, lo:hi].long()
+        run = {
             "step_q": t["step_q"][:, lo:hi].contiguous(),
             "step_kv": t["step_kv"][:, lo:hi].contiguous(),
             "q_seg": t["q_seg"], "q_pos": t["q_pos"],
             "k_seg": t["blk_seg"][blk], "k_pos": t["blk_pos"][blk],
-            "segments": (torch.from_numpy(seg_lo).to(device),
-                         torch.from_numpy(seg_hi).to(device)),
-        })
+            "segments": segs(arr.step_q[:, lo:hi], spec.q_trash),
+            "bwd_q": t["bwd_q"][:, lo:hi].contiguous(),
+            "bwd_kv": t["bwd_kv"][:, lo:hi].contiguous(),
+            "k_seg_b": t["blk_seg"][blk_b], "k_pos_b": t["blk_pos"][blk_b],
+            "kv_segments": segs(arr.bwd_kv[:, lo:hi], spec.kv_trash),
+        }
+        # per step index: the N workers' (q slot, kv row) pair and its
+        # mask metadata, for one batched block_attention
+        run["steps"] = [
+            (run["step_q"][:, i].long(), run["step_kv"][:, i].long(),
+             t["q_seg"][wk, run["step_q"][:, i].long()],
+             t["q_pos"][wk, run["step_q"][:, i].long()],
+             run["k_seg"][:, i].contiguous(),
+             run["k_pos"][:, i].contiguous()) for i in range(hi - lo)]
+        runs.append(run)
     t["runs"] = runs
-    t["workers"] = torch.arange(N, device=device)[:, None]
+    t["workers"] = wk[:, None]
     memo[key] = t
     return t
 
@@ -125,6 +174,15 @@ def _with_trash(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((x.shape[0], 1) + x.shape[2:])], dim=1)
 
 
+def _put(buf: torch.Tensor, idx: tuple, val: torch.Tensor,
+         inplace: bool) -> torch.Tensor:
+    """``buf[idx] = val``: in place, or out of place under autograd."""
+    if inplace:
+        buf[idx] = val
+        return buf
+    return buf.index_put(idx, val.to(buf.dtype))
+
+
 def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
                   cfg: ExecConfig = ExecConfig(),
                   layout: str = "stream") -> torch.Tensor:
@@ -133,7 +191,8 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
     q: ``[N, tpw, HQ, D]``; k/v: ``[N, tpw, KH, D]`` in the stream
     layout (frame ``w`` is worker ``w``'s share of the packed stream).
     Returns o (f32, or ``cfg.out_dtype``) in the same layout — the
-    caller never sees the schedule layout (§4.3).
+    caller never sees the schedule layout (§4.3).  Differentiable in
+    q, k and v.
     """
     if layout != "stream":
         raise NotImplementedError(
@@ -152,6 +211,10 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
     fmt = spec.wire
     t = tables
     wk = t["workers"]
+    # in-place writes only when no gradient flows (module docstring)
+    inplace = not (torch.is_grad_enabled()
+                   and (q.requires_grad or k.requires_grad
+                        or v.requires_grad))
 
     def ship(payload, perm):
         return wirelib.ship(payload, perm, fmt)
@@ -181,10 +244,10 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
                                  _gather_rows(v_ut, idx, wk)], dim=2)
             recv = ship(payload, g.perm)
             # one scatter per group (idle rows land on the trash row)
-            didx = dst[:, off:off + g.rows].long()
-            qs[wk, didx] = recv[:, :, :hq]
-            ks[wk, didx] = recv[:, :, hq:hq + kh]
-            vs[wk, didx] = recv[:, :, hq + kh:]
+            at = (wk, dst[:, off:off + g.rows].long())
+            qs = _put(qs, at, recv[:, :, :hq], inplace)
+            ks = _put(ks, at, recv[:, :, hq:hq + kh], inplace)
+            vs = _put(vs, at, recv[:, :, hq + kh:], inplace)
             off += g.rows
 
     # ---- extended KV buffer (local slots + colored receive slots + trash) -
@@ -213,16 +276,28 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
     for r in range(spec.n_runs):
         arrivals = issue(r) if r < spec.n_rounds else []
         run = t["runs"][r]
-        if run is not None:
+        if run is not None and cfg.fused:
             # ONE launch for the whole run, all workers: step tables drive
-            # the KV gathers, the accumulators update in place
-            ops.fused_run_attention(qs, kxt, vxt, acc_o, acc_lse, run,
-                                    mask=spec.mask, impl=cfg.kernel_impl)
+            # the KV gathers
+            acc_o, acc_lse = ops.fused_run_attention(
+                qs, kxt, vxt, acc_o, acc_lse, run, mask=spec.mask,
+                impl=cfg.kernel_impl)
+        elif run is not None:
+            # per step index: one batched launch over the N workers' pairs
+            w = wk[:, 0]
+            for sq, skv, q_seg, q_pos, k_seg, k_pos in run["steps"]:
+                o_p, lse_p = ops.block_attention(
+                    qs[w, sq], kxt[w, skv], vxt[w, skv], q_seg, q_pos,
+                    k_seg, k_pos, mask=spec.mask, impl=cfg.kernel_impl)
+                o_new, l_new = ops.merge_partials(
+                    acc_o[w, sq], acc_lse[w, sq], o_p, lse_p)
+                acc_o = _put(acc_o, (w, sq), o_new, inplace)
+                acc_lse = _put(acc_lse, (w, sq), l_new, inplace)
         dst = t["recv_slot"][:, r] if arrivals else None
         for off, g, recv in arrivals:
-            didx = dst[:, off:off + g.rows].long()
-            kxt[wk, didx] = recv[:, :, :kh]
-            vxt[wk, didx] = recv[:, :, kh:]
+            at = (wk, dst[:, off:off + g.rows].long())
+            kxt = _put(kxt, at, recv[:, :, :kh], inplace)
+            vxt = _put(vxt, at, recv[:, :, kh:], inplace)
 
     # ---- restore: schedule layout -> stream layout -------------------------
     if cfg.out_dtype is not None:
@@ -238,7 +313,8 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
             perm = tuple((d_, s_) for s_, d_ in g.perm)
             recv = ship(_gather_rows(acc_o, snd[:, off:off + g.rows], wk),
                         perm)
-            o_u[wk, dst[:, off:off + g.rows].long()] = recv
+            o_u = _put(o_u, (wk, dst[:, off:off + g.rows].long()), recv,
+                       inplace)
             off += g.rows
     return o_u[:, :slots].permute(0, 1, 3, 2, 4).reshape(N, tpw, hq, d)
 

@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-SOURCES = ("fused_flash_fwd", "flash_attention_fwd")
+SOURCES = ("fused_flash_fwd", "flash_attention_fwd", "fused_flash_bwd_dq",
+           "fused_flash_bwd_dkv", "flash_attention_bwd")
 
 
 def nvcc_path() -> str:

@@ -27,8 +27,9 @@ from .. import resolve_device
 from ..configs.base import (ModelConfig, ParallelConfig, apply_overrides,
                             get_config, smoke_config)
 from ..core import executor as ex
-from ..core.schedule import Schedule, make_schedule
 from ..models import Model
+from .train import (build_schedule, make_fcp_attn_fn,  # noqa: F401
+                    param_dtype_bytes)
 
 
 def cache_specs(cfg: ModelConfig, mesh, kind: str):
@@ -69,41 +70,6 @@ def build_decode_step(model: Model, mesh, kind: str, impl: str = "fused"):
 # --------------------------------------------------------------------------
 # prefill
 # --------------------------------------------------------------------------
-
-def param_dtype_bytes(cfg: ModelConfig) -> int:
-    """Itemsize of the compute dtype the executor's payloads ship in
-    (prices the wire in real bytes, as the reference's train driver)."""
-    return getattr(torch, cfg.param_dtype).itemsize
-
-
-def build_schedule(cfg: ModelConfig, pcfg: ParallelConfig, seqlens,
-                   n_cp: int, tokens_per_worker: int, mask=True,
-                   verify: bool | None = None) -> Schedule:
-    """The reference's ``launch.train.build_schedule``: one FCP plan."""
-    nh, nkv = cfg.padded_heads(1)
-    return make_schedule(
-        seqlens, n_cp, tokens_per_worker, pcfg.block_size,
-        n_q_heads=max(nh, 1), n_kv_heads=max(nkv, 1),
-        head_dim=max(cfg.head_dim, 1), mask=mask,
-        coalesce=pcfg.coalesce, wire=pcfg.comm_dtype,
-        in_dtype_bytes=pcfg.in_dtype_bytes, overlap=pcfg.overlap,
-        locality={"auto": "auto", "on": True, "off": False}.get(
-            str(pcfg.locality), pcfg.locality),
-        verify=verify)
-
-
-def make_fcp_attn_fn(sched: Schedule, device, pcfg: ParallelConfig,
-                     impl: str = "fused") -> Callable:
-    """``attn(q, k, v)`` over ``[F, T, H, D]`` frames through the FCP
-    executor on stacked workers (frame = worker)."""
-    tables = ex.schedule_tables(sched, device)
-    cfg = ex.ExecConfig(
-        impl=impl, out_dtype="bfloat16" if pcfg.attn_out_bf16 else None)
-
-    def attn(q, k, v):
-        return ex.fcp_attention(q, k, v, tables, spec=sched.spec, cfg=cfg)
-    return attn
-
 
 def build_prefill_step(model: Model, attn_fn: Callable, batch_size: int,
                        seq_len: int, ragged: bool = False):

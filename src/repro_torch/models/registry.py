@@ -1,10 +1,11 @@
 """Model registry (port of ``repro.models.registry``, dense family).
 
-``Model(cfg, tp)`` offers ``init``, ``forward_prefill``, ``init_cache``
-and ``decode_step`` with pluggable attention, plus the single-device
-oracles ``dense_attn_fn`` / ``dense_decode_attn`` /
-``dense_cache_update``.  The MoE, SSM and hybrid families are not
-ported yet and raise.
+``Model(cfg, tp)`` offers ``init``, ``forward``, ``features``,
+``head_fn``, ``loss`` and ``param_count`` (training), ``forward_prefill``,
+``init_cache`` and ``decode_step`` (serving), all with pluggable
+attention, plus the single-device oracles ``dense_attn_fn`` /
+``dense_decode_attn`` / ``dense_cache_update``.  The MoE, SSM and
+hybrid families are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ref
-from . import transformer
+from . import layers, transformer
 
 PORTED_FAMILIES = ("dense",)
 
@@ -35,6 +36,37 @@ class Model:
     def init(self, generator: torch.Generator, device="cuda") -> dict:
         return transformer.init_params(self.cfg, generator, device,
                                        self.tp)
+
+    def forward(self, params, batch: dict, attn_fn=None,
+                remat=False) -> torch.Tensor:
+        return transformer.forward(params, self.cfg, batch, attn_fn, remat)
+
+    def features(self, params, batch: dict, attn_fn=None, remat=False):
+        """Pre-unembed hidden states (chunked-loss path)."""
+        return transformer.forward(params, self.cfg, batch, attn_fn, remat,
+                                   return_features=True)
+
+    def head_fn(self, params):
+        """Chunk-applicable unembedding (norm + lm head)."""
+        return lambda x: transformer.unembed(params, self.cfg, x)
+
+    def loss(self, params, batch: dict, attn_fn=None, remat=False,
+             chunked: bool = False, chunk: int = 4096) -> torch.Tensor:
+        if chunked:
+            feats = self.features(params, batch, attn_fn, remat)
+            return layers.chunked_cross_entropy(
+                feats, self.head_fn(params), batch["labels"],
+                batch["loss_mask"], self.cfg.vocab_size, chunk)
+        logits = self.forward(params, batch, attn_fn, remat)
+        return layers.cross_entropy(logits, batch["labels"],
+                                    batch["loss_mask"], self.cfg.vocab_size)
+
+    def param_count(self, params) -> int:
+        def count(t):
+            if isinstance(t, dict):
+                return sum(count(v) for v in t.values())
+            return t.numel()
+        return count(params)
 
     def forward_prefill(self, params, batch: dict, attn_fn: Callable,
                         return_features: bool = False):

@@ -5,15 +5,18 @@ The parameter tree is a dict of tensors in the reference's layout
 (``wq [L, d, H, Dh]``, ``wo [L, H, Dh, d]``, ...), so every einsum maps
 one to one.  Entry points:
 
-* ``forward_prefill`` — packed stream ``[F, T]``; attention is pluggable
+* ``forward`` — packed stream ``[F, T]`` for training: logits or the
+  pre-unembed features, with optional per-layer activation
+  checkpointing (``remat``);
+* ``forward_prefill`` — the same stack, also returning every layer's
+  roped K/V for cache construction; attention is pluggable
   (``attn_fn``), so the same code runs the dense oracle or FCP attention
   on stacked workers — the transparency property of §4.3;
 * ``decode_step`` — one token per row against a KV cache; cache read and
   update are pluggable (dense or sequence-sharded).
 
 PyTorch runs eagerly, so the layer stack is a Python loop (the
-reference's ``lax.scan``) and no activation checkpointing is needed for
-inference.
+reference's ``lax.scan``); inference needs no activation checkpointing.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers as L
@@ -90,6 +94,58 @@ def _attention_qkv(lp, cfg: ModelConfig, h, pos):
 def _ffn(x, lp, cfg: ModelConfig):
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + L.swiglu(h2, lp["wi"], lp["wg"], lp["wdown"])
+
+
+def _layer_body(x, lp, cfg: ModelConfig, pos, attn_fn):
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = _attention_qkv(lp, cfg, h, pos)
+    o = attn_fn(q, k, v)                                     # [F,T,H,Dh]
+    x = x + torch.einsum("fthk,hkd->ftd", o.to(x.dtype), lp["wo"])
+    return _ffn(x, lp, cfg)
+
+
+def forward(params, cfg: ModelConfig, batch: dict, attn_fn,
+            remat=False, return_features: bool = False) -> torch.Tensor:
+    """batch: tokens/positions ``[F, T]`` → logits (or the pre-unembed
+    features ``[F, T, d]`` for the chunked loss).
+
+    ``attn_fn`` is one callable shared by every layer, or a per-layer
+    sequence (models that interleave mask families route each layer
+    through its mask group's schedule).  The layer-pipelined entries of
+    the reference (``enter``/``exit``) are not ported and raise.
+
+    ``remat`` (``False`` | ``True`` | ``"dots"`` | ``"nothing"``) wraps
+    each layer in a non-reentrant ``torch.utils.checkpoint``: the
+    backward keeps only the layer inputs and recomputes the layer.  The
+    reference's ``"dots"`` policy (save the matmul outputs) has no eager
+    counterpart, so both policies recompute the whole layer: the saved
+    set differs from the reference's, the numbers do not.
+    """
+    if cfg.n_experts:
+        raise NotImplementedError("MoE layers are not ported yet")
+    fns = [attn_fn] * cfg.n_layers if callable(attn_fn) else list(attn_fn)
+    if len(fns) != cfg.n_layers:
+        raise ValueError(f"per-layer attn_fn sequence has {len(fns)} "
+                         f"entries for {cfg.n_layers} layers")
+    if any(hasattr(fn, "enter") or hasattr(fn, "exit") for fn in fns):
+        raise NotImplementedError(
+            "the layer-pipelined reshuffle (enter/exit entries) is not "
+            "ported yet")
+    x = embed_tokens(params, cfg, batch)
+    pos = batch["positions"]
+    names = sorted(params["layers"])
+    for i, fn in enumerate(fns):
+        ws = [params["layers"][n][i] for n in names]
+
+        def body(x, *ws, fn=fn):
+            return _layer_body(x, dict(zip(names, ws)), cfg, pos, fn)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(body, x, *ws, use_reentrant=False)
+        else:
+            x = body(x, *ws)
+    if return_features:
+        return x
+    return unembed(params, cfg, x)
 
 
 def embed_tokens(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:

@@ -367,8 +367,8 @@ class ServingLoop:
     def prefill_fn(self, E: int, impl: str = "fused"):
         """The ragged prefill step of bucket ``E`` (built once per
         bucket and impl): ``fn(params, batch, last_idx)``.  ``impl``
-        is the executor's (``"plain"`` holds the kernels against their
-        plain versions)."""
+        is the executor's (``"fused_xla"`` holds the kernels against
+        their plain versions)."""
         sched = self._schedule_for(E)       # per-batch key reuse (stats)
         if (E, impl) in self._prefill_fns:
             return self._prefill_fns[(E, impl)]

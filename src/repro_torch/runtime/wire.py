@@ -14,7 +14,10 @@ byte-identical schedules).  The codec is PyTorch:
   reference's ``encode -> ppermute -> decode`` becomes an index copy:
   receiver ``dst`` of each ``(src, dst)`` pair gets
   ``decode(encode(x[src]))`` and a receiver no pair names gets zeros.
-  Forward only; the backward pass comes with the training slice.
+  It is differentiable (:class:`_Ship`): the backward ships the
+  cotangent through the reversed partial permutation in the same wire
+  format, as the reference's ``custom_vjp`` does — exact for ``f32``,
+  the same bounded error as the forward for ``bf16``/``int8``.
 """
 
 from __future__ import annotations
@@ -166,6 +169,33 @@ def decode(payload: torch.Tensor, scales: torch.Tensor | None,
 # the stacked-worker transport
 # --------------------------------------------------------------------------
 
+def _ship(x: torch.Tensor, perm, fmt: WireFormat) -> torch.Tensor:
+    payload, scales = encode(x, fmt, (-2, -1))
+    recv = torch.zeros_like(payload)
+    recv_scales = None if scales is None else torch.zeros_like(scales)
+    for s, d in perm:
+        recv[d] = payload[s]
+        if scales is not None:
+            recv_scales[d] = scales[s]
+    return decode(recv, recv_scales, fmt, x.dtype)
+
+
+class _Ship(torch.autograd.Function):
+    """The quantized formats are not differentiable elementwise (round /
+    truncate), so the whole hop is one Function, as in the reference:
+    autograd through ``encode`` would give another gradient."""
+
+    @staticmethod
+    def forward(ctx, x, perm, fmt):
+        ctx.perm, ctx.fmt = perm, fmt
+        return _ship(x, perm, fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        rev = tuple((d, s) for s, d in ctx.perm)
+        return _ship(g.contiguous(), rev, ctx.fmt), None, None
+
+
 def ship(x: torch.Tensor, perm, fmt: WireFormat = WIRE_F32
          ) -> torch.Tensor:
     """Move worker payloads along a partial permutation.
@@ -175,12 +205,9 @@ def ship(x: torch.Tensor, perm, fmt: WireFormat = WIRE_F32
     payloads in ``x.dtype``: worker ``dst`` holds
     ``decode(encode(x[src]))``, workers no pair names hold zeros.
     Quantized formats carry one scale per (worker, row, head) — never
-    across workers, whose payloads are separate messages."""
-    payload, scales = encode(x, fmt, (-2, -1))
-    recv = torch.zeros_like(payload)
-    recv_scales = None if scales is None else torch.zeros_like(scales)
-    for s, d in perm:
-        recv[d] = payload[s]
-        if scales is not None:
-            recv_scales[d] = scales[s]
-    return decode(recv, recv_scales, fmt, x.dtype)
+    across workers, whose payloads are separate messages.  The gradient
+    travels the reversed permutation in the same format."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Ship.apply(x, perm, fmt)
+    return _ship(x, perm, fmt)

@@ -78,7 +78,7 @@ def test_out_dtype_and_plain_impl():
     assert ex.schedule_tables(sched, "cpu") is tabs     # memoized
     o_plain = ex.fcp_attention(
         *(torch.from_numpy(x).reshape(N, TPW, -1, D) for x in qkv), tabs,
-        spec=sched.spec, cfg=ex.ExecConfig(impl="plain"))
+        spec=sched.spec, cfg=ex.ExecConfig(impl="fused_xla"))
     torch.testing.assert_close(o_plain.reshape(N * TPW, H, D), o,
                                atol=0, rtol=0)
 

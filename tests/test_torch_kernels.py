@@ -1,11 +1,16 @@
-"""Kernel parity on the CPU: the plain PyTorch versions of the two ported
+"""Kernel parity on the CPU: the plain PyTorch versions of the six ported
 kernels, which the wrappers take for CPU tensors, against the reference
 Pallas kernels run in interpret mode (as ``tests/test_kernels.py`` runs
-them), plus the torch oracles against the jnp oracles.
+them), the autograd Functions against ``jax.grad`` of the reference's
+``custom_vjp`` ops, plus the torch oracles against the jnp oracles.
 
 Tolerances: the fused run 2e-5 (the reference's own fused-vs-oracle
 bound), the per-step kernel and the oracles 1e-5; slots a run does not
-visit pass through bitwise."""
+visit pass through bitwise.  The backward kernels and Functions 1e-5
+normalized by the largest reference value (f32 throughout; the gap to
+the reference's own 5e-6 covers summation order across two
+frameworks), on every slot and row but the trash slot / kv trash row,
+which the port's kernels skip and the reference computes."""
 
 import jax
 import jax.numpy as jnp
@@ -237,6 +242,129 @@ def test_oracles_match_reference(mask):
                                  _t(parts[1][0]))
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# backward kernels and autograd Functions
+# --------------------------------------------------------------------------
+
+def _nerr(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+
+
+def _bwd_order(tabs):
+    """The reference's kv-sorted backward tables (``np.lexsort``)."""
+    order = np.lexsort((tabs["step_q"], tabs["step_kv"]))
+    return dict(bwd_q=tabs["step_q"][order], bwd_kv=tabs["step_kv"][order],
+                k_seg_b=tabs["k_seg"][order], k_pos_b=tabs["k_pos"][order])
+
+
+@pytest.mark.parametrize("mask", ["causal", "swa:40"])
+def test_fused_bwd_plain_matches_interpret_kernels(mask):
+    """Kernels 3 and 4 (plain versions) against ``fused_flash_bwd_dq`` /
+    ``fused_flash_bwd_dkv`` in interpret mode: shared kv rows (dkv
+    revisits), an incoming accumulator, a fully masked row, a trash
+    step, GQA; the window edge falls mid-tile."""
+    rng = np.random.default_rng(41)
+    qs, kxt, vxt, acc_o, acc_lse, tabs = _fused_inputs(rng, bs=64)
+    jm, tm = jmasks.parse_mask(mask), tmasks.parse_mask(mask)
+    _, l2 = jops.fused_run_attention(
+        *map(jnp.asarray, (qs, kxt, vxt, acc_o, acc_lse)),
+        {k: jnp.asarray(v) for k, v in tabs.items()}, mask=jm,
+        impl="pallas", block_q=64, block_k=64, interpret=True)
+    l2 = np.asarray(l2)
+    go = rng.normal(size=qs.shape).astype(np.float32)
+    delta = rng.normal(size=l2.shape).astype(np.float32)
+    bwd = _bwd_order(tabs)
+    common = (qs, kxt, vxt, tabs["q_seg"], tabs["q_pos"])
+    fwd_t = (tabs["step_q"], tabs["step_kv"])
+    meta_f = (tabs["k_seg"], tabs["k_pos"])
+    bwd_t = (bwd["bwd_q"], bwd["bwd_kv"])
+    meta_b = (bwd["k_seg_b"], bwd["k_pos_b"])
+    grads = (l2, go, delta)
+    kw = dict(mask=jm, block_q=64, block_k=64, interpret=True)
+    jdq = jfa.fused_flash_bwd_dq(*map(jnp.asarray,
+                                      fwd_t + common + meta_f + grads), **kw)
+    jdk, jdv = jfa.fused_flash_bwd_dkv(
+        *map(jnp.asarray, bwd_t + common + meta_b + grads), **kw)
+    tdq = tfa.fused_flash_bwd_dq(*map(_t, fwd_t + common + meta_f + grads),
+                                 mask=tm)
+    tdk, tdv = tfa.fused_flash_bwd_dkv(
+        *map(_t, bwd_t + common + meta_b + grads), mask=tm)
+    vis = [0, 1, 2]                   # slot 3 unvisited, slot 4 trash
+    assert _nerr(tdq[vis], np.asarray(jdq)[vis]) <= 1e-5
+    assert not tdq[3].any()           # unvisited: zero (visited mask)
+    rows = [0, 1, 2]                  # rows 3, 4 unread, row 5 trash
+    for t_, j_ in ((tdk, jdk), (tdv, jdv)):
+        assert _nerr(t_[rows], np.asarray(j_)[rows]) <= 1e-5
+        assert not t_[3:5].any()
+    assert tfa.fused_flash_bwd_dq.launches == 0     # CPU: plain version
+    assert tfa.fused_flash_bwd_dkv.launches == 0
+
+
+@pytest.mark.parametrize("mask", ["chunked:48", "full"])
+def test_flash_bwd_plain_matches_interpret_kernel(mask):
+    """Kernels 5 and 6 (plain version) against ``flash_attention_bwd`` in
+    interpret mode, with a non-zero ``dlse`` (the merge case) and GQA
+    (H = 2 KH: dk/dv sum over the group)."""
+    rng = np.random.default_rng(51)
+    h, kh, sq, sk, d = 4, 2, 64, 128, 32
+    q = rng.normal(size=(h, sq, d)).astype(np.float32)
+    k = rng.normal(size=(kh, sk, d)).astype(np.float32)
+    v = rng.normal(size=(kh, sk, d)).astype(np.float32)
+    seg_k, pos_k = _stream_meta(rng, sk, 3)
+    seg_q, pos_q = seg_k[sk - sq:].copy(), pos_k[sk - sq:].copy()
+    seg_q[3] = -1                                    # fully masked row
+    jm, tm = jmasks.parse_mask(mask), tmasks.parse_mask(mask)
+    meta = (seg_q, pos_q, seg_k, pos_k)
+    o, lse = jfa.flash_attention_fwd(
+        *map(jnp.asarray, (q, k, v) + meta), mask=jm, block_q=64,
+        block_k=64, interpret=True)
+    do = rng.normal(size=q.shape).astype(np.float32)
+    dlse = rng.normal(size=(h, sq)).astype(np.float32)
+    args = (q, k, v) + meta + (np.asarray(o), np.asarray(lse), do, dlse)
+    jg = jfa.flash_attention_bwd(*map(jnp.asarray, args), mask=jm,
+                                 block_q=64, block_k=64, interpret=True)
+    tg = tfa.flash_attention_bwd(*map(_t, args), mask=tm)
+    for a, b in zip(tg, jg):
+        assert a.dtype == torch.float32
+        assert _nerr(a, b) <= 1e-5
+    assert tfa.flash_attention_bwd_dq.launches == 0
+    assert tfa.flash_attention_bwd_dkv.launches == 0
+
+
+def test_fused_run_function_matches_jax_grad():
+    """``_FusedRun`` backward (through ``ops.fused_run_attention``)
+    against ``jax.grad`` of the reference's fused Pallas op: grads of qs,
+    kxt, vxt, and of the incoming accumulator on its live rows."""
+    rng = np.random.default_rng(61)
+    qs, kxt, vxt, acc_o, acc_lse, tabs = _fused_inputs(rng, bs=64)
+    key_o = rng.normal(size=qs.shape).astype(np.float32)
+    key_l = rng.normal(size=acc_lse.shape).astype(np.float32)
+    tabs = {**tabs, **_bwd_order(tabs)}
+    jtabs = {k: jnp.asarray(v) for k, v in tabs.items()}
+
+    def jloss(*xs):
+        o2, l2 = jops.fused_run_attention(*xs, jtabs, mask=True,
+                                          impl="pallas", block_q=64,
+                                          block_k=64, interpret=True)
+        return (jnp.sum(o2 * key_o)
+                + jnp.sum(jnp.where(l2 > -1e29, l2 * key_l, 0.0)))
+
+    args = (qs, kxt, vxt, acc_o, acc_lse)
+    jg = jax.grad(jloss, argnums=tuple(range(5)))(*map(jnp.asarray, args))
+    xs = [_t(x).requires_grad_(True) for x in args]
+    o2, l2 = tops.fused_run_attention(*xs, {k: _t(v)
+                                            for k, v in tabs.items()})
+    loss = (o2 * _t(key_o)).sum() + torch.where(
+        l2 > -1e29, l2 * _t(key_l), 0.0).sum()
+    tg = torch.autograd.grad(loss, xs)
+    for i, last in ((0, 4), (1, 5), (2, 5)):   # drop trash slot / kv row
+        assert _nerr(tg[i][:last], np.asarray(jg[i])[:last]) <= 1e-5
+    live = acc_lse > -1e29
+    assert _nerr(tg[3].numpy()[live], np.asarray(jg[3])[live]) <= 1e-5
+    assert _nerr(tg[4].numpy()[live], np.asarray(jg[4])[live]) <= 1e-5
 
 
 def test_kernel_impl_rejects_unknown():

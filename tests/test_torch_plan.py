@@ -61,7 +61,8 @@ def test_prefill_keys_and_buckets_equal(edge):
 
 HOST_COPIES = ["masks.py", "core/blocks.py", "core/cost_model.py",
                "core/distributor.py", "core/planner.py", "core/schedule.py",
-               "core/plan_cache.py", "analysis/verifier.py"]
+               "core/plan_cache.py", "analysis/verifier.py",
+               "data/loader.py", "data/distributions.py"]
 
 
 @pytest.mark.parametrize("path", HOST_COPIES)
