@@ -15,8 +15,13 @@ Phases, each reported on its own line:
    The backward kernels (3-6) the same way: small cases, then the
              widest run of the first training step's plan and one
              per-step block of it, each against its plain version to
-             TOL_GRAD, with times, bounds and, for kernels 5 and 6, the
-             library yardstick (SDPA backward).
+             TOL_GRAD, with times and bounds.  Kernels 5 and 6 also run
+             twice on the same inputs (same bytes), are timed alone on
+             inputs prepared once beside the whole wrapper
+             (``wrapper_ms``), and are set beside the library yardstick
+             (SDPA backward, the device time of its kernels under the
+             profiler); the build phase prints their tensor-core
+             instruction counts (``cuobjdump -sass``).
 3. serve   — full-width StableLM-2-1.6B (bf16, random seeded weights) on
              a stacked (4 data x 2 model) mesh: warmup, then 16 requests
              through FCP prefill and CP decode, with both kernels'
@@ -31,7 +36,8 @@ Phases, each reported on its own line:
              (``launch.train``: 24 layers, bf16, 4 stacked workers, 8192
              tokens per step, fused) for 3 steps with the launch counters
              read around them, one more step under the profiler, one
-             ``--attn-impl pallas`` step with its counters, and the bf16
+             ``--attn-impl pallas`` step with its counters (then one more
+             under the profiler), and the bf16
              step-0 loss, kernels against plain, held to a multiple of
              its noise floor: the loss moved by the kernel's deviation
              from the plain attention output under random signs.
@@ -463,19 +469,26 @@ def small_bwd_fused_cases(fa, masks, dev):
 
 def small_bwd_flash_cases(fa, masks, dev):
     """Kernels 5 and 6 against their plain versions, with a non-zero
-    dlse, GQA, a fully masked row, ragged tiles, f32 and bf16."""
+    dlse, GQA (groups 2, 8 and 4), a fully masked row, ragged tiles (Sq
+    and Sk not multiples of 16 or 64), f32 and bf16; one document without
+    padding in the group-4 case, so its tiles include ones where every
+    pair is valid.  Each kernel runs twice on the same inputs and must
+    give the same bytes."""
     import torch
     rng = np.random.default_rng(7)
     for dtype in (torch.float32, torch.bfloat16):
         for mask in masks:
-            for (B, H, KH, Sq, Sk, D) in ((2, 4, 2, 128, 256, 64),
-                                          (1, 8, 1, 96, 160, 32)):
+            for (B, H, KH, Sq, Sk, D), docs, pad in (
+                    ((2, 4, 2, 128, 256, 64), 3, 0.1),
+                    ((1, 8, 1, 96, 160, 32), 3, 0.1),
+                    ((1, 4, 4, 72, 200, 64), 3, 0.1),
+                    ((1, 8, 2, 128, 192, 64), 1, 0.0)):
                 def rnd(*shape, dt=dtype):
                     return torch.tensor(rng.normal(size=shape), dtype=dt,
                                         device=dev)
                 q, k, v = rnd(B, H, Sq, D), rnd(B, KH, Sk, D), \
                     rnd(B, KH, Sk, D)
-                seg_k, pos_k = _meta(rng, Sk, 3)
+                seg_k, pos_k = _meta(rng, Sk, docs, pad)
                 seg_q, pos_q = seg_k[-Sq:].copy(), pos_k[-Sq:].copy()
                 seg_q[5] = -1
                 t = [torch.from_numpy(np.stack([x] * B)).to(dev)
@@ -491,12 +504,18 @@ def small_bwd_flash_cases(fa, masks, dev):
                 dk, dv = fa.flash_attention_bwd_dkv(*args, mask=mask)
                 dq_p, dk_p, dv_p = fa.flash_attention_bwd_plain(*args,
                                                                 mask=mask)
+                dq2 = fa.flash_attention_bwd_dq(*args, mask=mask)
+                dk2, dv2 = fa.flash_attention_bwd_dkv(*args, mask=mask)
                 torch.cuda.synchronize()
-                for n_, a_, b_ in (("dq", dq, dq_p), ("dk", dk, dk_p),
-                                   ("dv", dv, dv_p)):
+                for n_, a_, b_, again in (("dq", dq, dq_p, dq2),
+                                          ("dk", dk, dk_p, dk2),
+                                          ("dv", dv, dv_p, dv2)):
                     if a_.dtype != dtype:
                         raise AssertionError(f"{name} {n_}: dtype {a_.dtype}")
                     compare_grad(f"{name} {n_}", a_, b_, bf16_out=bf)
+                    if not torch.equal(a_, again):
+                        raise AssertionError(f"{name} {n_}: a second launch "
+                                             f"gave other bytes")
 
 
 def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev):
@@ -603,53 +622,100 @@ def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev):
     dlse = torch.where(live, 1e-2 * rnd(*lse.shape, dtype=torch.float32),
                        0.0)
     args = (q, k, v, q_seg, q_pos, k_seg, k_pos, o, lse, do, dlse)
+    # the kernels alone are timed on inputs prepared once (contiguous
+    # q/k/v, f32 do/lse/dlse and delta); the wrappers (prep + launch) beside
+    prep = fa._flash_bwd_prep(*args, spec.mask, None)
 
     def k5():
+        return fa._launch_bwd_dq(prep)
+
+    def w5():
         return fa.flash_attention_bwd_dq(*args, mask=spec.mask)
 
     def p5():
         return fa.flash_attention_bwd_dq_plain(*args, mask=spec.mask)
 
     def k6():
+        return fa._launch_bwd_dkv(prep)
+
+    def w6():
         return fa.flash_attention_bwd_dkv(*args, mask=spec.mask)
 
     def p6():
         return fa.flash_attention_bwd_dkv_plain(*args, mask=spec.mask)
-    err5 = compare_grad("flash_attention_bwd_dq main path", k5(), p5(),
+    dq = w5()
+    err5 = compare_grad("flash_attention_bwd_dq main path", dq, p5(),
                         bf16_out=True)
-    (dk, dv), (dk_p, dv_p) = k6(), p6()
+    (dk, dv), (dk_p, dv_p) = w6(), p6()
     err6 = max(compare_grad("flash_attention_bwd_dkv main path dk", dk, dk_p,
                             bf16_out=True),
                compare_grad("flash_attention_bwd_dkv main path dv", dv, dv_p,
                             bf16_out=True))
-    times = {n: time_ms(f) for n, f in (("k5", k5), ("p5", p5), ("k6", k6),
-                                        ("p6", p6))}
+    dk2, dv2 = k6()
+    if not (torch.equal(k5(), dq) and torch.equal(dk2, dk)
+            and torch.equal(dv2, dv)):
+        raise AssertionError("flash_attention_bwd main path: a second "
+                             "launch gave other bytes")
+    del dq, dk, dv, dk_p, dv_p, dk2, dv2
+    times = {n: time_ms(f) for n, f in (("k5", k5), ("w5", w5), ("p5", p5),
+                                        ("k6", k6), ("w6", w6), ("p6", p6))}
     # yardstick only (the port never calls it): the library's attention
-    # backward through autograd over the same block, boolean mask, dlse 0
+    # backward through autograd over the same block, boolean mask, dlse 0;
+    # its device time is the sum of the kernels it launches
     vmask = ref.mask_matrix(q_seg, q_pos, k_seg, k_pos, spec.mask)[:, None]
     ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
     ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=vmask)
     dol = do.to(ol.dtype)
-    lib_ms = time_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), dol,
-                                                 retain_graph=True))
+    lib_ms, lib_kernels = device_ms(lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), dol, retain_graph=True))
     del ol
     pairs = int(vm[:, best].sum())
-    ins = q.numel() * 2 + 2 * k.numel() * 2 + o.numel() * 8 \
-        + lse.numel() * 8
+    # what both kernels read: q, k, v (bf16), do (f32), lse, delta and
+    # dlse (f32 per q row), seg/pos (int32); then each one's outputs
+    ins = (q.numel() + k.numel() + v.numel()) * 2 + do.numel() * 4 \
+        + 3 * lse.numel() * 4 \
+        + 4 * sum(x.numel() for x in (q_seg, q_pos, k_seg, k_pos))
     shape = (f"B={n_cp} H={H} Sq=Sk={bs} D={D} bf16, step {best} of the "
              f"run, {pairs} valid pairs")
-    lib = "scaled_dot_product_attention backward (dq, dk, dv together)"
+    lib = ("scaled_dot_product_attention backward (dq, dk, dv together), "
+           "device time of its kernels: " + ", ".join(
+               f"{n} {ms:.4f}" for n, ms in lib_kernels.items()))
     rows += [{"name": "flash_attention_bwd_dq", "max_abs_err": err5,
-              "ms": times["k5"], "plain_ms": times["p5"],
-              "library_ms": lib_ms, "library": lib,
+              "ms": times["k5"], "wrapper_ms": times["w5"],
+              "plain_ms": times["p5"], "library_ms": lib_ms, "library": lib,
               **bound(6.0 * pairs * H * D, PEAK_BF16, ins + q.numel() * 2),
               "shape": shape},
              {"name": "flash_attention_bwd_dkv", "max_abs_err": err6,
-              "ms": times["k6"], "plain_ms": times["p6"],
-              "library_ms": lib_ms, "library": lib,
+              "ms": times["k6"], "wrapper_ms": times["w6"],
+              "plain_ms": times["p6"], "library_ms": lib_ms, "library": lib,
               **bound(8.0 * pairs * H * D, PEAK_BF16,
                       ins + 2 * k.numel() * 2), "shape": shape}]
     return rows
+
+
+def device_ms(fn, n: int = 20) -> tuple[float, dict]:
+    """Device ms per call of ``fn``: the sum of the device activity of
+    ``n`` calls under ``torch.profiler`` over ``n``, after three untimed
+    calls; and the same per kernel name.  Raises if the profiler records
+    no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    per: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+    if not per:
+        raise AssertionError("the profiler recorded no device activity")
+    per = {name[:90]: us / 1e3 / n for name, us in per.items()}
+    return sum(per.values()), per
 
 
 def bound(flops: float, peak: float, nbytes: float) -> dict:
@@ -896,6 +962,7 @@ def train(fa, trainlib, dev) -> dict:
         reset_counters(fa)
         rec = tr.step()
         launches_p = read_counters(fa)
+        prof_p = profile(tr.step, 1)
     finally:
         tr.close()
     del tr
@@ -907,7 +974,8 @@ def train(fa, trainlib, dev) -> dict:
             raise AssertionError(f"{name} never launched on the pallas "
                                  f"train path")
     out.update({"pallas_step": {"loss": rec.loss, "ms": rec.ms,
-                                "launches": launches_p}})
+                                "launches": launches_p,
+                                "profile_step": prof_p}})
     torch.cuda.empty_cache()
 
     # bf16 step-0 loss, kernels vs plain, on the same weights and batch
@@ -1012,6 +1080,26 @@ def profile(fn, n: int) -> dict:
             "top_ms": [[name[:70], us / 1e3 / n] for name, us in top]}
 
 
+def sass_mma_counts(build) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) per kernel in the SASS of
+    ``libflash_attention_bwd.so`` (``cuobjdump -sass``)."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    out = subprocess.run(
+        [tool, "-sass", str(build.BUILD_DIR / "libflash_attention_bwd.so")],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    counts: dict[str, dict] = {}
+    fn = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                if f" {op}." in line or f" {op} " in line:
+                    counts[fn][op] += 1
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1037,8 +1125,10 @@ def main() -> int:
     log(f"phase build: ok {secs:.2f}s")
     for name, out in build.LIBRARIES.build_log.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 log(f"  ptxas {name}: {line.strip()}")
+    log(f"  sass flash_attention_bwd: {json.dumps(sass_mma_counts(build))}")
 
     masks = (CAUSAL, sliding_window(96), chunked(96), FULL)
     t0 = time.perf_counter()
@@ -1053,12 +1143,16 @@ def main() -> int:
             main_path_decode(fa, cfg, dev),
             *main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev)]
     for r in rows:
+        wrapper = (f" wrapper_ms={r['wrapper_ms']:.4f}"
+                   if "wrapper_ms" in r else "")
         log(f"phase kernels {r['name']} [{r['shape']}]: ok "
-            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"ms={r['ms']:.4f}{wrapper} plain_ms={r['plain_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, "
             f"{r['flops']:.3e} flop, {r['bytes']:.3e} B) "
             f"library_ms={r['library_ms']} max_abs_err="
             f"{r['max_abs_err']:.3e}")
+        if "library" in r:
+            log(f"  library: {r['library']}")
     torch.cuda.empty_cache()
 
     scfg = ServeConfig(cache_len=4096, decode_slots=8, queue_depth=64,

@@ -1,10 +1,10 @@
-// Shared device code of the attention backward kernels (sm_90a):
-// fused_flash_bwd_dq.cu, fused_flash_bwd_dkv.cu and flash_attention_bwd.cu.
+// Shared device code of the fused attention backward kernels (sm_90a):
+// fused_flash_bwd_dq.cu and fused_flash_bwd_dkv.cu.
 //
 // The two inner loops below are the whole arithmetic of a flash backward
 // with the softmax statistics already known (the reference's
-// _bwd_dq_kernel / _bwd_dkv_kernel and _fused_dq_kernel /
-// _fused_dkv_kernel, src/repro/kernels/flash_attention.py):
+// _fused_dq_kernel / _fused_dkv_kernel,
+// src/repro/kernels/flash_attention.py):
 //   p  = exp(q.k * scale - lse)            on valid (q, k) pairs
 //   ds = p * (go.v - delta + dlse) * scale
 //   dq += ds * k,   dk += ds * q,   dv += p * go

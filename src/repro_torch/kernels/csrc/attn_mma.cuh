@@ -1,0 +1,595 @@
+// Tensor-core building blocks of the attention backward kernels (sm_90a).
+//
+// Used by flash_attention_bwd.cu (kernels 5 and 6); written so that the
+// fused backward kernels (fused_flash_bwd_dq.cu, fused_flash_bwd_dkv.cu)
+// can move onto them later.  Everything here works on a 64-row block of
+// four warps, 16 rows each:
+//
+//   * mma.sync m16n8k16, bf16 operands, f32 accumulators, with the
+//     fragments of the PTX ISA (g = lane / 4, t = lane % 4):
+//       A (16 x 16, row-major): a0 (row g, k 2t..2t+1), a1 (row g+8, k
+//       2t..), a2 (row g, k 2t+8..), a3 (row g+8, k 2t+8..);
+//       B (16 x 8): b0 (k 2t..2t+1, column g), b1 (k 2t+8.., column g);
+//       C (16 x 8): c0, c1 (row g, columns 2t, 2t+1), c2, c3 (row g+8).
+//     An accumulator pair of n8 tiles is, element for element, the A
+//     fragment of a k16 step (FA2's register re-use: P and dS never go
+//     through shared memory).
+//   * ldmatrix (.trans for transposed operands) from bf16 tiles whose
+//     rows are padded by 8 elements, so the 8 row addresses of each 8x8
+//     matrix fall in distinct banks;
+//   * wgmma (m64nNk16) with B, and optionally A, from 128B- or
+//     64B-swizzled bf16 tiles through descriptors (section wgmma);
+//   * cp.async staging of 64-row tiles into a double-buffered ring, and
+//     one-thread bulk copies (cp.async.bulk) completing an mbarrier;
+//   * the split of an f32 operand x into hi = bf16(x) and lo = bf16(x -
+//     hi): x = hi + lo + O(2^-17 |x|), so hi.y + lo.y (+ hi.y_lo) in the
+//     f32 accumulator reproduces an f32 product to ~2^-16 per term;
+//   * the per-tile mask classes (no valid pair / some / all) from the
+//     (segment, position) ranges of the two sides, and the per-element
+//     validity bits of a partial tile (_mask_tile of the reference).
+
+#pragma once
+
+#include <climits>
+#include <cstdint>
+#include <type_traits>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace fcp_mma {
+
+constexpr int kPad = -1;
+constexpr int kRows = 64;          // rows of a block and of a partner tile
+constexpr int kWarps = 4;          // 16 rows each
+constexpr int kThreads = kWarps * 32;
+
+using bf16 = __nv_bfloat16;
+
+// MaskSpec.visible: kind 0 causal, 1 sliding_window, 2 chunked, 3 full
+__device__ __forceinline__ bool visible(int kind, int window, int chunk,
+                                        int pq, int pk) {
+  bool ok = kind == 3 || pq >= pk;
+  if (window) ok = ok && (pq - pk < window);
+  if (chunk) ok = ok && (pq / chunk == pk / chunk);
+  return ok;
+}
+
+// ---------------------------------------------------------------- PTX
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x (MUFU.EX2, as __expf uses it); -inf and large negative x give 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, of which the first `bytes` (0..16) are
+// read and the rest zeroed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// an mbarrier in shared memory that one bulk copy at a time completes
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile(
+      "mbarrier.init.shared::cta.b64 [%0], 1;\n"
+      "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_u32(bar))
+      : "memory");
+}
+
+// one thread: copy `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory in one bulk transfer that completes `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%2], [%3], %1, [%0];\n" ::"r"(smem_u32(bar)),
+      "r"(bytes), "r"(smem_u32(dst)), "l"(src)
+      : "memory");
+}
+
+// wait until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a . b  (m16n8k16, bf16 x bf16 -> f32)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ldmatrix lane addresses of a 16 x 16 bf16 block at (row0, col0) of a
+// tile with row stride `ld`, giving B fragments of two n8 tiles:
+// r[0], r[1] for the first, r[2], r[3] for the second.
+//   b_rows: the tile stores B^T (rows are n, columns are k): non-trans.
+//   b_cols: the tile stores B (rows are k, columns are n): trans.
+__device__ __forceinline__ int b_rows_off(int row0, int col0, int ld,
+                                          int lane) {
+  return (row0 + (lane & 7) + ((lane >> 4) << 3)) * ld + col0 +
+         ((lane >> 3) & 1) * 8;
+}
+
+__device__ __forceinline__ int b_cols_off(int row0, int col0, int ld,
+                                          int lane) {
+  return (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + col0 +
+         (lane >> 4) * 8;
+}
+
+// ---------------------------------------------------------------- wgmma
+//
+// Warpgroup products with A from registers (each warp's 16 rows, in the
+// mma.sync A layout above) and B from a shared-memory tile of bf16 rows
+// of D elements (128 B for D = 64, 64 B for D = 32), swizzled as the
+// descriptor says (128B or 64B: the 16-byte chunk c of row r sits at
+// chunk c ^ swz(r)); the tile is 1024-byte aligned.  The accumulator of
+// m64nN is, per warp, N / 8 mma.sync C tiles in order.  The same tile
+// serves as B both ways: rows as N with k along the row ("K-major", k16
+// step = +32 B) and rows as k ("MN-major", transposed, k16 step = +16
+// rows); 8-row groups are SBO bytes apart in both.
+
+template <int D>
+__device__ __forceinline__ int swz(int r) {
+  static_assert(D == 32 || D == 64, "rows of 64 or 128 bytes");
+  return D == 64 ? (r & 7) : ((r >> 1) & 3);
+}
+
+// byte offset of element (r, c) of a swizzled [rows, D] bf16 tile
+template <int D>
+__device__ __forceinline__ int swz_off(int r, int c) {
+  return r * D * 2 + ((((c >> 3) ^ swz<D>(r)) << 4) | ((c & 7) * 2));
+}
+
+template <int D>
+__device__ __forceinline__ uint64_t gmma_desc(const void* tile) {
+  const uint32_t a = smem_u32(tile);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((8 * D * 2) >> 4) << 32) |
+         ((uint64_t)(D == 64 ? 1 : 2) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until every committed group has completed
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// shared-memory writes of this thread (st.shared, cp.async) made visible
+// to the async proxy that wgmma reads through; a barrier follows
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keep registers a wgmma in flight reads or writes where they are
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= a . B, m64n64k16; kTrans: the tile holds B with k along rows
+template <int kTrans>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc),
+        "n"(kTrans));
+}
+
+template <int kTrans>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc),
+        "n"(kTrans));
+}
+
+// d (+)= A . B, m64n64k16, both from shared memory (K-major tiles)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(acc));
+}
+
+// d += a . B with N = D (the dk / dv products)
+template <int D, int kTrans>
+__device__ __forceinline__ void wgmma_nd(float (&d)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  if constexpr (D == 64)
+    wgmma_n64<kTrans>(d, a, desc, 1);
+  else
+    wgmma_n32<kTrans>(d, a, desc, 1);
+}
+
+// cp.async rows [r0, r0 + 64) of a row-major [n, D] bf16 matrix into a
+// swizzled tile; rows >= n are zero-filled
+template <int D>
+__device__ __forceinline__ void stage_swz(unsigned char* dst, const bf16* src,
+                                          int r0, int n, int tid) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = tid; i < kRows * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool in = r0 + r < n;
+    cp_async16(dst + r * D * 2 + ((c ^ swz<D>(r)) << 4),
+               in ? src + (size_t)(r0 + r) * D + c * 8 : src, in ? 16 : 0);
+  }
+}
+
+// ---------------------------------------------------------------- split
+
+__device__ __forceinline__ uint32_t bits_of(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x0, x1) -> packed bf16 hi and lo (x0 in the low half)
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits_of(h);
+  lo = bits_of(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// A fragments of one operand: hi always, lo where the operand is f32
+template <int N, bool kLo>
+struct AFrags {
+  uint32_t hi[N][4];
+  uint32_t lo[kLo ? N : 1][4];
+};
+
+// A fragments of rows [row0, row0 + 16) x all D columns of a row-major
+// [n, D] matrix in global memory (rows >= n read as 0), one per k16 step.
+// bf16 is taken as it is; f32 is split into hi and lo.
+template <int D>
+__device__ __forceinline__ void load_a(AFrags<D / 16, false>& f,
+                                       const bf16* m, int row0, int n,
+                                       int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + g + (i & 1) * 8;
+      const int c = 16 * kd + 2 * t + (i >> 1) * 8;
+      f.hi[kd][i] =
+          r < n ? *reinterpret_cast<const uint32_t*>(m + (size_t)r * D + c)
+                : 0u;
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void load_a(AFrags<D / 16, true>& f,
+                                       const float* m, int row0, int n,
+                                       int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + g + (i & 1) * 8;
+      const int c = 16 * kd + 2 * t + (i >> 1) * 8;
+      const float2 x = r < n ? *reinterpret_cast<const float2*>(
+                                   m + (size_t)r * D + c)
+                             : make_float2(0.f, 0.f);
+      split2(x.x, x.y, f.hi[kd][i], f.lo[kd][i]);
+    }
+}
+
+// ---------------------------------------------------------------- tiles
+
+// cp.async rows [r0, r0 + 64) of a row-major [n, D] matrix into a tile
+// with row stride `ld` elements; rows >= n are zero-filled.
+template <typename T, int D>
+__device__ __forceinline__ void stage_tile(T* dst, int ld, const T* src,
+                                           int r0, int n, int tid) {
+  constexpr int kPer = 16 / sizeof(T);          // elements per copy
+  constexpr int kChunks = D / kPer;             // copies per row
+#pragma unroll
+  for (int i = tid; i < kRows * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * kPer;
+    const bool in = r0 + r < n;
+    cp_async16(dst + r * ld + c, in ? src + (size_t)(r0 + r) * D + c : src,
+               in ? 16 : 0);
+  }
+}
+
+// hi / lo swizzled bf16 tiles of a staged f32 [64, D] tile
+template <int D>
+__device__ __forceinline__ void split_tile_swz(const float* src,
+                                               unsigned char* hi,
+                                               unsigned char* lo, int tid) {
+#pragma unroll
+  for (int i = tid * 4; i < kRows * D; i += kThreads * 4) {
+    const int r = i / D, c = i % D;
+    const float4 x = *reinterpret_cast<const float4*>(src + i);
+    uint2 h, l;
+    split2(x.x, x.y, h.x, l.x);
+    split2(x.z, x.w, h.y, l.y);
+    const int off = swz_off<D>(r, c);
+    *reinterpret_cast<uint2*>(hi + off) = h;
+    *reinterpret_cast<uint2*>(lo + off) = l;
+  }
+}
+
+// hi / lo bf16 planes (row stride ld) of a staged f32 [64, D] tile
+template <int D>
+__device__ __forceinline__ void split_tile(const float* src, bf16* hi,
+                                           bf16* lo, int ld, int tid) {
+#pragma unroll
+  for (int i = tid * 4; i < kRows * D; i += kThreads * 4) {
+    const int r = i / D, c = i % D;
+    const float4 x = *reinterpret_cast<const float4*>(src + i);
+    uint2 h, l;
+    split2(x.x, x.y, h.x, l.x);
+    split2(x.z, x.w, h.y, l.y);
+    *reinterpret_cast<uint2*>(hi + r * ld + c) = h;
+    *reinterpret_cast<uint2*>(lo + r * ld + c) = l;
+  }
+}
+
+// rows [r0, r0 + 64) of a row-major [n, D] matrix into a swizzled bf16
+// tile (bf16 as it is; f32 split into a hi and a lo tile); rows >= n as 0
+template <int D>
+__device__ __forceinline__ void fill_swz(unsigned char* hi, unsigned char*,
+                                         const bf16* src, int r0, int n,
+                                         int tid) {
+#pragma unroll
+  for (int i = tid * 8; i < kRows * D; i += kThreads * 8) {
+    const int r = i / D, c = i % D;
+    const uint4 x = r0 + r < n ? *reinterpret_cast<const uint4*>(
+                                     src + (size_t)(r0 + r) * D + c)
+                               : make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(hi + swz_off<D>(r, c)) = x;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void fill_swz(unsigned char* hi, unsigned char* lo,
+                                         const float* src, int r0, int n,
+                                         int tid) {
+#pragma unroll
+  for (int i = tid * 4; i < kRows * D; i += kThreads * 4) {
+    const int r = i / D, c = i % D;
+    const float4 x = r0 + r < n ? *reinterpret_cast<const float4*>(
+                                      src + (size_t)(r0 + r) * D + c)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+    uint2 h, l;
+    split2(x.x, x.y, h.x, l.x);
+    split2(x.z, x.w, h.y, l.y);
+    *reinterpret_cast<uint2*>(hi + swz_off<D>(r, c)) = h;
+    *reinterpret_cast<uint2*>(lo + swz_off<D>(r, c)) = l;
+  }
+}
+
+// ---------------------------------------------------------------- masks
+
+// (segment, position) ranges of the candidate rows of a 64-row tile:
+// rows inside [0, n) whose segment is not PAD.  `all`: every row is one.
+struct Ranges {
+  int smin, smax, pmin, pmax;
+  bool all;
+};
+
+__device__ __forceinline__ Ranges tile_ranges(const int* seg, const int* pos,
+                                              int r0, int n, int lane) {
+  int s[kRows / 32], p[kRows / 32];
+#pragma unroll
+  for (int i = 0; i < kRows / 32; ++i) {      // all loads in flight at once
+    const int row = r0 + lane + 32 * i;
+    s[i] = row < n ? seg[row] : kPad;
+    p[i] = row < n ? pos[row] : 0;
+  }
+  Ranges r{INT_MAX, INT_MIN, INT_MAX, INT_MIN, true};
+#pragma unroll
+  for (int i = 0; i < kRows / 32; ++i) {
+    if (s[i] == kPad) {
+      r.all = false;
+      continue;
+    }
+    r.smin = min(r.smin, s[i]);
+    r.smax = max(r.smax, s[i]);
+    r.pmin = min(r.pmin, p[i]);
+    r.pmax = max(r.pmax, p[i]);
+  }
+  r.smin = __reduce_min_sync(0xffffffffu, r.smin);
+  r.smax = __reduce_max_sync(0xffffffffu, r.smax);
+  r.pmin = __reduce_min_sync(0xffffffffu, r.pmin);
+  r.pmax = __reduce_max_sync(0xffffffffu, r.pmax);
+  r.all = __all_sync(0xffffffffu, r.all);
+  return r;
+}
+
+enum TileClass { kNone = 0, kPartial = 1, kFull = 2 };
+
+// The class of a (q tile, kv tile) pair from its two sides' ranges.
+// kNone only where no pair can be valid; kFull only where every pair is
+// (one segment on both sides, every row a candidate, visible for the
+// extreme positions, hence for all).  The rest is kPartial.
+__device__ __forceinline__ int classify(const Ranges& q, const Ranges& k,
+                                        int kind, int window, int chunk) {
+  if (q.smin > q.smax || k.smin > k.smax || q.smax < k.smin ||
+      k.smax < q.smin)
+    return kNone;
+  if (kind != 3 && q.pmax < k.pmin) return kNone;
+  if (window && q.pmin - k.pmax >= window) return kNone;
+  if (chunk &&
+      (q.pmax / chunk < k.pmin / chunk || q.pmin / chunk > k.pmax / chunk))
+    return kNone;
+  const bool one = q.all && k.all && q.smin == q.smax &&
+                   k.smin == k.smax && q.smin == k.smin;
+  const bool vis =
+      (kind == 3 || q.pmin >= k.pmax) &&
+      (!window || q.pmax - k.pmin < window) &&
+      (!chunk ||
+       min(q.pmin, k.pmin) / chunk == max(q.pmax, k.pmax) / chunk);
+  return one && vis ? kFull : kPartial;
+}
+
+// Validity bits of this lane's 32 accumulator elements of a warp's
+// 16 x 64 tile: bit 4j + e is element e of n8 tile j (row g for e < 2,
+// g + 8 otherwise; column c0 + 8j + 2t + (e & 1)).  The rows' (seg, pos)
+// are (sa, pa) / (sb, pb), PAD for a row outside the block's range; the
+// columns' come from seg/pos [n].  kRowsQ: rows are queries (dq) or keys
+// (dk/dv).
+template <bool kRowsQ>
+__device__ __forceinline__ unsigned elem_bits(int sa, int pa, int sb, int pb,
+                                              const int* seg, const int* pos,
+                                              int c0, int n, int t, int kind,
+                                              int window, int chunk) {
+  unsigned bits = 0u;
+#pragma unroll
+  for (int j = 0; j < kRows / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = c0 + 8 * j + 2 * t + e;
+      const int sc = c < n ? seg[c] : kPad;
+      if (sc == kPad) continue;
+      const int pc = pos[c];
+      const bool va = sc == sa && (kRowsQ ? visible(kind, window, chunk, pa, pc)
+                                          : visible(kind, window, chunk, pc, pa));
+      const bool vb = sc == sb && (kRowsQ ? visible(kind, window, chunk, pb, pc)
+                                          : visible(kind, window, chunk, pc, pb));
+      bits |= (va ? 1u : 0u) << (4 * j + e);
+      bits |= (vb ? 1u : 0u) << (4 * j + 2 + e);
+    }
+  return bits;
+}
+
+// ---------------------------------------------------------------- store
+
+__device__ __forceinline__ void store2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+
+__device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+
+// a warp's 16 x D f32 accumulators to rows row0.. of a row-major [n, D]
+// output in T: D / 8 mma.sync C tiles, or the warp's part of a wgmma
+// m64nD accumulator (the same tiles, flat)
+template <typename T, int D>
+__device__ __forceinline__ void store_acc(T* out, const float (&acc)[D / 8][4],
+                                          int row0, int n, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = row0 + g, rb = ra + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (ra < n) store2(out + (size_t)ra * D + c, acc[j][0], acc[j][1]);
+    if (rb < n) store2(out + (size_t)rb * D + c, acc[j][2], acc[j][3]);
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_acc(T* out, const float (&acc)[D / 2],
+                                          int row0, int n, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = row0 + g, rb = ra + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (ra < n) store2(out + (size_t)ra * D + c, acc[4 * j], acc[4 * j + 1]);
+    if (rb < n)
+      store2(out + (size_t)rb * D + c, acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+}  // namespace fcp_mma

@@ -1,4 +1,5 @@
-// Varlen flash-attention backward for Hopper (sm_90a): dq, and dk/dv.
+// Varlen flash-attention backward for Hopper (sm_90a): dq, and dk/dv, on
+// the tensor cores.
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention.py:
 // flash_attention_bwd — _bwd_dq_kernel (launched by pl.pallas_call at
@@ -6,7 +7,8 @@
 // flash_attention_fwd.cu on the per-step executor path: one (q, kv)
 // block pair per batch row, with the cotangent of the lse output
 // (dlse), which is non-zero because every partial feeds a flash merge:
-//   p = exp(s - lse),  ds = p * (do . v - delta + dlse) * scale
+//   p = where(valid, exp(s * scale - lse), 0)
+//   ds = p * (do . v - delta + dlse) * scale
 //   dq = ds . k,  dk = sum over group members of ds^T . q,  dv = p^T . do
 // delta = sum(do * o) is computed by the wrapper, as the reference
 // computes it outside its kernel.
@@ -14,29 +16,119 @@
 // Grid: Pallas walks the kv tiles (dq) or the (group member, q tile)
 // pairs (dk/dv) in order and carries the sum in VMEM scratch.  Here the
 // sequential axis is a loop inside the block: dq — one block per
-// (batch row, head, 64 q rows), looping over the kv tiles; dk/dv — one
-// block per (batch row, kv head, 64 kv rows), looping over the group
-// members and q tiles.  Sums stay in f32 registers and are written once
-// in the input dtype.  No atomics.
+// (batch row, head, 64 q rows), looping over 64-row kv tiles; dk/dv —
+// one block per (batch row, kv head, 64 kv rows), looping over the group
+// members and the 64-row q tiles.  Four warps, 16 rows of the block
+// each.  The sums stay in f32 registers and are written once in the
+// input dtype; no atomics, one fixed order, so two launches on the same
+// inputs give the same bytes.
 //
-// What bounds it on the H100: f32 FMA throughput on the CUDA cores (3
-// and 4 D-long FMA chains per valid pair), as in the fused backward
-// kernels, whose inner loops these share (attn_bwd_common.cuh).  Tiles
-// no row of the block can see are skipped before their bytes load.
+// What bounds it on the H100: every product runs on the tensor cores
+// (bf16 x bf16 -> f32), four per step; no CUDA-core FMA loop is left.
+//   dq:    S = Q.K^T, dP = dO.V^T, dQ += dS.K      mma.sync m16n8k16
+//   dk/dv: S^T = K.Q^T, dP^T = V.dO^T              wgmma m64n64k16, A and B
+//          dV += P^T.dO, dK += dS^T.Q              from shared memory;
+//                                                  wgmma m64nDk16, A in
+//                                                  registers
+// Not the tensor cores' rate bounds them: at the main-path block the
+// products, split terms included (below), would take about a quarter of
+// the measured time at the bf16 peak (PERF.md).  The rest is the work
+// around them — the mask and tile bookkeeping, the exponent and the hi/lo
+// packing of P and dS, the split of each f32 dO tile, the copies and
+// barriers of each tile — at three blocks of four warps per SM (168
+// registers a thread).
 //
-// Layouts (row-major, contiguous): q/do [B, H, Sq, D] (do f32), k/v
-// [B, KH, Sk, D]; seg_q/pos_q [B, Sq], seg_k/pos_k [B, Sk];
+// dq (kernel 5): the block's Q and dO rows are mma.sync A fragments in
+// registers, loaded once; K/V tiles come through a two-slot cp.async ring
+// (the next tile loads while this one computes) in rows padded by 8
+// bf16, read with ldmatrix (.trans for the K of dQ).  The accumulator
+// fragments of S and dP become P and dS in registers and are re-packed
+// as the A operand of dS.K (FA2's trick): they never touch shared memory.
+//
+// dk/dv (kernel 6): one warpgroup per block.  The block's K and V are
+// 128B- (D = 64) or 64B-swizzled (D = 32) bf16 tiles in shared memory,
+// read by wgmma through descriptors; each q tile's Q comes through a
+// two-slot cp.async ring in the same layout, and its f32 dO in one bulk
+// copy (cp.async.bulk, completing an mbarrier) that is split into
+// swizzled hi / lo tiles, after which the next tile's copy starts.  The
+// same Q and dO tiles serve K-major (S^T, dP^T) and transposed (dV, dK).
+// The S^T and dP^T accumulators become P^T and dS^T in registers and are
+// the A operand of the dV / dK wgmmas; those of the first half of the
+// tile run while the second half is computed, and the next tile's mask
+// class is found while S^T and dP^T run.
+//
+// Precision: the reference computes every product in f32, and do, p and
+// ds are genuine f32 values (do is the cotangent of an f32 output), so
+// one bf16 rounding (2^-9 per term) would miss TOL_GRAD where signed
+// terms cancel.  Each f32 operand x is split into hi = bf16(x) and
+// lo = bf16(x - hi) and the partial products are summed in the f32
+// accumulator: dP, dS.K and dS^T.Q take 2 products (hi and lo against an
+// exact bf16 operand), P^T.dO takes 3 (hi.hi + hi.lo + lo.hi), S = Q.K^T
+// takes 1 — about 2^-16 per term, 1.7x (dq) and 2x (dk/dv) the products
+// of one bf16 pass.  With f32 q/k/v (template T = float) they are split
+// too and every product takes 3.  The CPU test
+// tests/test_torch_kernels.py::test_split_bf16_scheme_meets_tol_grad
+// emulates this arithmetic against the plain version.
+//
+// Masks: each partner tile is classified from the (segment, position)
+// ranges of the two sides (attn_mma.cuh): no valid pair — skipped before
+// its bytes load; all valid (one document, visible at the extreme
+// positions) — the path with no per-element test; otherwise every lane
+// computes the validity bits of its 32 accumulator elements, the block
+// skips the tile if none is set (__syncthreads_or), and masked elements
+// are set before the exponent (lse is -1e30 on dead rows).
+//
+// ptxas -v (CUDA 12.8, sm_90a; __launch_bounds__(128, 3) caps both at
+// 168), registers a thread and spill stores / loads in bytes:
+//   dq     bf16 D=64 162, 0 / 0;   D=32 122, 0 / 0
+//          f32  D=64 168, 40 / 60; D=32 141, 0 / 0
+//   dk/dv  bf16 D=64 168, 28 / 28; D=32 166, 0 / 0
+//          f32  D=64 168, 8 / 8;   D=32 163, 0 / 0
+//
+// Layouts (row-major, contiguous, 16-byte aligned): q/do [B, H, Sq, D]
+// (do f32), k/v [B, KH, Sk, D]; seg_q/pos_q [B, Sq], seg_k/pos_k [B, Sk];
 // lse/delta/dlse [B, H, Sq] f32; dq [B, H, Sq, D], dk/dv [B, KH, Sk, D]
-// in the dtype of q/k/v.
+// in the dtype of q/k/v.  D is 32 or 64.
 
-#include "attn_bwd_common.cuh"
+#include <cstdint>
+
+#include "attn_mma.cuh"
 
 namespace {
 
-using namespace fcp_bwd;
+using namespace fcp_mma;
 
-template <typename T, int D, int BK>
-__global__ void __launch_bounds__(kThreads) bwd_dq_kernel(
+template <typename T>
+constexpr bool kIsF32 = std::is_same<T, float>::value;
+
+template <int D>
+constexpr int kLd = D + 8;          // padded bf16 row of an ldmatrix tile
+
+// bytes of one staged 64-row tile of T: bf16 padded (read by ldmatrix as
+// it is), f32 dense (split into bf16 planes first)
+template <typename T, int D>
+constexpr int kStageBytes = kRows * (kIsF32<T> ? D : kLd<D>) * (int)sizeof(T);
+
+template <int D>
+constexpr int kPlaneBytes = kRows * kLd<D> * 2;
+
+template <typename T, int D>
+constexpr int kDqSmem = 2 * 2 * kStageBytes<T, D> +
+                        (kIsF32<T> ? 4 * kPlaneBytes<D> : 0);
+
+template <int D>
+constexpr int kSwzTileBytes = kRows * D * 2;
+
+// 1024 bytes of alignment slack, the swizzled tiles (6; 8 for f32), the
+// f32 dO tile, two f32 Q slots for f32 q, two lse / delta / dlse slots,
+// the mbarrier of the dO copies
+template <typename T, int D>
+constexpr int kDkvSmem = 1024 + (kIsF32<T> ? 8 : 6) * kSwzTileBytes<D> +
+                         kRows * D * 4 + (kIsF32<T> ? 2 * kRows * D * 4 : 0) +
+                         2 * 3 * kRows * 4 + 16;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 3) bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ seg_q,
     const int* __restrict__ pos_q, const int* __restrict__ seg_k,
@@ -44,80 +136,194 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(
     const float* __restrict__ dout, const float* __restrict__ delta,
     const float* __restrict__ dlse, T* __restrict__ dq, int H, int KH,
     int Sq, int Sk, float scale, int kind, int window, int chunk) {
-  static_assert(BK <= 32, "validity bits live in one 32-bit word");
-  constexpr int P = D + 1;
+  constexpr bool kF32 = kIsF32<T>;
+  constexpr int LD = kLd<D>;
+  constexpr int kStageLd = kF32 ? D : LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // ring: slot s holds K at stage(2s), V at stage(2s + 1); f32 planes after
+  auto stage = [&](int i) {
+    return reinterpret_cast<T*>(smem + i * kStageBytes<T, D>);
+  };
+  bf16* planes = reinterpret_cast<bf16*>(smem + 4 * kStageBytes<T, D>);
+  constexpr int kPlane = kRows * LD;  // elements
+
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KH);
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x * kThreads + tid;
-  const bool live = row < Sq;
-
-  __shared__ __align__(16) float k_s[BK][D];
-  __shared__ __align__(16) float v_s[BK][D];
-  __shared__ float go_s[kThreads * P];
-  __shared__ int kseg_s[BK];
-  __shared__ int kpos_s[BK];
-
-  float qr[D], acc[D];
-  float L = 0.f, dl = 0.f, dls = 0.f;
-  int sq = kPad, pq = 0;
-  const size_t qrow = ((size_t)b * H + h) * Sq + row;
-  float* go_row = go_s + tid * P;
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      qr[d] = to_f32(q[qrow * D + d]);
-      go_row[d] = dout[qrow * D + d];
-      acc[d] = 0.f;
-    }
-    L = lse[qrow];
-    dl = delta[qrow];
-    dls = dlse[qrow];
-    sq = seg_q[(size_t)b * Sq + row];
-    pq = pos_q[(size_t)b * Sq + row];
-  } else {
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = acc[d] = go_row[d] = 0.f;
-  }
-  const size_t kvbase = ((size_t)b * KH + kh) * Sk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kRows, w0 = q0 + 16 * warp;
+  const int ra = w0 + g, rb = ra + 8;
+  const size_t hq = ((size_t)b * H + h) * Sq;
+  const int* qsg = seg_q + (size_t)b * Sq;
+  const int* qps = pos_q + (size_t)b * Sq;
   const int* ksg = seg_k + (size_t)b * Sk;
   const int* kps = pos_k + (size_t)b * Sk;
+  const T* kb = k + ((size_t)b * KH + kh) * Sk * D;
+  const T* vb = v + ((size_t)b * KH + kh) * Sk * D;
 
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    __syncthreads();
-    for (int j = tid; j < BK; j += kThreads) {
-      const int kk = k0 + j;
-      kseg_s[j] = kk < Sk ? ksg[kk] : kPad;
-      kpos_s[j] = kk < Sk ? kps[kk] : 0;
-    }
-    __syncthreads();
-    unsigned valid = 0u;
-    if (live && sq != kPad) {
-#pragma unroll
-      for (int j = 0; j < BK; ++j)
-        if (kseg_s[j] == sq && visible(kind, window, chunk, pq, kpos_s[j]))
-          valid |= 1u << j;
-    }
-    if (!__syncthreads_or(valid != 0u)) continue;
-    for (int i = tid; i < BK * D; i += kThreads) {
-      const int j = i / D, kk = k0 + j;
-      const size_t off = (kvbase + kk) * D + (i - j * D);
-      k_s[j][i - j * D] = kk < Sk ? to_f32(k[off]) : 0.f;
-      v_s[j][i - j * D] = kk < Sk ? to_f32(v[off]) : 0.f;
-    }
-    __syncthreads();
-    if (valid == 0u) continue;
-    dq_tile<D, BK>(qr, acc, go_row, k_s, v_s, valid, L, dl, dls, scale);
-  }
+  // this lane's two rows: softmax stats and mask metadata
+  const bool ina = ra < Sq, inb = rb < Sq;
+  // exp(s * scale - lse) as 2^(s * scale * log2e - lse * log2e)
+  const float sl2 = scale * kLog2e;
+  const float la = ina ? lse[hq + ra] * kLog2e : 0.f;
+  const float lb = inb ? lse[hq + rb] * kLog2e : 0.f;
+  const float ea = ina ? delta[hq + ra] : 0.f, eb = inb ? delta[hq + rb] : 0.f;
+  const float ga = ina ? dlse[hq + ra] : 0.f, gb = inb ? dlse[hq + rb] : 0.f;
+  const int sa = ina ? qsg[ra] : kPad, sb = inb ? qsg[rb] : kPad;
+  const int pa = ina ? qps[ra] : 0, pb = inb ? qps[rb] : 0;
 
-  if (live) {
+  AFrags<D / 16, kF32> qf;
+  AFrags<D / 16, true> of;
+  load_a<D>(qf, q + hq * D, w0, Sq, lane);
+  load_a<D>(of, dout + hq * D, w0, Sq, lane);
+  float acc[D / 8][4];
 #pragma unroll
-    for (int d = 0; d < D; ++d) dq[qrow * D + d] = from_f32<T>(acc[d]);
+  for (int j = 0; j < D / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  const Ranges qr = tile_ranges(qsg, qps, q0, Sq, lane);
+  const int nt = (Sk + kRows - 1) / kRows;
+  // the first tile at or after `from` with a valid pair (nt if none), its
+  // class and this lane's element bits (all set for a full tile); the
+  // same answer in every warp, so the block branches together
+  auto find = [&](int from, int& cls, unsigned& bits) {
+    for (int j = from; j < nt; ++j) {
+      const int c = classify(qr, tile_ranges(ksg, kps, j * kRows, Sk, lane),
+                             kind, window, chunk);
+      if (c == kNone) continue;
+      unsigned bb = ~0u;
+      if (c == kPartial) {
+        bb = elem_bits<true>(sa, pa, sb, pb, ksg, kps, j * kRows, Sk, t,
+                             kind, window, chunk);
+        if (!__syncthreads_or(bb != 0u)) continue;
+      }
+      cls = c;
+      bits = bb;
+      return j;
+    }
+    return nt;
+  };
+  auto load = [&](int j, int slot) {
+    stage_tile<T, D>(stage(2 * slot), kStageLd, kb, j * kRows, Sk, tid);
+    stage_tile<T, D>(stage(2 * slot + 1), kStageLd, vb, j * kRows, Sk, tid);
+  };
+
+  // one 16-key chunk c of the staged tile (kFull: no element test)
+  auto chunk_step = [&](auto full, int c, const bf16* kt, const bf16* vt,
+                        const bf16* ktl, const bf16* vtl, unsigned bits) {
+    // the lo terms go to their own accumulators: shorter mma chains
+    float s[2][4] = {}, dp[2][4] = {}, sl[2][4] = {}, dpl[2][4] = {};
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      const int off = b_rows_off(16 * c, 16 * kd, LD, lane);
+      uint32_t kf[4], vf[4];
+      ldsm_x4(kf, kt + off);
+      ldsm_x4(vf, vt + off);
+      mma(s[0], qf.hi[kd], kf[0], kf[1]);
+      mma(s[1], qf.hi[kd], kf[2], kf[3]);
+      mma(dp[0], of.hi[kd], vf[0], vf[1]);
+      mma(dp[1], of.hi[kd], vf[2], vf[3]);
+      mma(dpl[0], of.lo[kd], vf[0], vf[1]);
+      mma(dpl[1], of.lo[kd], vf[2], vf[3]);
+      if constexpr (kF32) {
+        uint32_t kl[4], vl[4];
+        ldsm_x4(kl, ktl + off);
+        ldsm_x4(vl, vtl + off);
+        mma(sl[0], qf.hi[kd], kl[0], kl[1]);
+        mma(sl[1], qf.hi[kd], kl[2], kl[3]);
+        mma(sl[0], qf.lo[kd], kf[0], kf[1]);
+        mma(sl[1], qf.lo[kd], kf[2], kf[3]);
+        mma(dpl[0], of.hi[kd], vl[0], vl[1]);
+        mma(dpl[1], of.hi[kd], vl[2], vl[3]);
+      }
+    }
+    // P and dS in place; pairs of them become the A fragment of dS.K
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bool ok = true;
+        if constexpr (!decltype(full)::value)
+          ok = (bits >> (4 * (2 * c + j) + e)) & 1u;
+        const bool hi = e >= 2;
+        const float sv = kF32 ? s[j][e] + sl[j][e] : s[j][e];
+        const float x = ok ? fmaf(sv, sl2, -(hi ? lb : la)) : -1e30f;
+        const float p = exp2_approx(x);
+        ds[e] = p * (((dp[j][e] + dpl[j][e] - (hi ? eb : ea)) +
+                      (hi ? gb : ga)) * scale);
+      }
+      split2(ds[0], ds[1], ah[2 * j], al[2 * j]);
+      split2(ds[2], ds[3], ah[2 * j + 1], al[2 * j + 1]);
+    }
+#pragma unroll
+    for (int nd = 0; nd < D / 16; ++nd) {
+      const int off = b_cols_off(16 * c, 16 * nd, LD, lane);
+      uint32_t kf[4];
+      ldsm_x4_t(kf, kt + off);
+      mma(acc[2 * nd], ah, kf[0], kf[1]);
+      mma(acc[2 * nd + 1], ah, kf[2], kf[3]);
+      mma(acc[2 * nd], al, kf[0], kf[1]);
+      mma(acc[2 * nd + 1], al, kf[2], kf[3]);
+      if constexpr (kF32) {
+        uint32_t kl[4];
+        ldsm_x4_t(kl, ktl + off);
+        mma(acc[2 * nd], ah, kl[0], kl[1]);
+        mma(acc[2 * nd + 1], ah, kl[2], kl[3]);
+      }
+    }
+  };
+
+  int cls = kNone;
+  unsigned bits = 0u;
+  int cur = find(0, cls, bits);
+  if (cur < nt) load(cur, 0);
+  cp_async_commit();
+  for (int it = 0; cur < nt; ++it) {
+    int cls_n = kNone;
+    unsigned bits_n = 0u;
+    const int nxt = find(cur + 1, cls_n, bits_n);
+    __syncthreads();              // the other slot's last readers are done
+    if (nxt < nt) load(nxt, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();              // tile `cur` has landed for every thread
+    const int slot = it & 1;
+    const bf16 *kt, *vt, *ktl = nullptr, *vtl = nullptr;
+    if constexpr (kF32) {
+      split_tile<D>(reinterpret_cast<const float*>(stage(2 * slot)), planes,
+                    planes + kPlane, LD, tid);
+      split_tile<D>(reinterpret_cast<const float*>(stage(2 * slot + 1)),
+                    planes + 2 * kPlane, planes + 3 * kPlane, LD, tid);
+      __syncthreads();
+      kt = planes;
+      ktl = planes + kPlane;
+      vt = planes + 2 * kPlane;
+      vtl = planes + 3 * kPlane;
+    } else {
+      kt = reinterpret_cast<const bf16*>(stage(2 * slot));
+      vt = reinterpret_cast<const bf16*>(stage(2 * slot + 1));
+    }
+    if (cls == kFull) {
+#pragma unroll 1
+      for (int c = 0; c < kRows / 16; ++c)
+        chunk_step(std::true_type{}, c, kt, vt, ktl, vtl, bits);
+    } else {
+#pragma unroll 1
+      for (int c = 0; c < kRows / 16; ++c)
+        chunk_step(std::false_type{}, c, kt, vt, ktl, vtl, bits);
+    }
+    cur = nxt;
+    cls = cls_n;
+    bits = bits_n;
   }
+  cp_async_wait<0>();
+  store_acc<T, D>(dq + hq * D, acc, w0, Sq, lane);
 }
 
-template <typename T, int D, int BQ>
-__global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 3) bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ seg_q,
     const int* __restrict__ pos_q, const int* __restrict__ seg_k,
@@ -126,87 +332,243 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(
     const float* __restrict__ dlse, T* __restrict__ dk,
     T* __restrict__ dv, int H, int KH, int Sq, int Sk, float scale,
     int kind, int window, int chunk) {
-  static_assert(BQ <= 32, "validity bits live in one 32-bit word");
-  constexpr int P = D + 1;
+  constexpr bool kF32 = kIsF32<T>;
+  constexpr int kTile = kSwzTileBytes<D>;
+  extern __shared__ __align__(16) unsigned char smem_in[];
+  // swizzled bf16 tiles on a 1024-byte boundary: Q (ring slots 0 and 1;
+  // for f32 q its hi and lo), dO hi, dO lo, the block's K and V (and
+  // their lo tiles for f32); then the dense f32 dO tile (free again once
+  // split, so the next one loads during compute), for f32 q two dense
+  // f32 Q slots, and the lse / delta / dlse slots
+  constexpr int kTiles = kF32 ? 8 : 6;
+  unsigned char* tiles =
+      smem_in + ((1024u - (smem_u32(smem_in) & 1023u)) & 1023u);
+  unsigned char* do_hi = tiles + 2 * kTile;
+  unsigned char* do_lo = tiles + 3 * kTile;
+  unsigned char* k_hi = tiles + 4 * kTile;
+  unsigned char* v_hi = tiles + 5 * kTile;
+  unsigned char* k_lo = tiles + 6 * kTile;      // f32 only
+  unsigned char* v_lo = tiles + 7 * kTile;
+  float* do_raw = reinterpret_cast<float*>(tiles + kTiles * kTile);
+  float* q_raw = do_raw + kRows * D;
+  float* meta_all = q_raw + (kF32 ? 2 * kRows * D : 0);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(meta_all + 2 * 3 * kRows);
+
   const int kh = blockIdx.y, b = blockIdx.z;
   const int group = H / KH;
-  const int tid = threadIdx.x;
-  const int kr = blockIdx.x * kThreads + tid;
-  const bool live = kr < Sk;
-
-  __shared__ float k_s[kThreads * P];
-  __shared__ float v_s[kThreads * P];
-  __shared__ __align__(16) float q_t[BQ][D];
-  __shared__ __align__(16) float go_t[BQ][D];
-  __shared__ float lse_t[BQ];
-  __shared__ float dl_t[BQ];
-  __shared__ float dls_t[BQ];
-  __shared__ int qseg_t[BQ];
-  __shared__ int qpos_t[BQ];
-
-  float* k_row = k_s + tid * P;
-  float* v_row = v_s + tid * P;
-  float ak[D], av[D];
-  const size_t krow = ((size_t)b * KH + kh) * Sk + kr;
-  int sk = kPad, pk = 0;
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      k_row[d] = to_f32(k[krow * D + d]);
-      v_row[d] = to_f32(v[krow * D + d]);
-      ak[d] = av[d] = 0.f;
-    }
-    sk = seg_k[(size_t)b * Sk + kr];
-    pk = pos_k[(size_t)b * Sk + kr];
-  } else {
-#pragma unroll
-    for (int d = 0; d < D; ++d) k_row[d] = v_row[d] = ak[d] = av[d] = 0.f;
-  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kRows, w0 = k0 + 16 * warp;
+  const int ra = w0 + g, rb = ra + 8;
+  const size_t hk = ((size_t)b * KH + kh) * Sk;
   const int* qsg = seg_q + (size_t)b * Sq;
   const int* qps = pos_q + (size_t)b * Sq;
+  const int* ksg = seg_k + (size_t)b * Sk;
+  const int* kps = pos_k + (size_t)b * Sk;
+  const int sa = ra < Sk ? ksg[ra] : kPad, sb = rb < Sk ? ksg[rb] : kPad;
+  const int pa = ra < Sk ? kps[ra] : 0, pb = rb < Sk ? kps[rb] : 0;
 
-  for (int m = 0; m < group; ++m) {
-    const size_t hrow = ((size_t)b * H + kh * group + m) * Sq;
-    for (int q0 = 0; q0 < Sq; q0 += BQ) {
-      __syncthreads();
-      for (int i = tid; i < BQ; i += kThreads) {
-        const int qq = q0 + i;
-        const bool in = qq < Sq;
-        qseg_t[i] = in ? qsg[qq] : kPad;
-        qpos_t[i] = in ? qps[qq] : 0;
-        lse_t[i] = in ? lse[hrow + qq] : 0.f;
-        dl_t[i] = in ? delta[hrow + qq] : 0.f;
-        dls_t[i] = in ? dlse[hrow + qq] : 0.f;
-      }
-      __syncthreads();
-      unsigned valid = 0u;
-      if (live && sk != kPad) {
+  if (tid == 0) mbar_init(bar);
+  __syncthreads();
+  float ak[D / 2], av[D / 2];       // m64nD accumulators of the warpgroup
 #pragma unroll
-        for (int i = 0; i < BQ; ++i)
-          if (qseg_t[i] == sk && visible(kind, window, chunk, qpos_t[i], pk))
-            valid |= 1u << i;
-      }
-      if (!__syncthreads_or(valid != 0u)) continue;
-      for (int e = tid; e < BQ * D; e += kThreads) {
-        const int i = e / D, d = e - i * D, qq = q0 + i;
-        const bool in = qq < Sq;
-        q_t[i][d] = in ? to_f32(q[(hrow + qq) * D + d]) : 0.f;
-        go_t[i][d] = in ? dout[(hrow + qq) * D + d] : 0.f;
-      }
-      __syncthreads();
-      if (valid == 0u) continue;
-      dkv_tile<D, BQ>(ak, av, k_row, v_row, q_t, go_t, lse_t, dl_t, dls_t,
-                      valid, scale);
-    }
-  }
+  for (int i = 0; i < D / 2; ++i) ak[i] = av[i] = 0.f;
 
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      dk[krow * D + d] = from_f32<T>(ak[d]);
-      dv[krow * D + d] = from_f32<T>(av[d]);
+  const float sl2 = scale * kLog2e;
+  const Ranges kr = tile_ranges(ksg, kps, k0, Sk, lane);
+  const int nqt = (Sq + kRows - 1) / kRows, nt = group * nqt;
+  // as in the dq kernel, over the (group member, q tile) pairs; the
+  // class depends on the q tile only (seg/pos are shared by the heads)
+  auto find = [&](int from, int& cls, unsigned& bits) {
+    for (int j = from; j < nt; ++j) {
+      const int qr0 = (j % nqt) * kRows;
+      const int c = classify(tile_ranges(qsg, qps, qr0, Sq, lane), kr, kind,
+                             window, chunk);
+      if (c == kNone) continue;
+      unsigned bb = ~0u;
+      if (c == kPartial) {
+        bb = elem_bits<false>(sa, pa, sb, pb, qsg, qps, qr0, Sq, t, kind,
+                              window, chunk);
+        if (!__syncthreads_or(bb != 0u)) continue;
+      }
+      cls = c;
+      bits = bb;
+      return j;
     }
+    return nt;
+  };
+  auto load = [&](int j, int slot) {
+    const int m = j / nqt, qr0 = (j % nqt) * kRows;
+    const size_t hr = ((size_t)b * H + kh * group + m) * Sq;
+    if constexpr (kF32)
+      stage_tile<float, D>(q_raw + slot * kRows * D, D, q + hr * D, qr0, Sq,
+                           tid);
+    else
+      stage_swz<D>(tiles + slot * kTile, q + hr * D, qr0, Sq, tid);
+    // one bulk copy; a ragged tile's last rows are zeroed (finite values
+    // in the masked columns of P^T.dO)
+    const int rows = min(kRows, Sq - qr0);
+    if (tid == 0) bulk_load(do_raw, dout + (hr + qr0) * D, rows * D * 4, bar);
+    for (int i = rows * D + tid * 4; i < kRows * D; i += kThreads * 4)
+      *reinterpret_cast<float4*>(do_raw + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+    float* meta = meta_all + slot * 3 * kRows;
+    if (Sq % 4 == 0) {            // rows of 16 bytes: 16-byte copies
+      for (int i = tid; i < 3 * kRows / 4; i += kThreads) {
+        const int which = i / (kRows / 4), r = qr0 + 4 * (i % (kRows / 4));
+        const float* src = which == 0 ? lse : which == 1 ? delta : dlse;
+        const int bytes = 4 * min(max(Sq - r, 0), 4);
+        cp_async16(meta + 4 * i, bytes ? src + hr + r : src, bytes);
+      }
+    } else {
+      for (int i = tid; i < 3 * kRows; i += kThreads) {
+        const int which = i / kRows, r = qr0 + i % kRows;
+        const float* src = which == 0 ? lse : which == 1 ? delta : dlse;
+        const bool in = r < Sq;
+        cp_async4(meta + i, in ? src + hr + r : src, in);
+      }
+    }
+  };
+
+  // one staged q tile: S^T and dP^T (m64n64, K-major B), P^T and dS^T in
+  // registers, then dV += P^T.dO and dK += dS^T.Q (m64nD, MN-major B)
+  float s[32], dp[32];
+  auto issue_sdp = [&](const unsigned char* qh, const unsigned char* ql) {
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      const uint64_t ak_ = gmma_desc<D>(k_hi + 32 * kd);
+      const uint64_t bq = gmma_desc<D>(qh + 32 * kd);
+      wgmma_ss_n64(s, ak_, bq, kd > 0);
+      if constexpr (kF32) {
+        wgmma_ss_n64(s, ak_, gmma_desc<D>(ql + 32 * kd), 1);
+        wgmma_ss_n64(s, gmma_desc<D>(k_lo + 32 * kd), bq, 1);
+      }
+    }
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      const uint64_t av_ = gmma_desc<D>(v_hi + 32 * kd);
+      const uint64_t bo = gmma_desc<D>(do_hi + 32 * kd);
+      wgmma_ss_n64(dp, av_, bo, kd > 0);
+      wgmma_ss_n64(dp, av_, gmma_desc<D>(do_lo + 32 * kd), 1);
+      if constexpr (kF32)
+        wgmma_ss_n64(dp, gmma_desc<D>(v_lo + 32 * kd), bo, 1);
+    }
+    wgmma_commit();
+  };
+  auto finish = [&](auto full, const unsigned char* qh,
+                    const unsigned char* ql, const float* meta,
+                    unsigned bits) {
+    wgmma_wait0();
+    pin(s);
+    pin(dp);
+    // P^T and dS^T (columns are queries: their stats from meta), packed
+    // as the A fragments of the four k16 steps over the tile's queries;
+    // the products of the first two steps run while the last two are
+    // computed
+    uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int j = 4 * half; j < 4 * half + 4; ++j) {
+        const int col = 8 * j + 2 * t;
+        float2 L = *reinterpret_cast<const float2*>(meta + col);
+        L.x *= kLog2e;
+        L.y *= kLog2e;
+        const float2 De =
+            *reinterpret_cast<const float2*>(meta + kRows + col);
+        const float2 Dl =
+            *reinterpret_cast<const float2*>(meta + 2 * kRows + col);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          bool ok = true;
+          if constexpr (!decltype(full)::value) ok = (bits >> i) & 1u;
+          const bool odd = e & 1;
+          const float x =
+              ok ? fmaf(s[i], sl2, -(odd ? L.y : L.x)) : -1e30f;
+          p[e] = exp2_approx(x);
+          ds[e] = p[e] * (((dp[i] - (odd ? De.y : De.x)) +
+                           (odd ? Dl.y : Dl.x)) * scale);
+        }
+        const int kk = j >> 1, r = (j & 1) * 2;
+        split2(p[0], p[1], ph[kk][r], pl[kk][r]);
+        split2(p[2], p[3], ph[kk][r + 1], pl[kk][r + 1]);
+        split2(ds[0], ds[1], dh[kk][r], dl[kk][r]);
+        split2(ds[2], ds[3], dh[kk][r + 1], dl[kk][r + 1]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 2 * half; kk < 2 * half + 2; ++kk) {
+        const int off = kk * 16 * D * 2;     // 16 query rows further
+        const uint64_t bo = gmma_desc<D>(do_hi + off);
+        const uint64_t bq = gmma_desc<D>(qh + off);
+        wgmma_nd<D, 1>(av, ph[kk], bo);
+        wgmma_nd<D, 1>(av, ph[kk], gmma_desc<D>(do_lo + off));
+        wgmma_nd<D, 1>(av, pl[kk], bo);
+        wgmma_nd<D, 1>(ak, dh[kk], bq);
+        wgmma_nd<D, 1>(ak, dl[kk], bq);
+        if constexpr (kF32)
+          wgmma_nd<D, 1>(ak, dh[kk], gmma_desc<D>(ql + off));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pin(ph[kk]);
+      pin(pl[kk]);
+      pin(dh[kk]);
+      pin(dl[kk]);
+    }
+    pin(av);
+    pin(ak);
+  };
+
+  // the tile after next is found while this one's first products run
+  int cls = kNone, cls_n = kNone;
+  unsigned bits = 0u, bits_n = 0u;
+  int cur = find(0, cls, bits);
+  if (cur < nt) load(cur, 0);
+  cp_async_commit();
+  // the block's K and V as wgmma A tiles, while the first tile loads
+  fill_swz<D>(k_hi, k_lo, k + hk * D, k0, Sk, tid);
+  fill_swz<D>(v_hi, v_lo, v + hk * D, k0, Sk, tid);
+  int nxt = cur < nt ? find(cur + 1, cls_n, bits_n) : nt;
+  for (int it = 0; cur < nt; ++it) {
+    cp_async_wait<0>();
+    mbar_wait(bar, it & 1);
+    __syncthreads();              // tile `cur` has landed; the last
+                                  // tile's products are done
+    const int slot = it & 1;
+    split_tile_swz<D>(do_raw, do_hi, do_lo, tid);
+    if constexpr (kF32)
+      split_tile_swz<D>(q_raw + slot * kRows * D, tiles, tiles + kTile, tid);
+    fence_async_smem();
+    __syncthreads();              // tiles written, the dO tile is free
+    if (nxt < nt) load(nxt, slot ^ 1);
+    cp_async_commit();
+    const unsigned char* qh = kF32 ? tiles : tiles + slot * kTile;
+    const unsigned char* ql = tiles + kTile;
+    issue_sdp(qh, ql);
+    int cls_nn = kNone;
+    unsigned bits_nn = 0u;
+    const int nn = nxt < nt ? find(nxt + 1, cls_nn, bits_nn) : nt;
+    const float* meta = meta_all + slot * 3 * kRows;
+    if (cls == kFull)
+      finish(std::true_type{}, qh, ql, meta, bits);
+    else
+      finish(std::false_type{}, qh, ql, meta, bits);
+    cur = nxt;
+    cls = cls_n;
+    bits = bits_n;
+    nxt = nn;
+    cls_n = cls_nn;
+    bits_n = bits_nn;
   }
+  cp_async_wait<0>();
+  store_acc<T, D>(dk + hk * D, ak, w0, Sk, lane);
+  store_acc<T, D>(dv + hk * D, av, w0, Sk, lane);
 }
 
 struct Args {
@@ -221,9 +583,17 @@ struct Args {
 
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a, void* dq) {
-  constexpr int BK = 32;
-  const dim3 grid((a.Sq + kThreads - 1) / kThreads, a.H, a.B);
-  bwd_dq_kernel<T, D, BK><<<grid, kThreads, 0, a.stream>>>(
+  constexpr int bytes = kDqSmem<T, D>;
+  auto* kernel = bwd_dq_kernel<T, D>;
+  static bool sized = false;      // dynamic shared memory above 48 KB
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  const dim3 grid((a.Sq + kRows - 1) / kRows, a.H, a.B);
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.seg_q, a.pos_q, a.seg_k, a.pos_k,
       a.lse, a.dout, a.delta, a.dlse, static_cast<T*>(dq), a.H, a.KH, a.Sq,
@@ -233,15 +603,27 @@ cudaError_t launch_dq(const Args& a, void* dq) {
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
-  constexpr int BQ = D > 32 ? 16 : 32;        // static shared memory < 48 KB
-  const dim3 grid((a.Sk + kThreads - 1) / kThreads, a.KH, a.B);
-  bwd_dkv_kernel<T, D, BQ><<<grid, kThreads, 0, a.stream>>>(
+  constexpr int bytes = kDkvSmem<T, D>;
+  auto* kernel = bwd_dkv_kernel<T, D>;
+  static bool sized = false;      // dynamic shared memory above 48 KB
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  const dim3 grid((a.Sk + kRows - 1) / kRows, a.KH, a.B);
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.seg_q, a.pos_q, a.seg_k, a.pos_k,
       a.lse, a.dout, a.delta, a.dlse, static_cast<T*>(dk),
       static_cast<T*>(dv), a.H, a.KH, a.Sq, a.Sk, a.scale, a.kind,
       a.window, a.chunk);
   return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 Args make_args(const void* q, const void* k, const void* v,
@@ -263,7 +645,8 @@ Args make_args(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and the outputs share it);
-// D is 32 or 64.  Each returns cudaGetLastError() after its launch.
+// D is 32 or 64; q, k, v and dout 16-byte aligned (cp.async).  Each
+// returns cudaGetLastError() after its launch.
 extern "C" int fcp_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* seg_q,
     const void* pos_q, const void* seg_k, const void* pos_k,
@@ -271,6 +654,8 @@ extern "C" int fcp_flash_attention_bwd_dq(
     void* dq, int B, int H, int KH, int Sq, int Sk, int D, int dtype,
     float scale, int kind, int window, int chunk, void* stream) {
   if (B * H * Sq == 0) return 0;
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)))
+    return cudaErrorMisalignedAddress;
   const Args a = make_args(q, k, v, seg_q, pos_q, seg_k, pos_k, lse, dout,
                            delta, dlse, B, H, KH, Sq, Sk, scale, kind,
                            window, chunk, stream);
@@ -288,6 +673,8 @@ extern "C" int fcp_flash_attention_bwd_dkv(
     void* dk, void* dv, int B, int H, int KH, int Sq, int Sk, int D,
     int dtype, float scale, int kind, int window, int chunk, void* stream) {
   if (B * KH * Sk == 0) return 0;
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)))
+    return cudaErrorMisalignedAddress;
   const Args a = make_args(q, k, v, seg_q, pos_q, seg_k, pos_k, lse, dout,
                            delta, dlse, B, H, KH, Sq, Sk, scale, kind,
                            window, chunk, stream);

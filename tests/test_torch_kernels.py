@@ -10,7 +10,9 @@ visit pass through bitwise.  The backward kernels and Functions 1e-5
 normalized by the largest reference value (f32 throughout; the gap to
 the reference's own 5e-6 covers summation order across two
 frameworks), on every slot and row but the trash slot / kv trash row,
-which the port's kernels skip and the reference computes."""
+which the port's kernels skip and the reference computes.  The
+precision test emulates the bf16 hi/lo arithmetic of the CUDA
+backward kernels 5 and 6 and holds it to the card's TOL_GRAD."""
 
 import jax
 import jax.numpy as jnp
@@ -332,6 +334,95 @@ def test_flash_bwd_plain_matches_interpret_kernel(mask):
         assert _nerr(a, b) <= 1e-5
     assert tfa.flash_attention_bwd_dq.launches == 0
     assert tfa.flash_attention_bwd_dkv.launches == 0
+
+
+# the rule chip_smoke.compare_grad holds kernels 3-6 to on the card
+TOL_GRAD = 1e-4
+
+
+def _split(x):
+    """f32 ``x`` -> ``(bf16(x), bf16(x - hi))``, both held in f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _mm_split(a, b, split_a: bool, split_b: bool):
+    """``a @ b`` as ``csrc/flash_attention_bwd.cu`` takes it on the tensor
+    cores: a split operand becomes hi + lo, a product of bf16 values is
+    exact in the f32 sum, and lo . lo is dropped (1, 2 or 3 products)."""
+    ah, al = _split(a) if split_a else (a, None)
+    bh, bl = _split(b) if split_b else (b, None)
+    out = ah @ bh
+    if bl is not None:
+        out = out + ah @ bl
+    if al is not None:
+        out = out + al @ bh
+    return out
+
+
+def _grad_err(a, b, bf16_out: bool) -> float:
+    """``chip_smoke.compare_grad``'s error: max |a - b| over max |b|,
+    less one bf16 ulp of each value (2**-7 of it) for bf16 outputs."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    if bf16_out:
+        diff = torch.clamp(diff - 2.0 ** -7 * b.abs(), min=0.0)
+    return float(diff.max()) / float(b.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_bf16_scheme_meets_tol_grad(dtype):
+    """The precision contract of kernels 5 and 6: every product on bf16
+    tensor cores, each f32 operand (do, p, ds; q/k/v when f32) split into
+    bf16 hi and lo, partial products summed in f32 — emulated here in
+    plain PyTorch and held to TOL_GRAD against
+    ``flash_attention_bwd_plain`` (f32 products), as the card's check
+    holds the kernels; for bf16 inputs also the f32 sums before the
+    outputs round to bf16, with no allowance (the f32-weight gradients
+    have none)."""
+    rng = np.random.default_rng(71)
+    h, kh, s, d = 4, 2, 128, 64
+    q, k, v = (torch.tensor(rng.normal(size=(1, n, s, d)), dtype=dtype)
+               for n in (h, kh, kh))
+    seg = np.zeros((1, s), np.int32)
+    seg[0, 77:] = 1                                  # a segment boundary
+    pos = np.concatenate([np.arange(77), np.arange(s - 77)])[None]
+    meta = [torch.from_numpy(x.astype(np.int32)) for x in (seg, pos) * 2]
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v, *meta, mask="causal")
+    do = torch.tensor(rng.normal(size=o.shape), dtype=torch.float32)
+    dlse = torch.tensor(rng.normal(size=lse.shape), dtype=torch.float32)
+    args = (q, k, v, *meta, o, lse, do, dlse)
+
+    exact = dtype == torch.bfloat16                  # q/k/v need no split
+    kx, vx = (torch.repeat_interleave(x.float(), h // kh, dim=1)
+              for x in (k, v))
+    qf = q.float()
+    valid = tref.mask_matrix(*meta, tmasks.parse_mask("causal"))[:, None]
+    scale = d ** -0.5
+    sc = _mm_split(qf, kx.transpose(-1, -2), not exact, not exact)
+    p = torch.where(valid, torch.exp(sc * scale - lse[..., None]), 0.0)
+    dp = _mm_split(do, vx.transpose(-1, -2), True, not exact)
+    ds = p * (((dp - tfa._delta(o, do)[..., None]) + dlse[..., None])
+              * scale)
+    dq = _mm_split(ds, kx, True, not exact)
+    dk = _mm_split(ds.transpose(-1, -2), qf, True, not exact)
+    dv = _mm_split(p.transpose(-1, -2), do, True, True)
+    dk, dv = (x.reshape(1, kh, h // kh, s, d).sum(2) for x in (dk, dv))
+
+    want = tfa.flash_attention_bwd_plain(*args, mask="causal")
+    for got, ref_ in zip((dq, dk, dv), want):
+        assert ref_.dtype == dtype
+        assert _grad_err(got.to(dtype), ref_, exact) <= TOL_GRAD
+    # the split is what passes: one bf16 rounding of ds misses the bound
+    one_pass = ds.to(torch.bfloat16).float() @ kx.to(torch.bfloat16).float()
+    assert _grad_err(one_pass.to(dtype), want[0], exact) > 3 * TOL_GRAD
+    if exact:
+        p_, ds_, qf_, kx_, g_ = tfa._flash_bwd_terms(*args, "causal", None)
+        f32 = (ds_ @ kx_,
+               (ds_.transpose(-1, -2) @ qf_).reshape(1, kh, -1, s, d).sum(2),
+               (p_.transpose(-1, -2) @ g_).reshape(1, kh, -1, s, d).sum(2))
+        for got, ref_ in zip((dq, dk, dv), f32):
+            assert _grad_err(got, ref_, False) <= TOL_GRAD
 
 
 def test_fused_run_function_matches_jax_grad():
