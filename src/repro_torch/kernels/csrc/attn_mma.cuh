@@ -1,9 +1,10 @@
-// Tensor-core building blocks of the attention backward kernels (sm_90a).
+// Tensor-core building blocks of the attention kernels (sm_90a).
 //
-// Used by flash_attention_bwd.cu (kernels 5 and 6); written so that the
-// fused backward kernels (fused_flash_bwd_dq.cu, fused_flash_bwd_dkv.cu)
-// can move onto them later.  Everything here works on a 64-row block of
-// four warps, 16 rows each:
+// Used by flash_attention_fwd.cu (kernel 2), fused_flash_fwd.cu (kernel 1)
+// and flash_attention_bwd.cu (kernels 5 and 6); written so that the fused
+// backward kernels (fused_flash_bwd_dq.cu, fused_flash_bwd_dkv.cu) can
+// move onto them later.  Everything here works on a 64-row block of four
+// warps, 16 rows each:
 //
 //   * mma.sync m16n8k16, bf16 operands, f32 accumulators, with the
 //     fragments of the PTX ISA (g = lane / 4, t = lane % 4):
@@ -26,7 +27,25 @@
 //     f32 accumulator reproduces an f32 product to ~2^-16 per term;
 //   * the per-tile mask classes (no valid pair / some / all) from the
 //     (segment, position) ranges of the two sides, and the per-element
-//     validity bits of a partial tile (_mask_tile of the reference).
+//     validity bits of a partial tile (_mask_tile of the reference);
+//   * the forward tile (section forward): one 64-key step of the online
+//     softmax of a warp's 16 query rows, shared by kernels 1 and 2.
+//     It replaces the body of the TPU kernels _fwd_kernel (:63) and
+//     _fused_fwd_kernel (:346) of src/repro/kernels/flash_attention.py.
+//     At the training block (B 4, H 32, 512 x 512 keys, D 64, bf16) the
+//     work is 8.6e9 flop on 4.2e7 bytes, at kernel 1's serve shape 3.3e10
+//     on 2.2e8: 150-200 flop a byte, under the H100's ~295, so the bytes
+//     set the roofline floor with the operations close behind.  What
+//     holds the tile on the card is the latency of each warp's chain S ->
+//     softmax -> P.V (1.0-1.4 us of SM time per 64 x 64 tile, some three
+//     times what mma.sync issue alone needs; PERF.md section 6).  The
+//     design keeps every product on the tensor cores (S = Q.K^T and O +=
+//     P.V, mma.sync m16n8k16), Q in registers for the whole block, K and
+//     V through a cp.async ring (tile_pipe) so the next tile loads while
+//     this one computes, P straight from the S accumulators as the A
+//     fragment of P.V, the exponent folded into one FMA and one MUFU.EX2
+//     per score, and the tiles' classes found before the loop
+//     (classify_tiles), so it waits on no metadata load.
 
 #pragma once
 
@@ -327,6 +346,18 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
   lo = bits_of(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
+// (x0, x1) -> packed bf16 hi and lo with hi = x truncated to bf16 (its
+// upper 16 bits, one byte permute) and lo = bf16(x - hi): x - hi is exact
+// in f32, |lo| < 2^-7 |x|, so hi + lo = x + O(2^-16 |x|) at one F2FP a
+// pair instead of two
+__device__ __forceinline__ void split2_trunc(float x0, float x1,
+                                             uint32_t& hi, uint32_t& lo) {
+  const uint32_t u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
+  hi = __byte_perm(u0, u1, 0x7632);
+  lo = bits_of(__floats2bfloat162_rn(x0 - __uint_as_float(u0 & 0xffff0000u),
+                                     x1 - __uint_as_float(u1 & 0xffff0000u)));
+}
+
 // A fragments of one operand: hi always, lo where the operand is f32
 template <int N, bool kLo>
 struct AFrags {
@@ -335,12 +366,13 @@ struct AFrags {
 };
 
 // A fragments of rows [row0, row0 + 16) x all D columns of a row-major
-// [n, D] matrix in global memory (rows >= n read as 0), one per k16 step.
-// bf16 is taken as it is; f32 is split into hi and lo.
+// [n, D] matrix in global memory with row stride ld elements (rows >= n
+// read as 0), one per k16 step.  bf16 is taken as it is; f32 is split
+// into hi and lo.
 template <int D>
 __device__ __forceinline__ void load_a(AFrags<D / 16, false>& f,
                                        const bf16* m, int row0, int n,
-                                       int lane) {
+                                       int lane, long long ld = D) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd)
@@ -349,15 +381,14 @@ __device__ __forceinline__ void load_a(AFrags<D / 16, false>& f,
       const int r = row0 + g + (i & 1) * 8;
       const int c = 16 * kd + 2 * t + (i >> 1) * 8;
       f.hi[kd][i] =
-          r < n ? *reinterpret_cast<const uint32_t*>(m + (size_t)r * D + c)
-                : 0u;
+          r < n ? *reinterpret_cast<const uint32_t*>(m + r * ld + c) : 0u;
     }
 }
 
 template <int D>
 __device__ __forceinline__ void load_a(AFrags<D / 16, true>& f,
                                        const float* m, int row0, int n,
-                                       int lane) {
+                                       int lane, long long ld = D) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd)
@@ -365,27 +396,29 @@ __device__ __forceinline__ void load_a(AFrags<D / 16, true>& f,
     for (int i = 0; i < 4; ++i) {
       const int r = row0 + g + (i & 1) * 8;
       const int c = 16 * kd + 2 * t + (i >> 1) * 8;
-      const float2 x = r < n ? *reinterpret_cast<const float2*>(
-                                   m + (size_t)r * D + c)
-                             : make_float2(0.f, 0.f);
+      const float2 x =
+          r < n ? *reinterpret_cast<const float2*>(m + r * ld + c)
+                : make_float2(0.f, 0.f);
       split2(x.x, x.y, f.hi[kd][i], f.lo[kd][i]);
     }
 }
 
 // ---------------------------------------------------------------- tiles
 
-// cp.async rows [r0, r0 + 64) of a row-major [n, D] matrix into a tile
-// with row stride `ld` elements; rows >= n are zero-filled.
+// cp.async rows [r0, r0 + 64) of a [n, D] matrix whose rows are src_ld
+// elements apart (16-byte aligned) into a tile with row stride `ld`
+// elements; rows >= n are zero-filled.
 template <typename T, int D>
 __device__ __forceinline__ void stage_tile(T* dst, int ld, const T* src,
-                                           int r0, int n, int tid) {
+                                           int r0, int n, int tid,
+                                           long long src_ld = D) {
   constexpr int kPer = 16 / sizeof(T);          // elements per copy
   constexpr int kChunks = D / kPer;             // copies per row
 #pragma unroll
   for (int i = tid; i < kRows * kChunks; i += kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * kPer;
     const bool in = r0 + r < n;
-    cp_async16(dst + r * ld + c, in ? src + (size_t)(r0 + r) * D + c : src,
+    cp_async16(dst + r * ld + c, in ? src + (r0 + r) * src_ld + c : src,
                in ? 16 : 0);
   }
 }
@@ -589,6 +622,277 @@ __device__ __forceinline__ void store_acc(T* out, const float (&acc)[D / 2],
     if (ra < n) store2(out + (size_t)ra * D + c, acc[4 * j], acc[4 * j + 1]);
     if (rb < n)
       store2(out + (size_t)rb * D + c, acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// ---------------------------------------------------------------- pipe
+
+// The classes (kNone / kPartial / kFull) of kv tiles j = 0 .. nt - 1
+// against the block's q ranges, into cls[j], before the tile loop.  Warp
+// w takes tiles 4w .. 4w + 3, then 16 further on, with all their seg/pos
+// loads in flight at once; meta(j, seg, pos, r0, n) names tile j's
+// metadata (rows [r0, r0 + 64) of seg/pos [n]).  The loop then finds
+// its tiles in shared memory, off the critical path.
+template <typename Meta>
+__device__ __forceinline__ void classify_tiles(unsigned char* cls, int nt,
+                                               const Ranges& qr, Meta&& meta,
+                                               int kind, int window,
+                                               int chunk, int warp,
+                                               int lane) {
+  constexpr int kB = 4;               // tiles a warp classifies at once
+  for (int j0 = warp * kB; j0 < nt; j0 += kWarps * kB) {
+    int sg[kB][kRows / 32], ps[kB][kRows / 32];
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      const int* seg = nullptr;
+      const int* pos = nullptr;
+      int r0 = 0, n = 0;
+      if (j0 + b < nt) meta(j0 + b, seg, pos, r0, n);
+#pragma unroll
+      for (int i = 0; i < kRows / 32; ++i) {
+        const int row = r0 + lane + 32 * i;
+        sg[b][i] = row < n ? seg[row] : kPad;
+        ps[b][i] = row < n ? pos[row] : 0;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      Ranges r{INT_MAX, INT_MIN, INT_MAX, INT_MIN, true};
+#pragma unroll
+      for (int i = 0; i < kRows / 32; ++i) {
+        if (sg[b][i] == kPad) {
+          r.all = false;
+          continue;
+        }
+        r.smin = min(r.smin, sg[b][i]);
+        r.smax = max(r.smax, sg[b][i]);
+        r.pmin = min(r.pmin, ps[b][i]);
+        r.pmax = max(r.pmax, ps[b][i]);
+      }
+      r.smin = __reduce_min_sync(0xffffffffu, r.smin);
+      r.smax = __reduce_max_sync(0xffffffffu, r.smax);
+      r.pmin = __reduce_min_sync(0xffffffffu, r.pmin);
+      r.pmax = __reduce_max_sync(0xffffffffu, r.pmax);
+      r.all = __all_sync(0xffffffffu, r.all);
+      if (lane == 0 && j0 + b < nt)
+        cls[j0 + b] = (unsigned char)classify(qr, r, kind, window, chunk);
+    }
+  }
+}
+
+// the first tile at or after `from` that classify_tiles did not rule out
+// (nt if none); the same in every thread
+__device__ __forceinline__ int next_tile(const unsigned char* cls, int from,
+                                         int nt) {
+  while (from < nt && cls[from] == kNone) ++from;
+  return from;
+}
+
+// Walk the kept tiles through a two-slot cp.async ring: load(j, slot)
+// issues tile j's copies into a slot, body(slot, j) computes on it once
+// it has landed; the next kept tile's copies run meanwhile.  One barrier
+// a tile: after it, tile `cur` has landed for every thread and every
+// thread is done with the other slot, which the next copy takes.  (A
+// third slot measured slower: it leaves room for three blocks an SM, not
+// four.)
+template <typename Load, typename Body>
+__device__ __forceinline__ void tile_pipe(const unsigned char* cls, int nt,
+                                          Load&& load, Body&& body) {
+  int cur = next_tile(cls, 0, nt);
+  if (cur < nt) load(cur, 0);
+  cp_async_commit();
+  for (int it = 0; cur < nt; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();
+    const int nxt = next_tile(cls, cur + 1, nt);
+    if (nxt < nt) load(nxt, (it + 1) & 1);
+    cp_async_commit();
+    body(it & 1, cur);
+    cur = nxt;
+  }
+}
+
+// cp.async the seg/pos of rows [r0, r0 + 64) of [n] (4-byte copies: any
+// alignment) into seg_s / pos_s; rows >= n are zero-filled (elem_bits
+// bounds its columns by n)
+__device__ __forceinline__ void stage_meta(int* seg_s, int* pos_s,
+                                           const int* seg, const int* pos,
+                                           int r0, int n, int tid) {
+  for (int i = tid; i < 2 * kRows; i += kThreads) {
+    const int r = i % kRows;
+    const bool in = r0 + r < n;
+    const int* src = i < kRows ? seg : pos;
+    cp_async4((i < kRows ? seg_s : pos_s) + r, in ? src + r0 + r : src, in);
+  }
+}
+
+// ---------------------------------------------------------------- forward
+//
+// The forward tile works on a block of kWarps warps that owns 64 query
+// rows, 16 a warp.  The online softmax runs in log2 units: a score s
+// enters as x = s * scale * log2e, the running max m is kept in the same
+// units and p = 2^(x - m) (one FMA and one MUFU.EX2).  Per lane: the
+// accumulator fragments of rows g and g + 8 (D / 8 n8 tiles), their m,
+// and this lane's part of each row's sum l — the quad's four parts add
+// up to it, so a tile reduces only the row max over the quad.
+
+constexpr float kNegInf = -1e30f;   // the reference's finite NEG_INF
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(0xff800000);
+}
+
+template <int D>
+struct FwdAcc {
+  float o[D / 8][4];
+  float m[2];
+  float l[2];
+};
+
+// empty rows: (acc, m, l) = (0, NEG_INF, 0)
+template <int D>
+__device__ __forceinline__ void fwd_init(FwdAcc<D>& a) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    a.o[j][0] = a.o[j][1] = a.o[j][2] = a.o[j][3] = 0.f;
+  a.m[0] = a.m[1] = kNegInf;
+  a.l[0] = a.l[1] = 0.f;
+}
+
+// One 64-key tile of the online softmax: S = Q.K^T on the tensor cores
+// (with f32 operands 3 products: hi.hi + hi.lo + lo.hi), the mask (kFull:
+// none; otherwise this lane's `bits`, laid out as elem_bits<true> lays
+// them out), the update of (acc, m, l), and acc += P.V with P split into
+// bf16 hi + lo by split2_trunc (2 products; 3 with an f32 V).  P is the S
+// accumulator re-packed as the A fragment of the k16 steps.  kt / vt: the
+// staged bf16 K and V tiles (rows are keys, row stride ld), ktl / vtl:
+// their lo planes (f32 only).
+template <bool kFull, bool kF32, int D>
+__device__ __forceinline__ void fwd_tile(FwdAcc<D>& a,
+                                         const AFrags<D / 16, kF32>& qf,
+                                         const bf16* kt, const bf16* ktl,
+                                         const bf16* vt, const bf16* vtl,
+                                         int ld, unsigned bits, float sl2,
+                                         int lane) {
+  constexpr int kN8 = kRows / 8;      // n8 tiles of scores
+  float s[kN8][4];
+#pragma unroll
+  for (int j = 0; j < kN8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  if constexpr (kF32) {
+    float sl[kN8][4];                 // the lo terms: shorter mma chains
+#pragma unroll
+    for (int j = 0; j < kN8; ++j)
+      sl[j][0] = sl[j][1] = sl[j][2] = sl[j][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+#pragma unroll
+      for (int c = 0; c < kRows / 16; ++c) {
+        const int off = b_rows_off(16 * c, 16 * kd, ld, lane);
+        uint32_t kf[4], kl[4];
+        ldsm_x4(kf, kt + off);
+        ldsm_x4(kl, ktl + off);
+        mma(s[2 * c], qf.hi[kd], kf[0], kf[1]);
+        mma(s[2 * c + 1], qf.hi[kd], kf[2], kf[3]);
+        mma(sl[2 * c], qf.hi[kd], kl[0], kl[1]);
+        mma(sl[2 * c + 1], qf.hi[kd], kl[2], kl[3]);
+        mma(sl[2 * c], qf.lo[kd], kf[0], kf[1]);
+        mma(sl[2 * c + 1], qf.lo[kd], kf[2], kf[3]);
+      }
+#pragma unroll
+    for (int j = 0; j < kN8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += sl[j][e];
+  } else {
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+#pragma unroll
+      for (int c = 0; c < kRows / 16; ++c) {
+        uint32_t kf[4];
+        ldsm_x4(kf, kt + b_rows_off(16 * c, 16 * kd, ld, lane));
+        mma(s[2 * c], qf.hi[kd], kf[0], kf[1]);
+        mma(s[2 * c + 1], qf.hi[kd], kf[2], kf[3]);
+      }
+  }
+
+  // masked scores to -inf; the tile's row max over the quad
+  float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+  for (int j = 0; j < kN8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (!kFull)
+        if (!((bits >> (4 * j + e)) & 1u)) s[j][e] = neg_inf();
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  float mn[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    mn[r] = fmaxf(a.m[r], mx[r] * sl2);     // -inf * sl2 = -inf: no change
+    const float alpha = exp2_approx(a.m[r] - mn[r]);
+    a.m[r] = mn[r];
+    a.l[r] *= alpha;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      a.o[j][2 * r] *= alpha;
+      a.o[j][2 * r + 1] *= alpha;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kN8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2_approx(fmaf(s[j][e], sl2, -mn[e >> 1]));
+      s[j][e] = p;
+      a.l[e >> 1] += p;
+    }
+
+  // acc += P.V, one k16 step per 16 keys
+#pragma unroll
+  for (int kc = 0; kc < kRows / 16; ++kc) {
+    uint32_t ph[4], pl[4];
+    split2_trunc(s[2 * kc][0], s[2 * kc][1], ph[0], pl[0]);
+    split2_trunc(s[2 * kc][2], s[2 * kc][3], ph[1], pl[1]);
+    split2_trunc(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[2], pl[2]);
+    split2_trunc(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int nd = 0; nd < D / 16; ++nd) {
+      const int off = b_cols_off(16 * kc, 16 * nd, ld, lane);
+      uint32_t vf[4];
+      ldsm_x4_t(vf, vt + off);
+      mma(a.o[2 * nd], ph, vf[0], vf[1]);
+      mma(a.o[2 * nd + 1], ph, vf[2], vf[3]);
+      mma(a.o[2 * nd], pl, vf[0], vf[1]);
+      mma(a.o[2 * nd + 1], pl, vf[2], vf[3]);
+      if constexpr (kF32) {
+        uint32_t vl[4];
+        ldsm_x4_t(vl, vtl + off);
+        mma(a.o[2 * nd], ph, vl[0], vl[1]);
+        mma(a.o[2 * nd + 1], ph, vl[2], vl[3]);
+      }
+    }
+  }
+}
+
+// Finalize: l summed over the quad, o = acc / l, lse = m ln 2 + ln l (m
+// back from log2 units); a row with l = 0 (no valid key and no seed)
+// gives o = 0 and lse = NEG_INF, the reference's fully masked row.
+template <int D>
+__device__ __forceinline__ void fwd_finish(FwdAcc<D>& a, float (&lse)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = a.l[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const bool live = l > 0.f;
+    lse[r] = live ? a.m[r] * kLn2 + logf(l) : kNegInf;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      a.o[j][2 * r] = live ? a.o[j][2 * r] / l : 0.f;
+      a.o[j][2 * r + 1] = live ? a.o[j][2 * r + 1] / l : 0.f;
+    }
   }
 }
 

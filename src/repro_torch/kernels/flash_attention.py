@@ -9,9 +9,10 @@ All six kernels of :mod:`repro.kernels.flash_attention` are ported:
   ``csrc/fused_flash_bwd_dq.cu`` / ``csrc/fused_flash_bwd_dkv.cu``: the
   backward of one run against its run-final softmax stats.
 * :func:`flash_attention_fwd` — ``csrc/flash_attention_fwd.cu``: varlen
-  flash forward with a batch dimension and strided K/V (the decode
-  kernel at ``Sq = 1``, reading the cache in place; the per-step
-  training forward).
+  flash forward with a batch dimension and strided K/V, in two variants
+  chosen on the host by :func:`fwd_variant`: split-KV decode (``Sq = 1``
+  on the serving path, reading the cache in place) and tiled on the
+  tensor cores (the per-step training forward).
 * :func:`flash_attention_bwd_dq` / :func:`flash_attention_bwd_dkv` —
   ``csrc/flash_attention_bwd.cu``: its backward, two kernels with a
   wrapper and a counter each (:func:`flash_attention_bwd` runs both).
@@ -93,21 +94,37 @@ def _batched(x: torch.Tensor, b: int) -> torch.Tensor:
     return x if x.ndim == 2 else x.expand(b, x.shape[-1])
 
 
-def flash_attention_fwd(q, k, v, seg_q, pos_q, seg_k, pos_k, *,
-                        mask=True, scale: float | None = None):
-    """Varlen flash forward.  Returns ``(o, lse)`` in f32.
+# The wrapper's host-side choice between the kernel's two variants (both
+# compute any shape): up to DECODE_MAX_SQ query rows the split-KV decode
+# variant (f32 on the CUDA cores, one block per DECODE_SPLIT keys of a
+# (batch row, kv head), partials merged in split order by a second small
+# launch); above it the tiled tensor-core variant (64 query rows a block).
+DECODE_MAX_SQ = 16
+DECODE_SPLIT = 256
 
-    q: ``[H, Sq, D]`` or ``[B, H, Sq, D]``; k/v: ``[KH, Sk, D]`` or
-    ``[B, KH, Sk, D]`` with any strides (unit stride on ``D``), so a
-    KV cache ``[B, S, KH, D]`` is passed as ``cache.transpose(1, 2)``
-    without a copy; seg/pos: ``[Sq]``/``[Sk]`` (shared by the batch) or
-    ``[B, Sq]``/``[B, Sk]``, int32.  A fully masked row gives ``o = 0``,
-    ``lse = NEG_INF``.  On the CUDA kernel ``D`` is 32 or 64.
-    """
-    if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, seg_q, pos_q, seg_k,
-                                         pos_k, mask=mask, scale=scale)
-    _require(q.device.type == "cuda", f"unsupported device {q.device}")
+
+def fwd_variant(sq: int) -> str:
+    """``"decode"`` or ``"tiled"``: the variant of
+    ``csrc/flash_attention_fwd.cu`` that :func:`flash_attention_fwd`
+    launches for ``sq`` query rows."""
+    return "decode" if sq <= DECODE_MAX_SQ else "tiled"
+
+
+def decode_splits(sk: int) -> int:
+    """Key splits of the decode variant: ``ceil(sk / DECODE_SPLIT)``."""
+    return -(-sk // DECODE_SPLIT)
+
+
+def _aligned(x: torch.Tensor, nbytes: int) -> bool:
+    """Base pointer and the strides of the three leading dims of ``x``
+    (``[B, H, S, D]``) are multiples of ``nbytes``."""
+    s, per = x.stride(), nbytes // x.element_size()
+    return (x.data_ptr() % nbytes == 0 and s[0] % per == 0
+            and s[1] % per == 0 and s[2] % per == 0)
+
+
+def _flash_fwd_prep(q, k, v, seg_q, pos_q, seg_k, pos_k, mask, scale):
+    """Checked, batched launch arguments of kernel 2 and its outputs."""
     unbatched = q.ndim == 3
     if unbatched:
         q, k, v = q[None], k[None], v[None]
@@ -122,6 +139,8 @@ def flash_attention_fwd(q, k, v, seg_q, pos_q, seg_k, pos_k, *,
     _require(D in (32, 64), f"head_dim {D} not in (32, 64)")
     _require(q.stride(-1) == 1 and k.stride(-1) == 1,
              "head_dim must be the unit-stride dim")
+    _require(_aligned(k, 16) and _aligned(v, 16) and _aligned(q, 8),
+             "k/v rows must be 16-byte aligned and q rows 8-byte aligned")
     metas = []
     for x, n in ((seg_q, Sq), (pos_q, Sq), (seg_k, Sk), (pos_k, Sk)):
         _require(x.dtype == torch.int32 and x.is_contiguous()
@@ -131,28 +150,74 @@ def flash_attention_fwd(q, k, v, seg_q, pos_q, seg_k, pos_k, *,
                  "seg/pos must be contiguous int32 [S] or [B, S] "
                  "tensors on the device of q")
         metas.append(x)
-    sq_b = Sq if seg_q.ndim == 2 else 0
-    sk_b = Sk if seg_k.ndim == 2 else 0
     _require(pos_q.ndim == seg_q.ndim and pos_k.ndim == seg_k.ndim,
              "seg and pos must share their batching")
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    kind, window, chunk = _mask_args(mask)
     o = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = _bind("flash_attention_fwd", "fcp_flash_attention_fwd",
-               [_P] * 9 + [_I] * 7 + [ctypes.c_longlong] * 8
-               + [ctypes.c_float, _I, _I, _I, _P])
     qs, ks = q.stride(), k.stride()
-    _check(fn(_ptr(q), _ptr(k), _ptr(v), *[_ptr(x) for x in metas],
-              _ptr(o), _ptr(lse), B, H, KH, Sq, Sk, D, _DTYPES[q.dtype],
-              qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], sq_b, sk_b,
-              float(scale), kind, window, chunk, _stream()),
-           "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
-    if unbatched:
+    args = [_ptr(q), _ptr(k), _ptr(v), *[_ptr(x) for x in metas], _ptr(o),
+            _ptr(lse)]
+    shape = [B, H, KH, Sq, Sk, D, _DTYPES[q.dtype], qs[0], qs[1], qs[2],
+             ks[0], ks[1], ks[2], Sq if seg_q.ndim == 2 else 0,
+             Sk if seg_k.ndim == 2 else 0, float(scale),
+             *_mask_args(mask)]
+    return {"args": args, "shape": shape, "o": o, "lse": lse,
+            "unbatched": unbatched}
+
+
+_FWD_ARGS = [_P] * 9 + [_I] * 7 + [ctypes.c_longlong] * 8 \
+    + [ctypes.c_float, _I, _I, _I]
+
+
+def _launch_fwd(prep, variant: str):
+    """Launch one variant of kernel 2 on prepared arguments; returns
+    ``(o, lse)``.  Counts nothing: the wrapper counts its launches."""
+    o, lse = prep["o"], prep["lse"]
+    if variant == "tiled":
+        fn = _bind("flash_attention_fwd", "fcp_flash_attention_fwd",
+                   _FWD_ARGS + [_P])
+        err = fn(*prep["args"], *prep["shape"], _stream())
+    elif variant == "decode":
+        # workspace: the splits' partial acc [B, H, Sq, ns, D], then their
+        # (m, l) [B, H, Sq, ns, 2], in one allocation
+        B, H, _, Sq, Sk, D = prep["shape"][:6]
+        ns = decode_splits(Sk)
+        ws = torch.empty(B * H * Sq * ns * (D + 2), dtype=torch.float32,
+                         device=o.device)
+        fn = _bind("flash_attention_fwd", "fcp_flash_attention_fwd_decode",
+                   _FWD_ARGS[:9] + [_P, _P] + _FWD_ARGS[9:] + [_I, _P])
+        err = fn(*prep["args"], _ptr(ws), _ptr(ws) + B * H * Sq * ns * D * 4,
+                 *prep["shape"], ns, _stream())
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
+    _check(err, f"flash_attention_fwd ({variant})")
+    if prep["unbatched"]:
         return o[0], lse[0]
     return o, lse
+
+
+def flash_attention_fwd(q, k, v, seg_q, pos_q, seg_k, pos_k, *,
+                        mask=True, scale: float | None = None):
+    """Varlen flash forward.  Returns ``(o, lse)`` in f32.
+
+    q: ``[H, Sq, D]`` or ``[B, H, Sq, D]``; k/v: ``[KH, Sk, D]`` or
+    ``[B, KH, Sk, D]`` with any strides (unit stride on ``D``, rows
+    16-byte aligned), so a KV cache ``[B, S, KH, D]`` is passed as
+    ``cache.transpose(1, 2)`` without a copy; seg/pos: ``[Sq]``/``[Sk]``
+    (shared by the batch) or ``[B, Sq]``/``[B, Sk]``, int32.  A fully
+    masked row gives ``o = 0``, ``lse = NEG_INF``.  On the CUDA kernel
+    ``D`` is 32 or 64, and the variant is :func:`fwd_variant` of ``Sq``.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, seg_q, pos_q, seg_k,
+                                         pos_k, mask=mask, scale=scale)
+    _require(q.device.type == "cuda", f"unsupported device {q.device}")
+    prep = _flash_fwd_prep(q, k, v, seg_q, pos_q, seg_k, pos_k, mask, scale)
+    out = _launch_fwd(prep, fwd_variant(q.shape[-2]))
+    flash_attention_fwd.launches += 1
+    return out
 
 
 flash_attention_fwd.launches = 0

@@ -425,6 +425,187 @@ def test_split_bf16_scheme_meets_tol_grad(dtype):
             assert _grad_err(got, ref_, False) <= TOL_GRAD
 
 
+# chip_smoke.compare's rule for kernels 1 and 2 on the card
+TOL_O = 1e-4
+TOL_LSE = 1e-4
+_LOG2E = 1.4426950408889634
+
+
+def _fwd_err(o, lse, o_ref, lse_ref):
+    """``chip_smoke.compare``'s errors: max |o - o_ref| over max(max
+    |o_ref|, 1), and max |lse - lse_ref| on live rows."""
+    live = lse_ref > -1e29
+    err_o = float((o - o_ref).abs().max()) / max(
+        float(o_ref.abs().max()), 1.0)
+    err_l = float((lse - lse_ref)[live].abs().max())
+    return err_o, err_l
+
+
+def _split_trunc(x):
+    """``split2_trunc`` of ``csrc/attn_mma.cuh``: hi = ``x`` truncated to
+    bf16 (its upper 16 bits), lo = bf16(x - hi), both held in f32."""
+    hi = (x.view(torch.int32) & -65536).view(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _fwd_tiles(q, k, v, valid, scale, exact, seed=None, one_pass=False):
+    """The forward tile of ``csrc/attn_mma.cuh`` in plain PyTorch: 64-key
+    tiles, the online softmax in f32 in log2 units, S = Q.K^T split for f32
+    inputs (3 products), P split into a truncated bf16 hi + a rounded lo
+    for P.V (2 products; 3 with f32 V).  ``seed = (o_in, lse_in)`` seeds
+    ``(acc, m, l) = (o_in, lse_in, 1)`` (kernel 1); ``one_pass`` rounds P
+    to bf16 once instead."""
+    sl2 = scale * _LOG2E
+    shape = q.shape[:-1]
+    if seed is None:
+        acc = torch.zeros(q.shape)
+        m = torch.full(shape, -1e30)
+        l = torch.zeros(shape)
+    else:
+        acc, m, l = seed[0].clone(), seed[1] * _LOG2E, torch.ones(shape)
+    for j0 in range(0, k.shape[-2], 64):
+        kt, vt = k[..., j0:j0 + 64, :], v[..., j0:j0 + 64, :]
+        s = _mm_split(q, kt.transpose(-1, -2), not exact, not exact)
+        x = torch.where(valid[..., j0:j0 + 64], s, -torch.inf)
+        m_new = torch.maximum(m, x.amax(-1) * sl2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x * sl2 - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        if one_pass:
+            pv = p.to(torch.bfloat16).float() @ vt
+        else:
+            ph, pl = _split_trunc(p)
+            vh, vl = _split(vt) if not exact else (vt, None)
+            pv = ph @ vh + pl @ vh + (ph @ vl if vl is not None else 0.0)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    live = l > 0
+    safe = torch.where(live, l, 1.0)
+    o = torch.where(live[..., None], acc / safe[..., None], 0.0)
+    lse = torch.where(live, m / _LOG2E + torch.log(safe), -1e30)
+    return o, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_bf16_fwd_scheme_meets_tol(dtype):
+    """The precision contract of kernels 1 and 2 (the shared forward tile):
+    every product on bf16 tensor cores with f32 sums, Q.K^T split only for
+    f32 inputs, P always split — emulated in plain PyTorch and held to
+    TOL_O / TOL_LSE against ``flash_attention_fwd_plain`` (a ragged Sk, a
+    fully masked row, GQA) and ``fused_flash_fwd_plain`` (a seeded
+    accumulator, several steps of one slot).  A one-pass bf16 P misses the
+    bound: the split is what passes."""
+    rng = np.random.default_rng(72)
+    exact = dtype == torch.bfloat16
+    h, kh, sq, sk, d = 4, 2, 72, 200, 64
+    q, k, v = (torch.tensor(rng.normal(size=(1, n, s_, d)), dtype=dtype)
+               for n, s_ in ((h, sq), (kh, sk), (kh, sk)))
+    seg_k, pos_k = _stream_meta(rng, sk, 3)
+    seg_q, pos_q = seg_k[-sq:].copy(), pos_k[-sq:].copy()
+    seg_q[5] = -1                                    # a fully masked row
+    meta = [torch.from_numpy(x[None]) for x in (seg_q, pos_q, seg_k, pos_k)]
+    want = tfa.flash_attention_fwd_plain(q, k, v, *meta, mask="causal")
+    valid = tref.mask_matrix(*meta, tmasks.parse_mask("causal"))[:, None]
+    kx, vx = (torch.repeat_interleave(x.float(), h // kh, dim=1)
+              for x in (k, v))
+    got = _fwd_tiles(q.float(), kx, vx, valid, d ** -0.5, exact)
+    err_o, err_l = _fwd_err(*got, *want)
+    assert err_o <= TOL_O and err_l <= TOL_LSE
+    assert torch.equal(got[0][0, :, 5], want[0][0, :, 5])      # o = 0
+    one = _fwd_tiles(q.float(), kx, vx, valid, d ** -0.5, exact,
+                     one_pass=True)
+    assert _fwd_err(*one, *want)[0] > 3 * TOL_O
+
+    # kernel 1: slot 2 of _fused_inputs, seeded, over three steps
+    qs, kxt, vxt, acc_o, acc_lse, tabs = _fused_inputs(rng)
+    acc_o[2] = rng.normal(size=acc_o[2].shape)
+    acc_lse[2] = rng.normal(size=acc_lse[2].shape) + 5
+    qs, kxt, vxt = (torch.tensor(x, dtype=dtype) for x in (qs, kxt, vxt))
+    t = {n: _t(x) for n, x in tabs.items()}
+    po, pl = tfa.fused_flash_fwd_plain(
+        t["step_q"], t["step_kv"], qs, kxt, vxt, t["q_seg"], t["q_pos"],
+        t["k_seg"], t["k_pos"], _t(acc_o), _t(acc_lse), mask=True)
+    steps = [i for i, x in enumerate(tabs["step_q"]) if x == 2]
+    kv = [int(tabs["step_kv"][i]) for i in steps]
+    group = qs.shape[1] // kxt.shape[1]
+    kf, vf = (torch.cat([torch.repeat_interleave(x[j].float(), group, 0)
+                         for j in kv], dim=-2) for x in (kxt, vxt))
+    vm = torch.cat([tref.mask_matrix(t["q_seg"][2], t["q_pos"][2],
+                                     t["k_seg"][i], t["k_pos"][i], True)
+                    for i in steps], dim=-1)[None]
+    d = qs.shape[-1]
+    got = _fwd_tiles(qs[2].float(), kf, vf, vm, d ** -0.5, exact,
+                     seed=(_t(acc_o[2]), _t(acc_lse[2])))
+    err_o, err_l = _fwd_err(*got, po[2], pl[2])
+    assert err_o <= TOL_O and err_l <= TOL_LSE
+
+
+def test_decode_split_merge_matches_plain():
+    """The decode variant's arithmetic: per split of DECODE_SPLIT keys an
+    unnormalized partial (acc, m, l) in f32 (l = 0 for a split with no
+    valid key, whose acc is never read), merged in split order, equals
+    ``flash_attention_fwd_plain`` to 1e-6.  Rows of length 0, 1, a split
+    size -1, +0 and +1, and one spanning several splits, over a strided
+    ``[B, S, KH, D]`` cache view; a group of 4 query heads."""
+    rng = np.random.default_rng(73)
+    lengths = np.array([0, 1, 255, 256, 257, 700])
+    B, S, KH, H, D = len(lengths), 800, 2, 8, 32
+    ck, cv = (torch.tensor(rng.normal(size=(B, S, KH, D)),
+                           dtype=torch.float32) for _ in range(2))
+    q = torch.tensor(rng.normal(size=(B, H, 1, D)), dtype=torch.float32)
+    pos = torch.arange(S, dtype=torch.int32)
+    seg = torch.where(pos[None] < torch.tensor(lengths)[:, None], 0,
+                      -1).int()
+    zero = torch.zeros(1, dtype=torch.int32)
+    k, v = ck.transpose(1, 2), cv.transpose(1, 2)
+    want = tfa.flash_attention_fwd_plain(q, k, v, zero, zero, seg,
+                                         pos.expand(B, S), mask=False)
+    ns = tfa.decode_splits(S)
+    assert ns == 4
+    kx, vx = (torch.repeat_interleave(x, H // KH, dim=1) for x in (k, v))
+    sl2 = D ** -0.5 * _LOG2E
+    parts = []
+    for i in range(ns):
+        lo, hi = i * tfa.DECODE_SPLIT, min(S, (i + 1) * tfa.DECODE_SPLIT)
+        x = (q @ kx[:, :, lo:hi].transpose(-1, -2)) * sl2
+        x = torch.where((seg[:, None, None, lo:hi] == 0), x, -torch.inf)
+        m = x.amax(-1)
+        p = torch.where(m[..., None] > -torch.inf,
+                        torch.exp2(x - m[..., None]), 0.0)
+        parts.append((p @ vx[:, :, lo:hi], m, p.sum(-1)))
+    M = torch.full(q.shape[:-1], -torch.inf)
+    for _, m, l in parts:
+        M = torch.where(l > 0, torch.maximum(M, m), M)
+    L = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(q.shape)
+    for a, m, l in parts:                            # split order
+        w = torch.where(l > 0, torch.exp2(m - M), 0.0)
+        L = L + l * w
+        acc = acc + torch.where(l[..., None] > 0, a, 0.0) * w[..., None]
+    live = L > 0
+    o = torch.where(live[..., None], acc / torch.where(live, L, 1.0)[
+        ..., None], 0.0)
+    lse = torch.where(live, M / _LOG2E + torch.log(torch.where(live, L, 1.0)),
+                      -1e30)
+    assert not live[0].any() and live[1:].all()      # length 0: empty row
+    assert float((o - want[0]).abs().max()) <= 1e-6
+    assert float((lse - want[1])[live].abs().max()) <= 1e-6
+    assert torch.equal(o[0], want[0][0]) and bool((lse[0] == -1e30).all())
+
+
+def test_fwd_variant_and_splits():
+    """The wrapper's host-side rule: up to DECODE_MAX_SQ query rows the
+    split-KV decode variant, above it the tiled one; the decode variant's
+    splits cover the keys in DECODE_SPLIT steps (0 for no keys)."""
+    assert tfa.fwd_variant(1) == "decode"
+    assert tfa.fwd_variant(tfa.DECODE_MAX_SQ) == "decode"
+    assert tfa.fwd_variant(tfa.DECODE_MAX_SQ + 1) == "tiled"
+    assert tfa.fwd_variant(512) == "tiled"
+    n = tfa.DECODE_SPLIT
+    assert [tfa.decode_splits(x) for x in (0, 1, n - 1, n, n + 1, 2048)] \
+        == [0, 1, 1, 1, 2, 2048 // n]
+
+
 def test_fused_run_function_matches_jax_grad():
     """``_FusedRun`` backward (through ``ops.fused_run_attention``)
     against ``jax.grad`` of the reference's fused Pallas op: grads of qs,
