@@ -7,9 +7,10 @@ Phases, each reported on its own line:
 
 1. build   — compile the CUDA kernels from ``kernels/csrc`` (nvcc), print
              ``ptxas -v`` per entry and the HMMA/HGMMA/FFMA counts of
-             kernels 1, 2, 5 and 6 (``cuobjdump -sass``); the bf16 D=64
-             builds of kernel 1 and kernel 2's tiled variant must hold
-             tensor-core instructions.
+             every kernel (``cuobjdump -sass``); the bf16 D=64 builds of
+             kernel 1, kernel 2's tiled variant and kernels 3-6 must hold
+             tensor-core instructions, and kernels 3 and 4 no FFMA
+             dot-product loop.
 2. kernels — each kernel against its plain PyTorch version on the card,
              first at small shapes (all four mask kinds, GQA groups 1-8,
              a fully masked row, ragged tiles, a trash step; f32 and
@@ -29,8 +30,9 @@ Phases, each reported on its own line:
    The backward kernels (3-6) the same way: small cases, then the
              widest run of the first training step's plan and one
              per-step block of it, each against its plain version to
-             TOL_GRAD, with times and bounds.  Kernels 5 and 6 also run
-             twice on the same inputs (same bytes), are timed alone on
+             TOL_GRAD, with times, bounds and counted TFLOP/s side by
+             side; each runs twice on the same inputs (same bytes) in
+             both.  Kernels 5 and 6 are also timed alone on
              inputs prepared once beside the whole wrapper
              (``wrapper_ms``), and are set beside the library yardstick
              (SDPA backward, the device time of its kernels under the
@@ -472,14 +474,17 @@ def bwd_tables(sq, skv, kv_seg, kv_pos):
 
 def small_bwd_fused_cases(fa, masks, dev):
     """Kernels 3 and 4 against their plain versions: shared kv rows, an
-    incoming accumulator, trash steps (skipped by the segment tables),
-    a fully masked row, GQA, ragged tiles, f32 and bf16 inputs."""
+    incoming accumulator, a q slot over three steps, trash steps (skipped
+    by the segment tables), a fully masked row, GQA groups 2, 8, 1 and 4,
+    ragged tiles (bs 80), D 64 and 32, f32 and bf16 inputs.  Each kernel
+    runs twice on the same inputs and must give the same bytes."""
     import torch
     rng = np.random.default_rng(6)
-    N, SL, H, KH, EX = 2, 5, 4, 2, 6
+    N, SL, EX = 2, 5, 6
     for dtype in (torch.float32, torch.bfloat16):
         for mask in masks:
-            for D, bs in ((64, 128), (32, 80)):
+            for D, bs, H, KH in ((64, 128, 4, 2), (32, 80, 8, 1),
+                                 (64, 80, 4, 4), (32, 128, 8, 2)):
                 def rnd(*shape, dt=dtype):
                     return torch.tensor(rng.normal(size=shape), dtype=dt,
                                         device=dev)
@@ -531,11 +536,24 @@ def small_bwd_fused_cases(fa, masks, dev):
                 dk_p, dv_p = fa.fused_flash_bwd_dkv_plain(
                     b_q, b_kv, qs, kxt, vxt, qsg, qps, ksg_b, kps_b, *grads,
                     mask=mask)
+                dq2 = fa.fused_flash_bwd_dq(st_q, st_kv, qs, kxt, vxt, qsg,
+                                            qps, ksg, kps, *grads, mask=mask,
+                                            segments=seg_q)
+                dk2, dv2 = fa.fused_flash_bwd_dkv(
+                    b_q, b_kv, qs, kxt, vxt, qsg, qps, ksg_b, kps_b, *grads,
+                    mask=mask, segments=seg_kv)
                 torch.cuda.synchronize()
                 # the trash slot / kv trash row: skipped by the kernels
                 compare_grad(name + " dq", dq[:, :SL - 1], dq_p[:, :SL - 1])
                 compare_grad(name + " dk", dk[:, :EX - 1], dk_p[:, :EX - 1])
                 compare_grad(name + " dv", dv[:, :EX - 1], dv_p[:, :EX - 1])
+                for n_, a_, again in (("dq", dq, dq2), ("dk", dk, dk2),
+                                      ("dv", dv, dv2)):
+                    if a_.dtype != torch.float32:
+                        raise AssertionError(f"{name} {n_}: dtype {a_.dtype}")
+                    if not torch.equal(a_, again):
+                        raise AssertionError(f"{name} {n_}: a second launch "
+                                             f"gave other bytes")
                 # unvisited: slot 3, slot 1 of worker 0, rows 3-4, trash
                 if (dq[:, 3].any() or dq[0, 1].any() or dq[:, SL - 1].any()
                         or dk[:, 3:].any() or dv[:, 3:].any()):
@@ -648,14 +666,21 @@ def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev):
     def p4():
         return fa.fused_flash_bwd_dkv_plain(*bwd_t, mask=spec.mask)
     qt, kt = spec.q_trash, spec.kv_trash
-    err3 = compare_grad("fused_flash_bwd_dq main path", k3()[:, :qt],
+    dq = k3()
+    err3 = compare_grad("fused_flash_bwd_dq main path", dq[:, :qt],
                         p3()[:, :qt])
     (dk, dv), (dk_p, dv_p) = k4(), p4()
     err4 = max(compare_grad("fused_flash_bwd_dkv main path dk", dk[:, :kt],
                             dk_p[:, :kt]),
                compare_grad("fused_flash_bwd_dkv main path dv", dv[:, :kt],
                             dv_p[:, :kt]))
-    del dk, dv, dk_p, dv_p
+    del dk_p, dv_p
+    dk2, dv2 = k4()
+    if not (torch.equal(k3(), dq) and torch.equal(dk2, dk)
+            and torch.equal(dv2, dv)):
+        raise AssertionError("fused_flash_bwd main path: a second launch "
+                             "gave other bytes")
+    del dq, dk, dv, dk2, dv2
     times = {n: time_ms(f) for n, f in (("k3", k3), ("p3", p3), ("k4", k4),
                                         ("p4", p4))}
     # the work this run's data needs (real steps' valid pairs, the slots
@@ -1185,19 +1210,20 @@ def profile(fn, n: int) -> dict:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev[e.name] = dev.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(dev.values()) / 1e3 / n
-    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall * 1e3 / n,
             "device_ms": busy_ms if dev else None,
             "busy_share": busy_ms / (wall * 1e3 / n) if dev else None,
             "top_ms": [[name[:70], us / 1e3 / n] for name, us in top]}
 
 
-SASS_LIBS = ("flash_attention_fwd", "fused_flash_fwd", "flash_attention_bwd")
+SASS_LIBS = ("flash_attention_fwd", "fused_flash_fwd", "fused_flash_bwd_dq",
+             "fused_flash_bwd_dkv", "flash_attention_bwd")
 
 
 def sass_mma_counts(build) -> dict:
     """Tensor-core instructions (HMMA, HGMMA) and FFMA per kernel in the
-    SASS (``cuobjdump -sass``) of the libraries of kernels 1, 2, 5 and 6."""
+    SASS (``cuobjdump -sass``) of the libraries of kernels 1-6."""
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     counts: dict[str, dict] = {}
     for lib in SASS_LIBS:
@@ -1216,15 +1242,29 @@ def sass_mma_counts(build) -> dict:
     return counts
 
 
+# An FFMA dot-product loop over D = 64 needs at least D FFMA for each
+# product it forms (the f32-FMA loops kernels 3 and 4 once had unrolled
+# to 768 and 512); the tile bodies on the tensor cores keep FFMA for the
+# exponent (one per score element a lane holds) and stay well under this.
+MAX_FFMA_NO_DOT_LOOP = 4 * 64
+
+
 def check_tensor_cores(counts: dict) -> None:
-    """The bf16 D = 64 builds of kernel 1 and kernel 2's tiled variant
-    must hold HMMA or HGMMA instructions."""
-    for prefix in ("tiled_kernel", "fused_fwd_kernel"):
+    """The bf16 D = 64 builds of kernel 1, kernel 2's tiled variant and
+    kernels 3-6 must hold HMMA or HGMMA instructions; those of kernels 3
+    and 4 fewer than MAX_FFMA_NO_DOT_LOOP FFMA (no dot-product loop on
+    the CUDA cores)."""
+    for prefix in ("tiled_kernel", "fused_fwd_kernel", "fused_dq_kernel",
+                   "fused_dkv_kernel", "bwd_dq_kernel", "bwd_dkv_kernel"):
         hits = [c for fn, c in counts.items()
                 if prefix in fn and "__nv_bfloat16" in fn and "Li64E" in fn]
         if not hits or not all(c["HMMA"] + c["HGMMA"] > 0 for c in hits):
             raise AssertionError(f"no tensor-core instructions in the bf16 "
                                  f"D=64 build of {prefix}: {hits}")
+        if prefix.startswith("fused_d") and not all(
+                c["FFMA"] < MAX_FFMA_NO_DOT_LOOP for c in hits):
+            raise AssertionError(f"{prefix}: bf16 D=64 build holds "
+                                 f"{hits} FFMA, an FFMA dot-product loop")
 
 
 def main() -> int:
@@ -1283,6 +1323,12 @@ def main() -> int:
             f"{r['max_abs_err']:.3e}")
         if "library" in r:
             log(f"  library: {r['library']}")
+    # the backward kernels' rates side by side: counted flop (valid pairs
+    # only) over each kernel's time, the fused run (3, 4) beside the
+    # per-step block (5, 6)
+    log("phase kernels counted TFLOP/s: " + ", ".join(
+        f"{r['name']} {r['flops'] / r['ms'] / 1e9:.1f}" for r in rows
+        if "bwd" in r["name"]))
     torch.cuda.empty_cache()
 
     scfg = ServeConfig(cache_len=4096, decode_slots=8, queue_depth=64,

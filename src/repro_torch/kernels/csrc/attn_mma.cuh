@@ -1,10 +1,9 @@
 // Tensor-core building blocks of the attention kernels (sm_90a).
 //
-// Used by flash_attention_fwd.cu (kernel 2), fused_flash_fwd.cu (kernel 1)
-// and flash_attention_bwd.cu (kernels 5 and 6); written so that the fused
-// backward kernels (fused_flash_bwd_dq.cu, fused_flash_bwd_dkv.cu) can
-// move onto them later.  Everything here works on a 64-row block of four
-// warps, 16 rows each:
+// Used by all six: flash_attention_fwd.cu (kernel 2), fused_flash_fwd.cu
+// (kernel 1), fused_flash_bwd_dq.cu (kernel 3), fused_flash_bwd_dkv.cu
+// (kernel 4) and flash_attention_bwd.cu (kernels 5 and 6).  Everything
+// here works on a 64-row block of four warps, 16 rows each:
 //
 //   * mma.sync m16n8k16, bf16 operands, f32 accumulators, with the
 //     fragments of the PTX ISA (g = lane / 4, t = lane % 4):
@@ -45,7 +44,14 @@
 //     this one computes, P straight from the S accumulators as the A
 //     fragment of P.V, the exponent folded into one FMA and one MUFU.EX2
 //     per score, and the tiles' classes found before the loop
-//     (classify_tiles), so it waits on no metadata load.
+//     (classify_tiles), so it waits on no metadata load;
+//   * the backward tiles (section backward): a warp's dq against one
+//     64-key tile (mma.sync) and a warpgroup's dk / dv against one 64-row
+//     q tile (wgmma), shared by kernels 3 and 5 (dq) and 4 and 6 (dk /
+//     dv).  They replace the bodies of _fused_dq_kernel (:475),
+//     _fused_dkv_kernel (:590), _bwd_dq_kernel and _bwd_dkv_kernel
+//     (launched at :264 and :289); the one difference between the pairs,
+//     the per-step kernels' dlse term, is a compile-time switch.
 
 #pragma once
 
@@ -627,15 +633,17 @@ __device__ __forceinline__ void store_acc(T* out, const float (&acc)[D / 2],
 
 // ---------------------------------------------------------------- pipe
 
-// The classes (kNone / kPartial / kFull) of kv tiles j = 0 .. nt - 1
-// against the block's q ranges, into cls[j], before the tile loop.  Warp
-// w takes tiles 4w .. 4w + 3, then 16 further on, with all their seg/pos
-// loads in flight at once; meta(j, seg, pos, r0, n) names tile j's
-// metadata (rows [r0, r0 + 64) of seg/pos [n]).  The loop then finds
-// its tiles in shared memory, off the critical path.
-template <typename Meta>
+// The classes (kNone / kPartial / kFull) of partner tiles j = 0 .. nt - 1
+// against the block's own ranges `blk`, into cls[j], before the tile
+// loop.  kBlockQ: the block's rows are queries and the tiles keys (kernels
+// 1-3), or the other way round (kernel 4).  Warp w takes tiles 4w .. 4w +
+// 3, then 16 further on, with all their seg/pos loads in flight at once;
+// meta(j, seg, pos, r0, n) names tile j's metadata (rows [r0, r0 + 64) of
+// seg/pos [n]).  The loop then finds its tiles in shared memory, off the
+// critical path.
+template <bool kBlockQ = true, typename Meta>
 __device__ __forceinline__ void classify_tiles(unsigned char* cls, int nt,
-                                               const Ranges& qr, Meta&& meta,
+                                               const Ranges& blk, Meta&& meta,
                                                int kind, int window,
                                                int chunk, int warp,
                                                int lane) {
@@ -675,7 +683,9 @@ __device__ __forceinline__ void classify_tiles(unsigned char* cls, int nt,
       r.pmax = __reduce_max_sync(0xffffffffu, r.pmax);
       r.all = __all_sync(0xffffffffu, r.all);
       if (lane == 0 && j0 + b < nt)
-        cls[j0 + b] = (unsigned char)classify(qr, r, kind, window, chunk);
+        cls[j0 + b] = (unsigned char)(kBlockQ
+                                          ? classify(blk, r, kind, window, chunk)
+                                          : classify(r, blk, kind, window, chunk));
     }
   }
 }
@@ -894,6 +904,233 @@ __device__ __forceinline__ void fwd_finish(FwdAcc<D>& a, float (&lse)[2]) {
       a.o[j][2 * r + 1] = live ? a.o[j][2 * r + 1] / l : 0.f;
     }
   }
+}
+
+// ---------------------------------------------------------------- backward
+//
+// The backward tiles compute, on the valid (q, k) pairs of a tile,
+//   p = exp(s * scale - L),  ds = p * (g_o . v - delta (+ dlse)) * scale
+//   dq += ds . k,  dk += ds^T . q,  dv += p^T . g_o
+// with L the q row's lse (the run-final lse in the fused kernels) and
+// delta = g_o . o_out (- g_lse in the fused kernels, whose delta carries
+// the lse cotangent, so they take kDlse = false; the per-step kernels add
+// their dlse input, kDlse = true).  The exponent runs in log2 units as in
+// the forward: L enters as L * log2e, p = 2^(s * scale * log2e - L').
+// Masked elements get x = -1e30 before the exponent (p = 0); lse is
+// -1e30 on dead rows.
+//
+// Precision: the reference computes every product in f32, and g_o, p and
+// ds are genuine f32 values (g_o is the cotangent of an f32 output), so
+// one bf16 rounding (2^-9 per term) would miss TOL_GRAD where signed
+// terms cancel.  Each f32 operand is split into bf16 hi + lo and the
+// partial products are summed in the f32 accumulator: S = Q.K^T takes 1
+// product, dP, dS.K and dS^T.Q take 2 (hi and lo against an exact bf16
+// operand), P^T.dO takes 3 (hi.hi + hi.lo + lo.hi) — about 2^-16 a term.
+// With f32 q/k/v (kF32) they are split too and every product takes 3.
+// The CPU tests test_split_bf16_scheme_meets_tol_grad and
+// test_split_bf16_fused_scheme_meets_tol_grad (tests/test_torch_kernels.py)
+// emulate this arithmetic against the plain versions.
+
+// the stats of a lane's two q rows g and g + 8 of its warp (dq tiles)
+struct BwdRows {
+  float la, lb;                       // lse * log2e
+  float ea, eb;                       // delta
+  float ga, gb;                       // dlse (kDlse only)
+};
+
+// dq += dS.K of a warp's 16 q rows against one staged 64-key tile, 16
+// keys at a time: S = Q.K^T and dP = dO.V^T (mma.sync m16n8k16, dO split
+// into hi + lo), P and dS in the accumulator registers, re-packed as the
+// A fragment of dS.K (dS split).  kt / vt: the bf16 K and V tiles (rows
+// are keys, row stride ld, read with ldmatrix; .trans for the K of dQ),
+// ktl / vtl their lo planes (kF32 only).  `bits` as elem_bits<true> lays
+// them out (ignored when kFull).
+template <bool kFull, bool kF32, bool kDlse, int D>
+__device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4],
+                                        const AFrags<D / 16, kF32>& qf,
+                                        const AFrags<D / 16, true>& of,
+                                        const bf16* kt, const bf16* ktl,
+                                        const bf16* vt, const bf16* vtl,
+                                        int ld, unsigned bits,
+                                        const BwdRows& r, float sl2,
+                                        float scale, int lane) {
+#pragma unroll 1
+  for (int c = 0; c < kRows / 16; ++c) {
+    // the lo terms go to their own accumulators: shorter mma chains
+    float s[2][4] = {}, dp[2][4] = {}, sl[2][4] = {}, dpl[2][4] = {};
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      const int off = b_rows_off(16 * c, 16 * kd, ld, lane);
+      uint32_t kf[4], vf[4];
+      ldsm_x4(kf, kt + off);
+      ldsm_x4(vf, vt + off);
+      mma(s[0], qf.hi[kd], kf[0], kf[1]);
+      mma(s[1], qf.hi[kd], kf[2], kf[3]);
+      mma(dp[0], of.hi[kd], vf[0], vf[1]);
+      mma(dp[1], of.hi[kd], vf[2], vf[3]);
+      mma(dpl[0], of.lo[kd], vf[0], vf[1]);
+      mma(dpl[1], of.lo[kd], vf[2], vf[3]);
+      if constexpr (kF32) {
+        uint32_t kl[4], vl[4];
+        ldsm_x4(kl, ktl + off);
+        ldsm_x4(vl, vtl + off);
+        mma(sl[0], qf.hi[kd], kl[0], kl[1]);
+        mma(sl[1], qf.hi[kd], kl[2], kl[3]);
+        mma(sl[0], qf.lo[kd], kf[0], kf[1]);
+        mma(sl[1], qf.lo[kd], kf[2], kf[3]);
+        mma(dpl[0], of.hi[kd], vl[0], vl[1]);
+        mma(dpl[1], of.hi[kd], vl[2], vl[3]);
+      }
+    }
+    // P and dS in place; pairs of them become the A fragment of dS.K
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bool ok = true;
+        if constexpr (!kFull) ok = (bits >> (4 * (2 * c + j) + e)) & 1u;
+        const bool hi = e >= 2;
+        const float sv = kF32 ? s[j][e] + sl[j][e] : s[j][e];
+        const float x = ok ? fmaf(sv, sl2, -(hi ? r.lb : r.la)) : -1e30f;
+        const float p = exp2_approx(x);
+        float g = dp[j][e] + dpl[j][e] - (hi ? r.eb : r.ea);
+        if constexpr (kDlse) g += hi ? r.gb : r.ga;
+        ds[e] = p * (g * scale);
+      }
+      split2(ds[0], ds[1], ah[2 * j], al[2 * j]);
+      split2(ds[2], ds[3], ah[2 * j + 1], al[2 * j + 1]);
+    }
+#pragma unroll
+    for (int nd = 0; nd < D / 16; ++nd) {
+      const int off = b_cols_off(16 * c, 16 * nd, ld, lane);
+      uint32_t kf[4];
+      ldsm_x4_t(kf, kt + off);
+      mma(acc[2 * nd], ah, kf[0], kf[1]);
+      mma(acc[2 * nd + 1], ah, kf[2], kf[3]);
+      mma(acc[2 * nd], al, kf[0], kf[1]);
+      mma(acc[2 * nd + 1], al, kf[2], kf[3]);
+      if constexpr (kF32) {
+        uint32_t kl[4];
+        ldsm_x4_t(kl, ktl + off);
+        mma(acc[2 * nd], ah, kl[0], kl[1]);
+        mma(acc[2 * nd + 1], ah, kl[2], kl[3]);
+      }
+    }
+  }
+}
+
+// The dk / dv tile of a warpgroup's 64 kv rows against one staged 64-row
+// q tile, in two calls around whatever the block overlaps with them.
+// dkv_issue: S^T = K.Q^T and dP^T = V.dO^T (wgmma m64n64k16, A and B from
+// swizzled shared tiles: the block's K / V, the staged Q and the dO hi /
+// lo tiles; lo tiles of K, V and Q for kF32), committed, not waited.
+template <bool kF32, int D>
+__device__ __forceinline__ void dkv_issue(
+    float (&s)[32], float (&dp)[32], const unsigned char* k_hi,
+    const unsigned char* k_lo, const unsigned char* v_hi,
+    const unsigned char* v_lo, const unsigned char* qh,
+    const unsigned char* ql, const unsigned char* do_hi,
+    const unsigned char* do_lo) {
+  wgmma_fence();
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    const uint64_t ak = gmma_desc<D>(k_hi + 32 * kd);
+    const uint64_t bq = gmma_desc<D>(qh + 32 * kd);
+    wgmma_ss_n64(s, ak, bq, kd > 0);
+    if constexpr (kF32) {
+      wgmma_ss_n64(s, ak, gmma_desc<D>(ql + 32 * kd), 1);
+      wgmma_ss_n64(s, gmma_desc<D>(k_lo + 32 * kd), bq, 1);
+    }
+  }
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    const uint64_t av = gmma_desc<D>(v_hi + 32 * kd);
+    const uint64_t bo = gmma_desc<D>(do_hi + 32 * kd);
+    wgmma_ss_n64(dp, av, bo, kd > 0);
+    wgmma_ss_n64(dp, av, gmma_desc<D>(do_lo + 32 * kd), 1);
+    if constexpr (kF32)
+      wgmma_ss_n64(dp, gmma_desc<D>(v_lo + 32 * kd), bo, 1);
+  }
+  wgmma_commit();
+}
+
+// dkv_finish: waits for dkv_issue's products, forms P^T and dS^T in
+// registers (columns are queries: their stats from `meta`, lse at [0,
+// 64), delta at [64, 128), dlse at [128, 192) when kDlse), packs them as
+// the A fragments of the four k16 steps over the tile's queries, and
+// runs dV += P^T.dO and dK += dS^T.Q (wgmma m64nDk16, A in registers, B
+// the same Q and dO tiles read transposed); the products of the first
+// two steps run while the last two are computed.  Returns with every
+// product done.  `bits` as elem_bits<false> lays them out.
+template <bool kFull, bool kF32, bool kDlse, int D>
+__device__ __forceinline__ void dkv_finish(
+    float (&ak)[D / 2], float (&av)[D / 2], float (&s)[32], float (&dp)[32],
+    const unsigned char* qh, const unsigned char* ql,
+    const unsigned char* do_hi, const unsigned char* do_lo,
+    const float* meta, unsigned bits, float sl2, float scale, int lane) {
+  const int t = lane & 3;
+  wgmma_wait0();
+  pin(s);
+  pin(dp);
+  uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int j = 4 * half; j < 4 * half + 4; ++j) {
+      const int col = 8 * j + 2 * t;
+      float2 L = *reinterpret_cast<const float2*>(meta + col);
+      L.x *= kLog2e;
+      L.y *= kLog2e;
+      const float2 De = *reinterpret_cast<const float2*>(meta + kRows + col);
+      float2 Dl = make_float2(0.f, 0.f);
+      if constexpr (kDlse)
+        Dl = *reinterpret_cast<const float2*>(meta + 2 * kRows + col);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        bool ok = true;
+        if constexpr (!kFull) ok = (bits >> i) & 1u;
+        const bool odd = e & 1;
+        const float x = ok ? fmaf(s[i], sl2, -(odd ? L.y : L.x)) : -1e30f;
+        p[e] = exp2_approx(x);
+        float g = dp[i] - (odd ? De.y : De.x);
+        if constexpr (kDlse) g += odd ? Dl.y : Dl.x;
+        ds[e] = p[e] * (g * scale);
+      }
+      const int kk = j >> 1, r = (j & 1) * 2;
+      split2(p[0], p[1], ph[kk][r], pl[kk][r]);
+      split2(p[2], p[3], ph[kk][r + 1], pl[kk][r + 1]);
+      split2(ds[0], ds[1], dh[kk][r], dl[kk][r]);
+      split2(ds[2], ds[3], dh[kk][r + 1], dl[kk][r + 1]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 2 * half; kk < 2 * half + 2; ++kk) {
+      const int off = kk * 16 * D * 2;          // 16 query rows further
+      const uint64_t bo = gmma_desc<D>(do_hi + off);
+      const uint64_t bq = gmma_desc<D>(qh + off);
+      wgmma_nd<D, 1>(av, ph[kk], bo);
+      wgmma_nd<D, 1>(av, ph[kk], gmma_desc<D>(do_lo + off));
+      wgmma_nd<D, 1>(av, pl[kk], bo);
+      wgmma_nd<D, 1>(ak, dh[kk], bq);
+      wgmma_nd<D, 1>(ak, dl[kk], bq);
+      if constexpr (kF32) wgmma_nd<D, 1>(ak, dh[kk], gmma_desc<D>(ql + off));
+    }
+  }
+  wgmma_commit();
+  wgmma_wait0();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pin(ph[kk]);
+    pin(pl[kk]);
+    pin(dh[kk]);
+    pin(dl[kk]);
+  }
+  pin(av);
+  pin(ak);
 }
 
 }  // namespace fcp_mma

@@ -38,6 +38,11 @@
 // barriers of each tile — at three blocks of four warps per SM (168
 // registers a thread).
 //
+// The per-tile bodies are the backward tiles of attn_mma.cuh (dq_tile,
+// dkv_issue / dkv_finish), which the fused kernels 3 and 4 run too; here
+// with their dlse term (kDlse = true).  This file keeps the loops around
+// them.
+//
 // dq (kernel 5): the block's Q and dO rows are mma.sync A fragments in
 // registers, loaded once; K/V tiles come through a two-slot cp.async ring
 // (the next tile loads while this one computes) in rows padded by 8
@@ -57,16 +62,11 @@
 // tile run while the second half is computed, and the next tile's mask
 // class is found while S^T and dP^T run.
 //
-// Precision: the reference computes every product in f32, and do, p and
-// ds are genuine f32 values (do is the cotangent of an f32 output), so
-// one bf16 rounding (2^-9 per term) would miss TOL_GRAD where signed
-// terms cancel.  Each f32 operand x is split into hi = bf16(x) and
-// lo = bf16(x - hi) and the partial products are summed in the f32
-// accumulator: dP, dS.K and dS^T.Q take 2 products (hi and lo against an
-// exact bf16 operand), P^T.dO takes 3 (hi.hi + hi.lo + lo.hi), S = Q.K^T
-// takes 1 — about 2^-16 per term, 1.7x (dq) and 2x (dk/dv) the products
-// of one bf16 pass.  With f32 q/k/v (template T = float) they are split
-// too and every product takes 3.  The CPU test
+// Precision (attn_mma.cuh, section backward): each f32 operand is split
+// into bf16 hi + lo: dP, dS.K and dS^T.Q take 2 products, P^T.dO takes
+// 3, S = Q.K^T takes 1 — about 2^-16 per term, 1.7x (dq) and 2x (dk/dv)
+// the products of one bf16 pass; with f32 q/k/v (template T = float)
+// every product takes 3.  The CPU test
 // tests/test_torch_kernels.py::test_split_bf16_scheme_meets_tol_grad
 // emulates this arithmetic against the plain version.
 //
@@ -79,7 +79,8 @@
 // are set before the exponent (lse is -1e30 on dead rows).
 //
 // ptxas -v (CUDA 12.8, sm_90a; __launch_bounds__(128, 3) caps both at
-// 168), registers a thread and spill stores / loads in bytes:
+// 168), registers a thread and spill stores / loads in bytes, the same
+// in every build as when the tile bodies were written out in this file:
 //   dq     bf16 D=64 162, 0 / 0;   D=32 122, 0 / 0
 //          f32  D=64 168, 40 / 60; D=32 141, 0 / 0
 //   dk/dv  bf16 D=64 168, 28 / 28; D=32 166, 0 / 0
@@ -165,10 +166,13 @@ __global__ void __launch_bounds__(kThreads, 3) bwd_dq_kernel(
   const bool ina = ra < Sq, inb = rb < Sq;
   // exp(s * scale - lse) as 2^(s * scale * log2e - lse * log2e)
   const float sl2 = scale * kLog2e;
-  const float la = ina ? lse[hq + ra] * kLog2e : 0.f;
-  const float lb = inb ? lse[hq + rb] * kLog2e : 0.f;
-  const float ea = ina ? delta[hq + ra] : 0.f, eb = inb ? delta[hq + rb] : 0.f;
-  const float ga = ina ? dlse[hq + ra] : 0.f, gb = inb ? dlse[hq + rb] : 0.f;
+  BwdRows rows;
+  rows.la = ina ? lse[hq + ra] * kLog2e : 0.f;
+  rows.lb = inb ? lse[hq + rb] * kLog2e : 0.f;
+  rows.ea = ina ? delta[hq + ra] : 0.f;
+  rows.eb = inb ? delta[hq + rb] : 0.f;
+  rows.ga = ina ? dlse[hq + ra] : 0.f;
+  rows.gb = inb ? dlse[hq + rb] : 0.f;
   const int sa = ina ? qsg[ra] : kPad, sb = inb ? qsg[rb] : kPad;
   const int pa = ina ? qps[ra] : 0, pb = inb ? qps[rb] : 0;
 
@@ -208,73 +212,6 @@ __global__ void __launch_bounds__(kThreads, 3) bwd_dq_kernel(
     stage_tile<T, D>(stage(2 * slot + 1), kStageLd, vb, j * kRows, Sk, tid);
   };
 
-  // one 16-key chunk c of the staged tile (kFull: no element test)
-  auto chunk_step = [&](auto full, int c, const bf16* kt, const bf16* vt,
-                        const bf16* ktl, const bf16* vtl, unsigned bits) {
-    // the lo terms go to their own accumulators: shorter mma chains
-    float s[2][4] = {}, dp[2][4] = {}, sl[2][4] = {}, dpl[2][4] = {};
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      const int off = b_rows_off(16 * c, 16 * kd, LD, lane);
-      uint32_t kf[4], vf[4];
-      ldsm_x4(kf, kt + off);
-      ldsm_x4(vf, vt + off);
-      mma(s[0], qf.hi[kd], kf[0], kf[1]);
-      mma(s[1], qf.hi[kd], kf[2], kf[3]);
-      mma(dp[0], of.hi[kd], vf[0], vf[1]);
-      mma(dp[1], of.hi[kd], vf[2], vf[3]);
-      mma(dpl[0], of.lo[kd], vf[0], vf[1]);
-      mma(dpl[1], of.lo[kd], vf[2], vf[3]);
-      if constexpr (kF32) {
-        uint32_t kl[4], vl[4];
-        ldsm_x4(kl, ktl + off);
-        ldsm_x4(vl, vtl + off);
-        mma(sl[0], qf.hi[kd], kl[0], kl[1]);
-        mma(sl[1], qf.hi[kd], kl[2], kl[3]);
-        mma(sl[0], qf.lo[kd], kf[0], kf[1]);
-        mma(sl[1], qf.lo[kd], kf[2], kf[3]);
-        mma(dpl[0], of.hi[kd], vl[0], vl[1]);
-        mma(dpl[1], of.hi[kd], vl[2], vl[3]);
-      }
-    }
-    // P and dS in place; pairs of them become the A fragment of dS.K
-    uint32_t ah[4], al[4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        bool ok = true;
-        if constexpr (!decltype(full)::value)
-          ok = (bits >> (4 * (2 * c + j) + e)) & 1u;
-        const bool hi = e >= 2;
-        const float sv = kF32 ? s[j][e] + sl[j][e] : s[j][e];
-        const float x = ok ? fmaf(sv, sl2, -(hi ? lb : la)) : -1e30f;
-        const float p = exp2_approx(x);
-        ds[e] = p * (((dp[j][e] + dpl[j][e] - (hi ? eb : ea)) +
-                      (hi ? gb : ga)) * scale);
-      }
-      split2(ds[0], ds[1], ah[2 * j], al[2 * j]);
-      split2(ds[2], ds[3], ah[2 * j + 1], al[2 * j + 1]);
-    }
-#pragma unroll
-    for (int nd = 0; nd < D / 16; ++nd) {
-      const int off = b_cols_off(16 * c, 16 * nd, LD, lane);
-      uint32_t kf[4];
-      ldsm_x4_t(kf, kt + off);
-      mma(acc[2 * nd], ah, kf[0], kf[1]);
-      mma(acc[2 * nd + 1], ah, kf[2], kf[3]);
-      mma(acc[2 * nd], al, kf[0], kf[1]);
-      mma(acc[2 * nd + 1], al, kf[2], kf[3]);
-      if constexpr (kF32) {
-        uint32_t kl[4];
-        ldsm_x4_t(kl, ktl + off);
-        mma(acc[2 * nd], ah, kl[0], kl[1]);
-        mma(acc[2 * nd + 1], ah, kl[2], kl[3]);
-      }
-    }
-  };
-
   int cls = kNone;
   unsigned bits = 0u;
   int cur = find(0, cls, bits);
@@ -305,15 +242,12 @@ __global__ void __launch_bounds__(kThreads, 3) bwd_dq_kernel(
       kt = reinterpret_cast<const bf16*>(stage(2 * slot));
       vt = reinterpret_cast<const bf16*>(stage(2 * slot + 1));
     }
-    if (cls == kFull) {
-#pragma unroll 1
-      for (int c = 0; c < kRows / 16; ++c)
-        chunk_step(std::true_type{}, c, kt, vt, ktl, vtl, bits);
-    } else {
-#pragma unroll 1
-      for (int c = 0; c < kRows / 16; ++c)
-        chunk_step(std::false_type{}, c, kt, vt, ktl, vtl, bits);
-    }
+    if (cls == kFull)
+      dq_tile<true, kF32, true, D>(acc, qf, of, kt, ktl, vt, vtl, LD, bits,
+                                   rows, sl2, scale, lane);
+    else
+      dq_tile<false, kF32, true, D>(acc, qf, of, kt, ktl, vt, vtl, LD, bits,
+                                    rows, sl2, scale, lane);
     cur = nxt;
     cls = cls_n;
     bits = bits_n;
@@ -429,101 +363,7 @@ __global__ void __launch_bounds__(kThreads, 3) bwd_dkv_kernel(
     }
   };
 
-  // one staged q tile: S^T and dP^T (m64n64, K-major B), P^T and dS^T in
-  // registers, then dV += P^T.dO and dK += dS^T.Q (m64nD, MN-major B)
-  float s[32], dp[32];
-  auto issue_sdp = [&](const unsigned char* qh, const unsigned char* ql) {
-    wgmma_fence();
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      const uint64_t ak_ = gmma_desc<D>(k_hi + 32 * kd);
-      const uint64_t bq = gmma_desc<D>(qh + 32 * kd);
-      wgmma_ss_n64(s, ak_, bq, kd > 0);
-      if constexpr (kF32) {
-        wgmma_ss_n64(s, ak_, gmma_desc<D>(ql + 32 * kd), 1);
-        wgmma_ss_n64(s, gmma_desc<D>(k_lo + 32 * kd), bq, 1);
-      }
-    }
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      const uint64_t av_ = gmma_desc<D>(v_hi + 32 * kd);
-      const uint64_t bo = gmma_desc<D>(do_hi + 32 * kd);
-      wgmma_ss_n64(dp, av_, bo, kd > 0);
-      wgmma_ss_n64(dp, av_, gmma_desc<D>(do_lo + 32 * kd), 1);
-      if constexpr (kF32)
-        wgmma_ss_n64(dp, gmma_desc<D>(v_lo + 32 * kd), bo, 1);
-    }
-    wgmma_commit();
-  };
-  auto finish = [&](auto full, const unsigned char* qh,
-                    const unsigned char* ql, const float* meta,
-                    unsigned bits) {
-    wgmma_wait0();
-    pin(s);
-    pin(dp);
-    // P^T and dS^T (columns are queries: their stats from meta), packed
-    // as the A fragments of the four k16 steps over the tile's queries;
-    // the products of the first two steps run while the last two are
-    // computed
-    uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-#pragma unroll
-      for (int j = 4 * half; j < 4 * half + 4; ++j) {
-        const int col = 8 * j + 2 * t;
-        float2 L = *reinterpret_cast<const float2*>(meta + col);
-        L.x *= kLog2e;
-        L.y *= kLog2e;
-        const float2 De =
-            *reinterpret_cast<const float2*>(meta + kRows + col);
-        const float2 Dl =
-            *reinterpret_cast<const float2*>(meta + 2 * kRows + col);
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * j + e;
-          bool ok = true;
-          if constexpr (!decltype(full)::value) ok = (bits >> i) & 1u;
-          const bool odd = e & 1;
-          const float x =
-              ok ? fmaf(s[i], sl2, -(odd ? L.y : L.x)) : -1e30f;
-          p[e] = exp2_approx(x);
-          ds[e] = p[e] * (((dp[i] - (odd ? De.y : De.x)) +
-                           (odd ? Dl.y : Dl.x)) * scale);
-        }
-        const int kk = j >> 1, r = (j & 1) * 2;
-        split2(p[0], p[1], ph[kk][r], pl[kk][r]);
-        split2(p[2], p[3], ph[kk][r + 1], pl[kk][r + 1]);
-        split2(ds[0], ds[1], dh[kk][r], dl[kk][r]);
-        split2(ds[2], ds[3], dh[kk][r + 1], dl[kk][r + 1]);
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 2 * half; kk < 2 * half + 2; ++kk) {
-        const int off = kk * 16 * D * 2;     // 16 query rows further
-        const uint64_t bo = gmma_desc<D>(do_hi + off);
-        const uint64_t bq = gmma_desc<D>(qh + off);
-        wgmma_nd<D, 1>(av, ph[kk], bo);
-        wgmma_nd<D, 1>(av, ph[kk], gmma_desc<D>(do_lo + off));
-        wgmma_nd<D, 1>(av, pl[kk], bo);
-        wgmma_nd<D, 1>(ak, dh[kk], bq);
-        wgmma_nd<D, 1>(ak, dl[kk], bq);
-        if constexpr (kF32)
-          wgmma_nd<D, 1>(ak, dh[kk], gmma_desc<D>(ql + off));
-      }
-    }
-    wgmma_commit();
-    wgmma_wait0();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pin(ph[kk]);
-      pin(pl[kk]);
-      pin(dh[kk]);
-      pin(dl[kk]);
-    }
-    pin(av);
-    pin(ak);
-  };
+  float s[32], dp[32];               // S^T and dP^T of the staged tile
 
   // the tile after next is found while this one's first products run
   int cls = kNone, cls_n = kNone;
@@ -550,15 +390,17 @@ __global__ void __launch_bounds__(kThreads, 3) bwd_dkv_kernel(
     cp_async_commit();
     const unsigned char* qh = kF32 ? tiles : tiles + slot * kTile;
     const unsigned char* ql = tiles + kTile;
-    issue_sdp(qh, ql);
+    dkv_issue<kF32, D>(s, dp, k_hi, k_lo, v_hi, v_lo, qh, ql, do_hi, do_lo);
     int cls_nn = kNone;
     unsigned bits_nn = 0u;
     const int nn = nxt < nt ? find(nxt + 1, cls_nn, bits_nn) : nt;
     const float* meta = meta_all + slot * 3 * kRows;
     if (cls == kFull)
-      finish(std::true_type{}, qh, ql, meta, bits);
+      dkv_finish<true, kF32, true, D>(ak, av, s, dp, qh, ql, do_hi, do_lo,
+                                      meta, bits, sl2, scale, lane);
     else
-      finish(std::false_type{}, qh, ql, meta, bits);
+      dkv_finish<false, kF32, true, D>(ak, av, s, dp, qh, ql, do_hi, do_lo,
+                                       meta, bits, sl2, scale, lane);
     cur = nxt;
     cls = cls_n;
     bits = bits_n;

@@ -11,8 +11,8 @@ normalized by the largest reference value (f32 throughout; the gap to
 the reference's own 5e-6 covers summation order across two
 frameworks), on every slot and row but the trash slot / kv trash row,
 which the port's kernels skip and the reference computes.  The
-precision test emulates the bf16 hi/lo arithmetic of the CUDA
-backward kernels 5 and 6 and holds it to the card's TOL_GRAD."""
+precision tests emulate the bf16 hi/lo arithmetic of the CUDA
+backward kernels 3-6 and hold it to the card's TOL_GRAD."""
 
 import jax
 import jax.numpy as jnp
@@ -423,6 +423,97 @@ def test_split_bf16_scheme_meets_tol_grad(dtype):
                (p_.transpose(-1, -2) @ g_).reshape(1, kh, -1, s, d).sum(2))
         for got, ref_ in zip((dq, dk, dv), f32):
             assert _grad_err(got, ref_, False) <= TOL_GRAD
+
+
+def _fused_bwd_tiles(step_q, step_kv, qs, kxt, vxt, q_seg, q_pos, k_seg,
+                     k_pos, lse, go, delta, exact, one_pass=False):
+    """Kernels 3 and 4 (``fused_flash_bwd_dq.cu``, ``fused_flash_bwd_dkv.cu``)
+    in plain PyTorch: per step, dq over 64-key tiles and dk / dv over the
+    GQA members' 64-row q tiles, each summed in f32 into its slot / row in
+    the kernels' order; g_o, p and ds split into bf16 hi + lo (S = Q.K^T 1
+    product, dP, dS.K and dS^T.Q 2, P^T.dO 3; q/k/v split too for f32
+    inputs), ``delta`` carrying -g_lse and no dlse, f32 outputs.  Steps
+    on the trash slot are skipped, as the segment tables skip them.
+    ``one_pass`` rounds ds and k to bf16 once for dS.K instead."""
+    SL, H, bs, d = qs.shape
+    KH = kxt.shape[1]
+    group, scale = H // KH, d ** -0.5
+    dq = torch.zeros((SL, H, bs, d))
+    dk = torch.zeros((kxt.shape[0], KH, bs, d))
+    dv = torch.zeros_like(dk)
+    for s_, (sq, skv) in enumerate(zip(step_q.tolist(), step_kv.tolist())):
+        if sq == SL - 1:
+            continue
+        q, g = qs[sq].float(), go[sq]
+        k, v = (torch.repeat_interleave(x[skv].float(), group, 0)
+                for x in (kxt, vxt))
+        valid = tref.mask_matrix(q_seg[sq], q_pos[sq], k_seg[s_], k_pos[s_],
+                                 True)
+        L, De = lse[sq][..., None], delta[sq][..., None]
+
+        def terms(q_, g_, k_, v_, valid_, L_, De_):
+            sc = _mm_split(q_, k_.transpose(-1, -2), not exact, not exact)
+            p = torch.where(valid_, torch.exp(sc * scale - L_), 0.0)
+            dp = _mm_split(g_, v_.transpose(-1, -2), True, not exact)
+            return p, p * ((dp - De_) * scale)
+        for j0 in range(0, bs, 64):                  # kernel 3: key tiles
+            kt, vt = k[:, j0:j0 + 64], v[:, j0:j0 + 64]
+            _, ds = terms(q, g, kt, vt, valid[:, j0:j0 + 64], L, De)
+            if one_pass:
+                dq[sq] += ds.to(torch.bfloat16).float() @ kt.to(
+                    torch.bfloat16).float()
+            else:
+                dq[sq] += _mm_split(ds, kt, True, not exact)
+        for m in range(group):                       # kernel 4: q tiles
+            hs = [kh * group + m for kh in range(KH)]    # member m's heads
+            for i0 in range(0, bs, 64):
+                qt, gt = q[hs, i0:i0 + 64], g[hs, i0:i0 + 64]
+                p, ds = terms(qt, gt, k[hs], v[hs], valid[i0:i0 + 64],
+                              L[hs, i0:i0 + 64], De[hs, i0:i0 + 64])
+                dv[skv] += _mm_split(p.transpose(-1, -2), gt, True, True)
+                dk[skv] += _mm_split(ds.transpose(-1, -2), qt, True,
+                                     not exact)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_bf16_fused_scheme_meets_tol_grad(dtype):
+    """The precision contract of kernels 3 and 4 (the fused run's
+    backward on the shared tiles of kernels 5 and 6), emulated in plain
+    PyTorch over a run where q slot 2 spans three steps and kv rows 0 and
+    1 each feed two q slots, and held to TOL_GRAD against
+    ``fused_flash_bwd_{dq,dkv}_plain`` (f32 products).  A one-pass bf16
+    ds misses the bound: the split is what passes."""
+    rng = np.random.default_rng(73)
+    qs, kxt, vxt, acc_o, acc_lse, tabs = _fused_inputs(rng, d=64)
+    t = {n: _t(x) for n, x in tabs.items()}
+    assert (tabs["step_q"] == 2).sum() >= 3
+    qs, kxt, vxt = (torch.tensor(x, dtype=dtype) for x in (qs, kxt, vxt))
+    o2, l2 = tfa.fused_flash_fwd_plain(
+        t["step_q"], t["step_kv"], qs, kxt, vxt, t["q_seg"], t["q_pos"],
+        t["k_seg"], t["k_pos"], _t(acc_o), _t(acc_lse), mask=True)
+    go = _t(rng.normal(size=o2.shape).astype(np.float32))
+    g_lse = _t(rng.normal(size=l2.shape).astype(np.float32))
+    delta = (go * o2).sum(-1) - g_lse
+    common = (qs, kxt, vxt, t["q_seg"], t["q_pos"])
+    grads = (l2, go, delta)
+    bwd = {n: _t(x) for n, x in _bwd_order(tabs).items()}
+    want_dq = tfa.fused_flash_bwd_dq_plain(
+        t["step_q"], t["step_kv"], *common, t["k_seg"], t["k_pos"], *grads)
+    want_dk, want_dv = tfa.fused_flash_bwd_dkv_plain(
+        bwd["bwd_q"], bwd["bwd_kv"], *common, bwd["k_seg_b"],
+        bwd["k_pos_b"], *grads)
+    args = (t["step_q"], t["step_kv"], *common, t["k_seg"], t["k_pos"],
+            *grads)
+    exact = dtype == torch.bfloat16
+    dq, dk, dv = _fused_bwd_tiles(*args, exact)
+    vis, rows = [0, 1, 2], [0, 1, 2]    # slot 3 unvisited, 4 trash; kv 5
+    for got, ref_ in ((dq[vis], want_dq[vis]), (dk[rows], want_dk[rows]),
+                      (dv[rows], want_dv[rows])):
+        assert got.dtype == ref_.dtype == torch.float32
+        assert _grad_err(got, ref_, False) <= TOL_GRAD
+    one_dq = _fused_bwd_tiles(*args, exact, one_pass=True)[0]
+    assert _grad_err(one_dq[vis], want_dq[vis], False) > 3 * TOL_GRAD
 
 
 # chip_smoke.compare's rule for kernels 1 and 2 on the card
