@@ -7,19 +7,20 @@ Phases, each reported on its own line:
 
 1. build   — compile the CUDA kernels from ``kernels/csrc`` (nvcc), print
              ``ptxas -v`` per entry and the HMMA/HGMMA/FFMA counts of
-             every kernel (``cuobjdump -sass``); the bf16 D=64 builds of
-             kernel 1, kernel 2's tiled variant and kernels 3-6 must hold
-             tensor-core instructions, and kernels 3 and 4 no FFMA
-             dot-product loop.
+             every kernel (``cuobjdump -sass``); the bf16 D=64 and D=128
+             builds of kernel 1, kernel 2's tiled variant and kernels 3-6
+             must hold tensor-core instructions, and kernels 3 and 4 no
+             FFMA dot-product loop.
 2. kernels — each kernel against its plain PyTorch version on the card,
-             first at small shapes (all four mask kinds, GQA groups 1-8,
-             a fully masked row, ragged tiles, a trash step; f32 and
-             bf16), then at the shapes the serving path gives it; times
-             (CUDA events around 10 launches back to back, median of 21
-             such windows; kernel 2, whose wrapper's host work is of the
-             order of its kernels, alone on inputs prepared once, the
-             wrapper beside it), bounds and the library yardstick.
-             Kernel 2
+             first at small shapes (all four mask kinds, GQA groups 1-4
+             and 8, D 32, 64 and 128, a fully masked row, ragged tiles, a
+             trash step; f32 and bf16), then at the shapes the main paths
+             give it, with StableLM's heads (32 of 64), Granite's (24 of
+             64 over 8 kv heads) and Moonlight's (16 of 128); times (CUDA
+             events around 10 launches back to back, median of 21 such
+             windows; kernel 2, whose wrapper's host work is of the order
+             of its kernels, alone on inputs prepared once, the wrapper
+             beside it), bounds and the library yardstick.  Kernel 2
              runs every small case through both its variants (split-KV
              decode and tiled) and the wrapper, with decode rows of
              length 0, 1, a split size -1/+0/+1 and several splits; at
@@ -43,7 +44,11 @@ Phases, each reported on its own line:
              launch counters read around that run; the first prefill
              batch is replayed through the plain versions and compared
              (f32 weights to TOL_SERVE_F32; bf16 weights to a multiple
-             of bf16's own noise floor on that batch).
+             of bf16's own noise floor on that batch).  Then the same for
+             Granite-3.0-3B-A800M (MoE, 40 experts top-8, full depth) and
+             Moonlight-16B-A3B (MoE, head_dim 128, 4 of 48 layers), whose
+             kernel runs take the experts the plain runs chose
+             (``PinnedRoutes``).
 4. train   — (a) full width, 4 layers, f32 weights: every parameter's
              gradient through the kernels against the plain versions,
              for the fused (kernels 1, 3, 4) and the per-step (2, 5, 6)
@@ -55,17 +60,24 @@ Phases, each reported on its own line:
              (then one more under the profiler), and the bf16
              step-0 loss, kernels against plain, held to a multiple of
              its noise floor: the loss moved by the kernel's deviation
-             from the plain attention output under random signs.
+             from the plain attention output under random signs.  Then
+             Granite at full width: (a) at 4 layers with pinned experts,
+             (b) at full depth, 3 fused steps, one profiled, one pallas
+             step, the bf16 step-0 loss check and where an MoE layer's
+             time goes; and Moonlight at 2 layers: 2 fused steps, one
+             pallas step, the loss check.
 
 The line before the card's line is a JSON object with one entry per
-kernel (kernel 2's carries both of its main-path shapes under
-``shapes``); the last line is ``{"ok": true, "device": {...}}``.  Any
+kernel, its StableLM main-path row at the top (kernel 2's at decode) and
+every main-path row under ``shapes``, each with the launches of its own
+model's runs; the last line is ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero before that line.  Without a CUDA device the
 script fails.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -87,6 +99,13 @@ TOL_TRAIN_F32 = 1e-4        # per-leaf train gradients, kernels vs plain
 TRAIN_ARGV = ["--arch", "stablelm_1_6b", "--mesh", "4x1", "--dist",
               "real_world", "--block-size", "512", "--tokens-per-worker",
               "2048", "--attn-impl", "fused", "--steps", "3"]
+MOE_ARCH = "granite_moe_3b_a800m"   # the MoE model at full width and depth
+D128_ARCH = "moonshot_v1_16b_a3b"   # the MoE model at head_dim 128
+D128_SERVE_LAYERS = 4               # of 48: ~0.57 B parameters a layer
+D128_TRAIN_LAYERS = 2
+D128_WHY = ("depth cut for the run's time; the layers kept are at full "
+            "width (d 2048, 16 heads of 128, 64 experts top-6, vocab "
+            "163840)")
 
 
 def log(msg: str) -> None:
@@ -185,11 +204,12 @@ def flash_variants(fa, name, args, mask):
 
 def small_flash_cases(fa, masks, dev):
     """Kernel 2 against its plain version, both variants on every case:
-    all four masks, f32 and bf16; groups 2, 8, 4 and 1; a fully masked
-    row; a ragged Sq = 72, Sk = 200; Sq on both sides of the variant
-    threshold; one document without padding (full tiles).  Then decode
-    rows over a strided cache view: lengths 0, 1, a split size -1, +0,
-    +1, and one that spans several splits."""
+    all four masks, f32 and bf16; D 64, 32 and 128; groups 2, 8, 4, 1
+    and 3 (granite's); a fully masked row; a ragged Sq = 72, Sk = 200;
+    Sq on both sides of the variant threshold; one document without
+    padding (full tiles).
+    Then decode rows over a strided cache view: lengths 0, 1, a split
+    size -1, +0, +1, and one that spans several splits."""
     import torch
     rng = np.random.default_rng(0)
     t_sq = fa.DECODE_MAX_SQ
@@ -201,7 +221,13 @@ def small_flash_cases(fa, masks, dev):
                     ((1, 4, 1, 72, 200, 64), 3, 0.1),
                     ((1, 8, 2, 128, 192, 64), 1, 0.0),
                     ((2, 4, 2, t_sq, 300, 64), 2, 0.0),
-                    ((2, 4, 4, t_sq + 1, 300, 32), 2, 0.0)):
+                    ((2, 4, 4, t_sq + 1, 300, 32), 2, 0.0),
+                    ((1, 4, 2, 136, 200, 128), 3, 0.1),
+                    ((1, 8, 1, 128, 192, 128), 1, 0.0),
+                    ((2, 8, 8, t_sq, 300, 128), 2, 0.0),
+                    ((1, 6, 2, 136, 200, 64), 3, 0.1),
+                    ((1, 12, 4, 128, 192, 128), 1, 0.0),
+                    ((2, 6, 2, t_sq, 300, 128), 2, 0.0)):
                 q = torch.tensor(rng.normal(size=(B, H, Sq, D)),
                                  dtype=dtype, device=dev)
                 k = torch.tensor(rng.normal(size=(B, KH, Sk, D)),
@@ -222,7 +248,8 @@ def small_flash_cases(fa, masks, dev):
     n = fa.DECODE_SPLIT
     lengths = [0, 1, n - 1, n, n + 1, 3 * n + 60]
     for dtype in (torch.float32, torch.bfloat16):
-        for KH, H, D in ((2, 4, 64), (1, 8, 32), (4, 4, 64)):
+        for KH, H, D in ((2, 4, 64), (1, 8, 32), (4, 4, 64), (2, 8, 128),
+                         (4, 4, 128), (2, 6, 64), (4, 12, 128), (8, 24, 64)):
             B, S = len(lengths), 3 * n + 100
             cache_k = torch.tensor(rng.normal(size=(B, S, KH, D)),
                                    dtype=dtype, device=dev)
@@ -242,16 +269,17 @@ def small_flash_cases(fa, masks, dev):
 
 def small_fused_cases(fa, masks, dev):
     """Kernel 1 against its plain version: all four masks, f32 and bf16,
-    D 64, 32 and 128, groups 2, 8, 4 and 4, ragged q and kv tiles (bs 80
-    and 72), one document stream (so full tiles occur), a fully masked
-    row, a trash step, slots a worker never visits."""
+    D 64, 32 and 128, groups 2, 8, 4, 4 and 3 (twice), ragged q and kv
+    tiles (bs 80 and 72), one document stream (so full tiles occur), a
+    fully masked row, a trash step, slots a worker never visits."""
     import torch
     rng = np.random.default_rng(1)
     N, SL, EX = 2, 5, 6
     for dtype in (torch.float32, torch.bfloat16):
         for mask in masks:
             for D, bs, H, KH in ((64, 128, 4, 2), (32, 80, 8, 1),
-                                 (128, 128, 8, 2), (64, 72, 4, 1)):
+                                 (128, 128, 8, 2), (64, 72, 4, 1),
+                                 (64, 128, 6, 2), (128, 80, 12, 4)):
                 qs = torch.tensor(rng.normal(size=(N, SL, H, bs, D)),
                                   dtype=dtype, device=dev)
                 kxt = torch.tensor(rng.normal(size=(N, EX, KH, bs, D)),
@@ -379,7 +407,8 @@ def main_path_fused(fa, ex, servelib, cfg, pcfg, dev):
                zip(run["step_kv"].long(), real))
     nbytes = (n_q * H * bs * D * 2 + 2 * n_kv * KH * bs * D * 2
               + 2 * n_q * H * bs * (D + 1) * 4)
-    return {"name": "fused_flash_fwd", "max_abs_err": err, "ms": ms,
+    return {"name": "fused_flash_fwd", "phase": "serve",
+            "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
             **bound(flops, PEAK_BF16, nbytes),
             "shape": f"N={n_cp} S={sq.shape[1]} SL={SL} EX={EX} H={H} "
@@ -428,12 +457,13 @@ def main_path_decode(fa, cfg, dev):
     amask = (pos[None] < lengths[:, None])[:, None, None, :]
     lib_ms, lib_kernels = device_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2),
-        attn_mask=amask))
+        attn_mask=amask, enable_gqa=H != KH))
     n_keys = int(lengths.sum())
     flops = 4.0 * n_keys * H * D
     nbytes = 2 * n_keys * KH * D * 2 + B * n_sh * H * D * (2 + 4) \
         + B * n_sh * H * 4
-    return {"name": "flash_attention_fwd", "max_abs_err": err, "ms": ms,
+    return {"name": "flash_attention_fwd", "phase": "serve",
+            "max_abs_err": err, "ms": ms,
             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "tiled_variant_ms": tiled_ms,
             "library": "scaled_dot_product_attention forward, device time "
@@ -475,16 +505,19 @@ def bwd_tables(sq, skv, kv_seg, kv_pos):
 def small_bwd_fused_cases(fa, masks, dev):
     """Kernels 3 and 4 against their plain versions: shared kv rows, an
     incoming accumulator, a q slot over three steps, trash steps (skipped
-    by the segment tables), a fully masked row, GQA groups 2, 8, 1 and 4,
-    ragged tiles (bs 80), D 64 and 32, f32 and bf16 inputs.  Each kernel
-    runs twice on the same inputs and must give the same bytes."""
+    by the segment tables), a fully masked row, GQA groups 2, 8, 1, 4 and
+    3,
+    ragged tiles (bs 80), D 64, 32 and 128, f32 and bf16 inputs.  Each
+    kernel runs twice on the same inputs and must give the same bytes."""
     import torch
     rng = np.random.default_rng(6)
     N, SL, EX = 2, 5, 6
     for dtype in (torch.float32, torch.bfloat16):
         for mask in masks:
             for D, bs, H, KH in ((64, 128, 4, 2), (32, 80, 8, 1),
-                                 (64, 80, 4, 4), (32, 128, 8, 2)):
+                                 (64, 80, 4, 4), (32, 128, 8, 2),
+                                 (128, 128, 4, 2), (128, 80, 8, 1),
+                                 (64, 128, 6, 2), (128, 80, 12, 4)):
                 def rnd(*shape, dt=dtype):
                     return torch.tensor(rng.normal(size=shape), dtype=dt,
                                         device=dev)
@@ -562,11 +595,11 @@ def small_bwd_fused_cases(fa, masks, dev):
 
 def small_bwd_flash_cases(fa, masks, dev):
     """Kernels 5 and 6 against their plain versions, with a non-zero
-    dlse, GQA (groups 2, 8 and 4), a fully masked row, ragged tiles (Sq
-    and Sk not multiples of 16 or 64), f32 and bf16; one document without
-    padding in the group-4 case, so its tiles include ones where every
-    pair is valid.  Each kernel runs twice on the same inputs and must
-    give the same bytes."""
+    dlse, GQA (groups 2, 8, 4 and 3), a fully masked row, ragged tiles (Sq
+    and Sk not multiples of 16 or 64), D 64, 32 and 128, f32 and bf16;
+    one document without padding in the group-4 and a D = 128 case, so
+    their tiles include ones where every pair is valid.  Each kernel runs
+    twice on the same inputs and must give the same bytes."""
     import torch
     rng = np.random.default_rng(7)
     for dtype in (torch.float32, torch.bfloat16):
@@ -575,7 +608,11 @@ def small_bwd_flash_cases(fa, masks, dev):
                     ((2, 4, 2, 128, 256, 64), 3, 0.1),
                     ((1, 8, 1, 96, 160, 32), 3, 0.1),
                     ((1, 4, 4, 72, 200, 64), 3, 0.1),
-                    ((1, 8, 2, 128, 192, 64), 1, 0.0)):
+                    ((1, 8, 2, 128, 192, 64), 1, 0.0),
+                    ((2, 4, 2, 128, 256, 128), 3, 0.1),
+                    ((1, 8, 1, 72, 200, 128), 1, 0.0),
+                    ((1, 6, 2, 128, 200, 64), 3, 0.1),
+                    ((1, 12, 4, 72, 192, 128), 1, 0.0)):
                 def rnd(*shape, dt=dtype):
                     return torch.tensor(rng.normal(size=shape), dtype=dt,
                                         device=dev)
@@ -699,11 +736,13 @@ def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev):
     kv_in = 2 * n_kv * KH * bs * D * 2
     shape = (f"N={n_cp} S={sq.shape[1]} SL={SL} EX={EX} H={H} bs={bs} "
              f"D={D} bf16, {pairs} valid pairs")
-    rows = [{"name": "fused_flash_bwd_dq", "max_abs_err": err3,
+    rows = [{"name": "fused_flash_bwd_dq", "phase": "train",
+             "max_abs_err": err3,
              "ms": times["k3"], "plain_ms": times["p3"], "library_ms": None,
              **bound(6.0 * pairs * H * D, PEAK_BF16,
                      q_in + kv_in + qs.numel() * 4), "shape": shape},
-            {"name": "fused_flash_bwd_dkv", "max_abs_err": err4,
+            {"name": "fused_flash_bwd_dkv", "phase": "train",
+             "max_abs_err": err4,
              "ms": times["k4"], "plain_ms": times["p4"], "library_ms": None,
              **bound(8.0 * pairs * H * D, PEAK_BF16,
                      q_in + kv_in + 2 * kxt.numel() * 4), "shape": shape}]
@@ -780,9 +819,11 @@ def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev):
     # and its forward alone, without autograd, for kernel 2
     with torch.no_grad():
         lib2_ms, lib2_kernels = device_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vmask))
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vmask,
+                                                   enable_gqa=H != KH))
     ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=vmask)
+    ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=vmask,
+                                        enable_gqa=H != KH)
     dol = do.to(ol.dtype)
     lib_ms, lib_kernels = device_ms(lambda: torch.autograd.grad(
         ol, (ql, kl, vl), dol, retain_graph=True))
@@ -801,7 +842,8 @@ def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev):
     lib2 = ("scaled_dot_product_attention forward, device time of its "
             "kernels: " + ", ".join(f"{n} {ms:.4f}"
                                     for n, ms in lib2_kernels.items()))
-    rows += [{"name": "flash_attention_fwd", "max_abs_err": err2,
+    rows += [{"name": "flash_attention_fwd", "phase": "pallas",
+              "max_abs_err": err2,
               "ms": times["k2"], "wrapper_ms": times["w2"],
               "plain_ms": times["p2"],
               "library_ms": lib2_ms, "library": lib2,
@@ -812,12 +854,14 @@ def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev):
                                                     k_pos))
                       + q.numel() * 4 + lse.numel() * 4),
               "shape": shape}]
-    rows += [{"name": "flash_attention_bwd_dq", "max_abs_err": err5,
+    rows += [{"name": "flash_attention_bwd_dq", "phase": "pallas",
+              "max_abs_err": err5,
               "ms": times["k5"], "wrapper_ms": times["w5"],
               "plain_ms": times["p5"], "library_ms": lib_ms, "library": lib,
               **bound(6.0 * pairs * H * D, PEAK_BF16, ins + q.numel() * 2),
               "shape": shape},
-             {"name": "flash_attention_bwd_dkv", "max_abs_err": err6,
+             {"name": "flash_attention_bwd_dkv", "phase": "pallas",
+              "max_abs_err": err6,
               "ms": times["k6"], "wrapper_ms": times["w6"],
               "plain_ms": times["p6"], "library_ms": lib_ms, "library": lib,
               **bound(8.0 * pairs * H * D, PEAK_BF16,
@@ -864,11 +908,61 @@ def bound(flops: float, peak: float, nbytes: float) -> dict:
 # phase 3: serve
 # --------------------------------------------------------------------------
 
+class PinnedRoutes:
+    """Top-k routing pinned across runs of one model, in place of
+    ``moe.route`` inside a ``with`` block: the first call of each layer's
+    router (keyed by its weights' address and the input's shape) keeps
+    the experts ``moe.route`` chooses; every call, that one too, takes
+    the kept experts with the weights its own router probabilities
+    (``moe.router_probs``) give them, renormalized as ``moe.route`` does.
+    Top-k routing is discontinuous: the kernels' f32 deviation from the
+    plain attention (~2**-16 relative, the bf16 hi/lo split) moves some
+    tokens across a near-tie of two experts, and a token that takes
+    another expert moves every later token it attends to.  A run that
+    replays the experts a plain run chose differs from it only through
+    continuous functions, so it is held to the dense model's tolerance.
+    With ``replay`` set, a router call that was not recorded raises."""
+
+    def __init__(self, moe):
+        self.moe, self.inner, self.ids, self.replay = moe, moe.route, {}, False
+
+    def __enter__(self):
+        self.moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.inner
+
+    def __call__(self, x, router, cfg):
+        import torch
+        key = (router.data_ptr(), tuple(x.shape))
+        if key not in self.ids:
+            if self.replay:
+                raise AssertionError(f"router call {key} was not recorded")
+            with torch.no_grad():   # a recomputed layer saves the same
+                self.ids[key] = self.inner(x, router, cfg)[1]
+        eidx = self.ids[key]
+        w = self.moe.router_probs(x, router, cfg).gather(-1, eidx)
+        return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), eidx
+
+
 def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
+    """Serve ``n_req`` requests of 64..``max_len`` prompt tokens (seed 0)
+    through the port's ``ServingLoop`` on a stacked 4 x 2 mesh, with the
+    counters of kernels 1 and 2 read around the run; then hold the first
+    prefill batch's logits, kernels against plain, and time a decode step
+    and that batch (with profiles).
+
+    With f32 weights the kernels run with the experts the plain run chose
+    (``PinnedRoutes``; no effect on a dense model) and are held to
+    TOL_SERVE_F32.  For an MoE model the unpinned f32 error and a null
+    floor (the plain path with each attention output moved by the
+    kernels' own deviation from it under random signs, the largest of
+    three draws) are printed beside it."""
     import torch
     from repro_torch.launch import serve as servelib
     from repro_torch.launch.mesh import StackedMesh
-    from repro_torch.models import Model
+    from repro_torch.models import Model, moe
     from repro_torch.runtime.serving import ServingLoop
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -910,8 +1004,9 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
             raise AssertionError(f"{name} never launched on the main path")
     # the first prefill batch again, through the kernels and through the
     # plain versions, on the same schedule and weights.  With f32 copies
-    # of the weights the two agree to a few 1e-6, so TOL_SERVE_F32 catches
-    # a kernel that is wrong on a few rows.  With the bf16 weights a
+    # of the weights (and the plain run's experts) the two agree to a few
+    # 1e-6, so TOL_SERVE_F32 catches a kernel that is wrong on a few rows.
+    # With the bf16 weights a
     # 1-ulp difference in any attention output cascades through 24
     # layers of bf16 rounding to the format's own noise floor (~2e-2), so
     # that comparison is held to a multiple of the floor measured below.
@@ -920,15 +1015,17 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
     params32 = {k: ({n: w.float() for n, w in v.items()}
                     if isinstance(v, dict) else v.float())
                 for k, v in params.items()}
-    logits = {}
+    logits, pins = {}, {}
     for tag, prm in (("bf16", params), ("f32", params32)):
-        for impl in ("fused", "fused_xla"):
-            lg = loop.prefill_fn(E, impl)(prm, batch, last)[0].float()
+        pins[tag] = PinnedRoutes(moe)
+        for impl in ("fused_xla", "fused"):
+            with pins[tag] as pin:
+                pin.replay = impl == "fused"
+                lg = loop.prefill_fn(E, impl)(prm, batch, last)[0].float()
             if not bool(torch.isfinite(lg).all()):
                 raise AssertionError(f"prefill logits not finite ({tag}, "
                                      f"{impl})")
             logits[tag, impl] = lg
-    del params32
 
     def nerr(a, b):
         return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
@@ -949,13 +1046,35 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
         return o * (1 + 2.0 ** -23 * sign)
     step = servelib.build_prefill_step(model, nudged, loop.budget // E, E,
                                        ragged=True)
-    errs["bf16_floor"] = max(
-        nerr(step(params, batch, last)[0].float(), logits["bf16", "fused_xla"])
-        for _ in range(3))
+    floor = []
+    for _ in range(3):
+        with pins["bf16"]:                 # the plain run's experts
+            lg = step(params, batch, last)[0].float()
+        floor.append(nerr(lg, logits["bf16", "fused_xla"]))
+    errs["bf16_floor"] = max(floor)
+    if cfg.n_experts:
+        # diagnostics only: the f32 kernels with their own routing, and
+        # how far the kernels' deviation moves the plain path's logits
+        # when it may flip experts (largest of three random-sign draws)
+        kern_attn = servelib.make_fcp_attn_fn(loop._schedule_for(E), dev,
+                                              pcfg, "fused")
+
+        def flipped(q, k, v):
+            o = plain_attn(q, k, v)
+            sign = torch.randint(0, 2, o.shape, generator=g, device=dev)
+            return o + (kern_attn(q, k, v) - o) * (2 * sign - 1).to(o.dtype)
+        fstep = servelib.build_prefill_step(model, flipped, loop.budget // E,
+                                            E, ragged=True)
+        errs["f32_unpinned"] = nerr(
+            loop.prefill_fn(E, "fused")(params32, batch, last)[0].float(),
+            logits["f32", "fused_xla"])
+        errs["f32_null_floor"] = max(
+            nerr(fstep(params32, batch, last)[0].float(),
+                 logits["f32", "fused_xla"]) for _ in range(3))
+    del params32, pins
     if errs["f32"] > TOL_SERVE_F32:
         raise AssertionError(f"prefill logits kernels vs plain (f32 "
-                             f"weights) {errs['f32']:.3e} > "
-                             f"{TOL_SERVE_F32}")
+                             f"weights) {errs['f32']:.3e} > {TOL_SERVE_F32}")
     if errs["bf16"] > BF16_FLOORS * errs["bf16_floor"]:
         raise AssertionError(
             f"prefill logits kernels vs plain (bf16 weights) "
@@ -969,7 +1088,9 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
     prof = {"decode_step": profile(loop._loop_step, 5),
             "prefill_batch": profile(
                 lambda: loop.prefill_fn(E)(params, batch, last), 1)}
-    return {"warmup_s": warm_s, "wall_s": report["wall_s"],
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "params": model.param_count(params),
+            "warmup_s": warm_s, "wall_s": report["wall_s"],
             "sustained_tok_s": report["sustained_tok_s"],
             "requests": report["requests"],
             "generated_tokens": report["generated_tokens"],
@@ -1005,16 +1126,18 @@ def read_counters(fa) -> dict:
     return {name: getattr(fa, name).launches for name in COUNTERS}
 
 
-def train_grad_check(trainlib, dev) -> dict:
+def train_grad_check(trainlib, dev, argv) -> dict:
     """(a) Full width, 4 layers, f32 weights, the first batch of the CLI's
     stream: each parameter's gradient through the kernels against the
     plain versions — fused executor (kernels 1, 3, 4 vs fused_xla), then
-    per-step (kernels 2, 5, 6 vs xla)."""
+    per-step (kernels 2, 5, 6 vs xla).  An MoE model's kernel run takes
+    the experts its plain run chose (``PinnedRoutes``)."""
     import torch
+    from repro_torch.models import moe
     from repro_torch.optimizer import adamw
     tr = trainlib.trainer_from_args(trainlib.parse_args(
-        TRAIN_ARGV + ["--override", "n_layers=4",
-                      "--override", "param_dtype=float32"]))
+        argv + ["--override", "n_layers=4",
+                "--override", "param_dtype=float32"]))
     try:
         b = tr.loader.next()
         batch = trainlib.batch_arrays(b, tr.cfg, dev)
@@ -1023,10 +1146,14 @@ def train_grad_check(trainlib, dev) -> dict:
         out = {}
         for kern, plain in (("fused", "fused_xla"), ("pallas", "xla")):
             res = {}
-            for impl in (kern, plain):
+            pin = PinnedRoutes(moe)
+            for impl in (plain, kern):
                 attn = trainlib.make_fcp_attn_fn(sched, dev, tr.pcfg, impl)
-                loss, g = trainlib.value_and_grad(tr.model, tr.pcfg, attn)(
-                    tr.state.params, batch)
+                with pin:
+                    pin.replay = impl == kern
+                    loss, g = trainlib.value_and_grad(tr.model, tr.pcfg,
+                                                      attn)(tr.state.params,
+                                                            batch)
                 res[impl] = (float(loss), adamw.tree_leaves(g))
             errs = []
             for a_, b_ in zip(res[kern][1], res[plain][1]):
@@ -1046,29 +1173,27 @@ def train_grad_check(trainlib, dev) -> dict:
         tr.close()
 
 
-def train(fa, trainlib, dev) -> dict:
-    """(b) The training CLI's main path, in process: 3 steps of the fused
-    executor (24 layers, bf16) with the counters read around them, one
-    more step under the profiler, then one ``--attn-impl pallas`` step;
-    then the bf16 step-0 loss through the kernels against the plain
-    versions, held to BF16_FLOORS x its noise floor on that batch."""
+def train_steps(fa, trainlib, dev, argv, steps: int) -> dict:
+    """The training CLI's main path, in process: ``steps`` steps of the
+    fused executor with the counters read around them, then one more step
+    under the profiler."""
     import torch
-    out = {"grad_check_4_layers_f32": train_grad_check(trainlib, dev)}
-    torch.cuda.empty_cache()
-    tr = trainlib.trainer_from_args(trainlib.parse_args(TRAIN_ARGV))
+    tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counters(fa)
-        hist = tr.run(3)
+        hist = tr.run(steps)
         launches = read_counters(fa)
         peak = torch.cuda.max_memory_allocated() / 2**30
         prof = profile(tr.step, 1)
         stats = tr.plan_cache.stats
         n_params = tr.model.param_count(tr.state.params)
+        n_layers = tr.cfg.n_layers
     finally:
         tr.close()
     del tr
+    release()
     losses = [r.loss for r in hist]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train losses not finite: {losses}")
@@ -1078,55 +1203,64 @@ def train(fa, trainlib, dev) -> dict:
             raise AssertionError(f"{name} never launched on the train path")
     steady = [r.ms for r in hist[1:]]
     tokens = 4 * 2048
-    out.update({
-        "params": n_params, "losses": losses,
-        "gnorms": [r.gnorm for r in hist], "step_ms": [r.ms for r in hist],
-        "tokens_per_s": tokens / (float(np.mean(steady)) / 1e3),
-        "peak_mem_gib": peak, "launches_3_steps": launches,
-        "launches_per_step": {n: launches[n] / 3 for n in (
-            "fused_flash_fwd", "fused_flash_bwd_dq", "fused_flash_bwd_dkv")},
-        "plan_cache": {"hits": stats.hits, "misses": stats.misses},
-        "profile_step": prof})
-    torch.cuda.empty_cache()
+    return {"n_layers": n_layers, "params": n_params, "losses": losses,
+            "gnorms": [r.gnorm for r in hist], "step_ms": [r.ms for r in hist],
+            "tokens_per_s": tokens / (float(np.mean(steady)) / 1e3),
+            "peak_mem_gib": peak, "launches_steps": launches,
+            "launches_per_step": {n: launches[n] / steps for n in (
+                "fused_flash_fwd", "fused_flash_bwd_dq",
+                "fused_flash_bwd_dkv")},
+            "plan_cache": {"hits": stats.hits, "misses": stats.misses},
+            "profile_step": prof}
 
-    # the per-step executor: kernels 2, 5 and 6 on the CLI's path
-    argv = [x if x != "fused" else "pallas" for x in TRAIN_ARGV]
+
+def train_pallas(fa, trainlib, dev, argv, more: bool) -> dict:
+    """One ``--attn-impl pallas`` step (kernels 2, 5 and 6) with its
+    counters; with ``more`` a second one (past the first step's one-time
+    costs) and one more under the profiler."""
+    import torch
+    argv = [x if x != "fused" else "pallas" for x in argv]
     argv[argv.index("--steps") + 1] = "1"
     tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
     try:
         reset_counters(fa)
         rec = tr.step()
         launches_p = read_counters(fa)
-        rec2 = tr.step()            # past the first step's one-time costs
-        prof_p = profile(tr.step, 1)
+        recs = [rec]
+        out = {"loss": rec.loss, "ms": rec.ms, "launches": launches_p}
+        if more:
+            recs.append(tr.step())
+            out.update(second_step_ms=recs[1].ms,
+                       profile_step=profile(tr.step, 1))
     finally:
         tr.close()
     del tr
-    if not (np.isfinite(rec.loss) and np.isfinite(rec2.loss)):
+    release()
+    if not all(np.isfinite(r.loss) for r in recs):
         raise AssertionError("pallas train loss not finite")
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         if launches_p[name] <= 0:
             raise AssertionError(f"{name} never launched on the pallas "
                                  f"train path")
-    out.update({"pallas_step": {"loss": rec.loss, "ms": rec.ms,
-                                "second_step_ms": rec2.ms,
-                                "launches": launches_p,
-                                "profile_step": prof_p}})
-    torch.cuda.empty_cache()
+    return out
 
-    # bf16 step-0 loss, kernels vs plain, on the same weights and batch
-    # (same seed: a new trainer starts where the main path started).  The
-    # floor is a null test: the plain path with each attention output
-    # moved by the kernel's own deviation from it under random signs, the
-    # largest of LOSS_NULL_DRAWS.  A deviation that is noise (a summation
-    # order) moves the loss like these draws; a biased one moves it more.
-    # Its size is held by the kernel checks and the f32 gradient check.
-    # The serve phase's floor (one f32 ulp, largest of three) is reported
-    # only: as a loss floor it ranged from 8.1e-5 to 5.7e-4 over four runs
-    # on an H100 80GB HBM3 (700 W), with the kernel loss bitwise the same
-    # in each, since the plain path's scatter-adds are not reproducible.
-    tr = trainlib.trainer_from_args(trainlib.parse_args(TRAIN_ARGV))
+
+def train_loss_check(trainlib, dev, argv) -> dict:
+    """The bf16 step-0 loss, kernels (fused) against plain (fused_xla), on
+    the same weights and batch (same seed: a new trainer starts where the
+    main path started), held to BF16_FLOORS x its noise floor.  The floor
+    is a null test: the plain path with each attention output moved by
+    the kernel's own deviation from it under random signs, the largest of
+    LOSS_NULL_DRAWS.  A deviation that is noise (a summation order) moves
+    the loss like these draws; a biased one moves it more.  Its size is
+    held by the kernel checks and the f32 gradient check.  The serve
+    phase's floor (one f32 ulp, largest of three) is reported only: as a
+    loss floor it ranged from 8.1e-5 to 5.7e-4 over four runs on an H100
+    80GB HBM3 (700 W), with the kernel loss bitwise the same in each,
+    since the plain path's scatter-adds are not reproducible."""
+    import torch
+    tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
     try:
         b = tr.loader.next()
         batch = trainlib.batch_arrays(b, tr.cfg, dev)
@@ -1159,20 +1293,122 @@ def train(fa, trainlib, dev) -> dict:
     finally:
         tr.close()
     del tr
+    release()
     diff = abs(loss["fused"] - loss["fused_xla"])
     floor = max(abs(x) for x in null)
-    out["bf16_step0_loss"] = {"kernels": loss["fused"],
-                              "plain": loss["fused_xla"], "diff": diff,
-                              "noise_floor": floor, "null_draws": null,
-                              "one_ulp_floor": max(abs(x) for x in ulp),
-                              "one_ulp_draws": ulp,
-                              "main_path_step0": losses[0]}
-    log(f"train bf16 step-0 loss: {json.dumps(out['bf16_step0_loss'])}")
+    out = {"kernels": loss["fused"], "plain": loss["fused_xla"],
+           "diff": diff, "noise_floor": floor, "null_draws": null,
+           "one_ulp_floor": max(abs(x) for x in ulp), "one_ulp_draws": ulp}
     if not diff <= BF16_FLOORS * floor:
         raise AssertionError(
             f"bf16 step-0 loss kernels vs plain differ by {diff:.3e} > "
             f"{BF16_FLOORS} x the bf16 noise floor {floor:.3e}")
     return out
+
+
+def train(fa, trainlib, dev) -> dict:
+    """(a) the 4-layer f32 gradient check; (b) the training CLI's main
+    path (24 layers, bf16) for 3 fused steps and one profiled, two
+    ``--attn-impl pallas`` steps and one profiled, and the bf16 step-0
+    loss check."""
+    out = {"grad_check_4_layers_f32": train_grad_check(trainlib, dev,
+                                                       TRAIN_ARGV)}
+    release()
+    out.update(train_steps(fa, trainlib, dev, TRAIN_ARGV, 3))
+    out["pallas_step"] = train_pallas(fa, trainlib, dev, TRAIN_ARGV, True)
+    out["bf16_step0_loss"] = train_loss_check(trainlib, dev, TRAIN_ARGV)
+    out["bf16_step0_loss"]["main_path_step0"] = out["losses"][0]
+    log(f"train bf16 step-0 loss: {json.dumps(out['bf16_step0_loss'])}")
+    return out
+
+
+def moe_argv(arch: str, n_layers: int | None, steps: int) -> list:
+    """The train CLI's main-path arguments for ``arch`` (its depth cut to
+    ``n_layers`` when given)."""
+    argv = [x for x in TRAIN_ARGV]
+    argv[argv.index("--arch") + 1] = arch
+    argv[argv.index("--steps") + 1] = str(steps)
+    if n_layers is not None:
+        argv += ["--override", f"n_layers={n_layers}"]
+    return argv
+
+
+def train_moe(fa, trainlib, dev, arch: str, steps: int,
+              n_layers: int | None, why: str) -> dict:
+    """An MoE model on the training CLI's main path at full width and
+    ``n_layers`` deep (None: the config's own depth): ``steps`` fused
+    steps (one more profiled), one ``--attn-impl pallas`` step, and the
+    bf16 step-0 loss check."""
+    argv = moe_argv(arch, n_layers, steps)
+    out = train_steps(fa, trainlib, dev, argv, steps)
+    out["depth"] = {"n_layers": out["n_layers"], "why": why}
+    out["pallas_step"] = train_pallas(fa, trainlib, dev, argv, False)
+    out["bf16_step0_loss"] = train_loss_check(trainlib, dev, argv)
+    out["bf16_step0_loss"]["main_path_step0"] = out["losses"][0]
+    return out
+
+
+def moe_breakdown(dev, arch: str, n_layers: int) -> dict:
+    """Where an MoE layer's time goes at the training step's shapes (4
+    frames of 2048 tokens, bf16, full width), as device time under the
+    profiler (``device_ms``): ``moe_ffn`` forward and forward + backward,
+    and its expert products alone (the three batched products and the
+    SiLU on a buffer of the same shape); the dispatch (routing, sort,
+    gathers and scatters, the weighted sum) is the difference.  Per step,
+    a layer runs its forward twice (remat) and its backward once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch)
+    g = torch.Generator(device=dev).manual_seed(9)
+    lp = moe.init_moe_ffn(cfg.replace(n_layers=1), g, dev)
+    lp = {k: v[0].detach().requires_grad_(True) for k, v in lp.items()}
+    x = (torch.randn((4, 2048, cfg.d_model), generator=g, device=dev)
+         .bfloat16().requires_grad_(True))
+    cot = torch.randn(x.shape, generator=g, device=dev).bfloat16()
+    ep, cap = lp["router"].shape[-1], moe.capacity(2048, cfg)
+    buf = (torch.randn((ep, 4 * cap, cfg.d_model), generator=g, device=dev)
+           .bfloat16().requires_grad_(True))
+    ws = [lp[n] for n in ("we_i", "we_g", "we_down")]
+
+    def experts():
+        h, gt = torch.bmm(buf, ws[0]), torch.bmm(buf, ws[1])
+        return torch.bmm(F.silu(gt) * h, ws[2])
+    bcot = torch.randn((ep, 4 * cap, cfg.d_model), generator=g,
+                       device=dev).bfloat16()
+    with torch.no_grad():
+        moe_f, _ = device_ms(lambda: moe.moe_ffn(x, lp, cfg), n=5)
+        exp_f, _ = device_ms(experts, n=5)
+    moe_fb, _ = device_ms(lambda: torch.autograd.grad(
+        moe.moe_ffn(x, lp, cfg), [x, *lp.values()], cot), n=5)
+    exp_fb, _ = device_ms(lambda: torch.autograd.grad(
+        experts(), [buf, *ws], bcot), n=5)
+    per_step = {k: n_layers * (f + fb) for k, f, fb in (
+        ("moe_ms", moe_f, moe_fb), ("experts_ms", exp_f, exp_fb))}
+    per_step["dispatch_ms"] = per_step["moe_ms"] - per_step["experts_ms"]
+    # the dispatch is deterministic: a second forward and backward give
+    # the same bytes
+    runs = []
+    for _ in range(2):
+        y = moe.moe_ffn(x, lp, cfg)
+        runs.append([y.detach(), *torch.autograd.grad(
+            y, [x, *lp.values()], cot)])
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"{arch} moe_ffn: a second forward and "
+                             f"backward gave other bytes")
+    return {"layer_ms": {"moe_fwd": moe_f, "moe_fwd_bwd": moe_fb,
+                         "experts_fwd": exp_f, "experts_fwd_bwd": exp_fb},
+            "per_step_ms": per_step, "capacity": cap, "experts": ep}
+
+
+def release() -> None:
+    """Free what a phase left on the card before the next one measures its
+    peak: reference cycles first (the serve phase's spied method, a
+    trainer's closures), then the allocator's cache."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def wall_ms(fn, n: int) -> float:
@@ -1211,10 +1447,20 @@ def profile(fn, n: int) -> dict:
             dev[e.name] = dev.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(dev.values()) / 1e3 / n
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    attn = {k: sum(us for name, us in dev.items() if k in name) / 1e3 / n
+            for k in ATTN_KERNELS}
     return {"wall_ms": wall * 1e3 / n,
             "device_ms": busy_ms if dev else None,
             "busy_share": busy_ms / (wall * 1e3 / n) if dev else None,
+            "attention_kernels_ms": {k: v for k, v in attn.items() if v},
             "top_ms": [[name[:70], us / 1e3 / n] for name, us in top]}
+
+
+# the device functions of kernels 1-6 (the decode variant's split and
+# merge launches are kernel 2 too)
+ATTN_KERNELS = ("fused_fwd_kernel", "tiled_kernel", "decode_kernel",
+                "merge_kernel", "fused_dq_kernel", "fused_dkv_kernel",
+                "bwd_dq_kernel", "bwd_dkv_kernel")
 
 
 SASS_LIBS = ("flash_attention_fwd", "fused_flash_fwd", "fused_flash_bwd_dq",
@@ -1250,21 +1496,23 @@ MAX_FFMA_NO_DOT_LOOP = 4 * 64
 
 
 def check_tensor_cores(counts: dict) -> None:
-    """The bf16 D = 64 builds of kernel 1, kernel 2's tiled variant and
-    kernels 3-6 must hold HMMA or HGMMA instructions; those of kernels 3
-    and 4 fewer than MAX_FFMA_NO_DOT_LOOP FFMA (no dot-product loop on
-    the CUDA cores)."""
+    """The bf16 D = 64 and D = 128 builds of kernel 1, kernel 2's tiled
+    variant and kernels 3-6 must hold HMMA or HGMMA instructions; those of
+    kernels 3 and 4 fewer than MAX_FFMA_NO_DOT_LOOP FFMA (no dot-product
+    loop on the CUDA cores: the exponent's FFMA per score element a lane
+    holds do not grow with D)."""
     for prefix in ("tiled_kernel", "fused_fwd_kernel", "fused_dq_kernel",
                    "fused_dkv_kernel", "bwd_dq_kernel", "bwd_dkv_kernel"):
-        hits = [c for fn, c in counts.items()
-                if prefix in fn and "__nv_bfloat16" in fn and "Li64E" in fn]
-        if not hits or not all(c["HMMA"] + c["HGMMA"] > 0 for c in hits):
-            raise AssertionError(f"no tensor-core instructions in the bf16 "
-                                 f"D=64 build of {prefix}: {hits}")
-        if prefix.startswith("fused_d") and not all(
-                c["FFMA"] < MAX_FFMA_NO_DOT_LOOP for c in hits):
-            raise AssertionError(f"{prefix}: bf16 D=64 build holds "
-                                 f"{hits} FFMA, an FFMA dot-product loop")
+        for d in (64, 128):
+            hits = [c for fn, c in counts.items() if prefix in fn
+                    and "__nv_bfloat16" in fn and f"Li{d}E" in fn]
+            if not hits or not all(c["HMMA"] + c["HGMMA"] > 0 for c in hits):
+                raise AssertionError(f"no tensor-core instructions in the "
+                                     f"bf16 D={d} build of {prefix}: {hits}")
+            if prefix.startswith("fused_d") and not all(
+                    c["FFMA"] < MAX_FFMA_NO_DOT_LOOP for c in hits):
+                raise AssertionError(f"{prefix}: bf16 D={d} build holds "
+                                     f"{hits} FFMA, an FFMA dot-product loop")
 
 
 def main() -> int:
@@ -1308,10 +1556,22 @@ def main() -> int:
     small_bwd_flash_cases(fa, masks, dev)
     log(f"phase kernels (small shapes): ok {time.perf_counter() - t0:.2f}s")
     cfg = get_config("stablelm_1_6b")
+    cfg_moe = get_config(MOE_ARCH)
+    cfg128 = get_config(D128_ARCH)
     pcfg = ParallelConfig(block_size=512, in_dtype_bytes=2)
-    rows = [main_path_fused(fa, ex, servelib, cfg, pcfg, dev),
-            main_path_decode(fa, cfg, dev),
-            *main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev)]
+    # every kernel at the main paths' shapes of each model: StableLM (32
+    # heads of 64), Granite (24 of 64 over 8 kv heads: GQA group 3) and
+    # Moonlight (16 of 128)
+    rows = []
+    for path, c in (("stablelm", cfg), ("granite", cfg_moe),
+                    ("moonshot", cfg128)):
+        new = [main_path_fused(fa, ex, servelib, c, pcfg, dev),
+               main_path_decode(fa, c, dev),
+               *main_path_bwd(fa, ex, trainlib, c, pcfg, dev)]
+        for r in new:
+            r["path"] = path
+        rows += new
+        release()
     for r in rows:
         wrapper = "".join(f" {x}={r[x]:.4f}" for x in (
             "wrapper_ms", "tiled_variant_ms", "decode_variant_ms") if x in r)
@@ -1326,32 +1586,59 @@ def main() -> int:
     # the backward kernels' rates side by side: counted flop (valid pairs
     # only) over each kernel's time, the fused run (3, 4) beside the
     # per-step block (5, 6)
-    log("phase kernels counted TFLOP/s: " + ", ".join(
-        f"{r['name']} {r['flops'] / r['ms'] / 1e9:.1f}" for r in rows
-        if "bwd" in r["name"]))
-    torch.cuda.empty_cache()
+    for path in ("stablelm", "granite", "moonshot"):
+        log(f"phase kernels counted TFLOP/s ({path}): " + ", ".join(
+            f"{r['name']} {r['flops'] / r['ms'] / 1e9:.1f}" for r in rows
+            if "bwd" in r["name"] and r["path"] == path))
+    release()
 
     scfg = ServeConfig(cache_len=4096, decode_slots=8, queue_depth=64,
                        max_new_tokens=32, prefill_tokens_per_worker=2048,
                        bucket_min=64)
-    t0 = time.perf_counter()
-    s = serve(fa, cfg, pcfg, scfg, dev)
-    log(f"phase serve: ok {time.perf_counter() - t0:.2f}s {json.dumps(s)}")
-    torch.cuda.empty_cache()
+    served = {}
+    for tag, c, depth in (("stablelm", cfg, None), ("granite", cfg_moe, None),
+                          ("moonshot", cfg128, D128_SERVE_LAYERS)):
+        t0 = time.perf_counter()
+        served[tag] = serve(fa, c.replace(n_layers=depth or c.n_layers),
+                            pcfg, scfg, dev)
+        if depth is not None:
+            served[tag]["depth_cut"] = (
+                f"{depth} of {c.n_layers} layers: {D128_WHY}")
+        log(f"phase serve {tag}: ok {time.perf_counter() - t0:.2f}s "
+            f"{json.dumps(served[tag])}")
+        release()
+    s = served["stablelm"]
 
     t0 = time.perf_counter()
     tr = train(fa, trainlib, dev)
     log(f"phase train: ok {time.perf_counter() - t0:.2f}s {json.dumps(tr)}")
+    trained = {"stablelm": tr}
+    t0 = time.perf_counter()
+    trained["granite"] = {"grad_check_4_layers_f32": train_grad_check(
+        trainlib, dev, moe_argv(MOE_ARCH, None, 3))}
+    release()
+    trained["granite"].update(train_moe(
+        fa, trainlib, dev, MOE_ARCH, 3, None, "the full depth, no cut"))
+    trained["granite"]["moe_breakdown"] = moe_breakdown(
+        dev, MOE_ARCH, trained["granite"]["n_layers"])
+    log(f"phase train granite: ok {time.perf_counter() - t0:.2f}s "
+        f"{json.dumps(trained['granite'])}")
+    t0 = time.perf_counter()
+    trained["moonshot"] = train_moe(
+        fa, trainlib, dev, D128_ARCH, 2, D128_TRAIN_LAYERS, D128_WHY)
+    log(f"phase train moonshot: ok {time.perf_counter() - t0:.2f}s "
+        f"{json.dumps(trained['moonshot'])}")
 
-    # launches: each kernel's count over the main path that runs it — the
-    # serve run for the forward kernels, the fused CLI train run (3 steps)
-    # for kernels 3 and 4, the pallas CLI train step for kernels 5 and 6
-    launches = {**s["launches"],
-                **{n: tr["launches_3_steps"][n]
-                   for n in ("fused_flash_bwd_dq", "fused_flash_bwd_dkv")},
-                **{n: tr["pallas_step"]["launches"][n]
-                   for n in ("flash_attention_bwd_dq",
-                             "flash_attention_bwd_dkv")}}
+    # launches: each kernel's count over the main path that runs it (the
+    # row's phase) of the model whose shapes it was timed at (the row's
+    # path): the serve run for the forward kernels at prefill and decode,
+    # the fused CLI train run for kernels 3 and 4, the pallas CLI train
+    # step for kernel 2 at the training block and kernels 5 and 6
+    counts = {(p, "serve"): served[p]["launches"] for p in served}
+    counts.update({(p, "train"): trained[p]["launches_steps"]
+                   for p in trained})
+    counts.update({(p, "pallas"): trained[p]["pallas_step"]["launches"]
+                   for p in trained})
     csrc = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/flash_attention.py:"
     sources = {"fused_flash_fwd": (csrc + "fused_flash_fwd.cu", ref + "463"),
@@ -1365,27 +1652,25 @@ def main() -> int:
                                           ref + "264"),
                "flash_attention_bwd_dkv": (csrc + "flash_attention_bwd.cu",
                                            ref + "289")}
-    # kernel 2 runs on two main paths: its entry holds the serve path's
-    # decode launches at the top and both shapes under "shapes" (the
-    # per-step block with the pallas step's launches)
-    launches_at = {("flash_attention_fwd", 1):
-                   tr["pallas_step"]["launches"]["flash_attention_fwd"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    # one entry per kernel: its first row (stablelm; kernel 2 at decode) at
+    # the top, every row (the D = 128 ones too) under "shapes"
     kernels, seen = [], {}
-    for i, r in enumerate(rows):
-        n = sum(1 for x in rows[:i] if x["name"] == r["name"])
-        entry = {"shape": r["shape"], "launches": launches_at.get(
-            (r["name"], n), launches[r["name"]]), **{x: r[x] for x in keys}}
-        if r["name"] in seen:
-            first = seen[r["name"]]
-            first.setdefault("shapes", [{x: first[x] for x in (
-                "shape", "launches", *keys)}]).append(entry)
-            continue
-        src, rep = sources[r["name"]]
-        seen[r["name"]] = {"name": r["name"], "route": "cuda",
-                           "source": src, "replaces": rep, **entry}
-        kernels.append(seen[r["name"]])
+    for r in rows:
+        n = counts[r["path"], r["phase"]][r["name"]]
+        if n <= 0:
+            raise AssertionError(f"{r['name']} never launched on the "
+                                 f"{r['path']} {r['phase']} path")
+        entry = {"shape": r["shape"], "path": f"{r['path']} {r['phase']}",
+                 "launches": n, **{x: r[x] for x in keys}}
+        if r["name"] not in seen:
+            src, rep = sources[r["name"]]
+            seen[r["name"]] = {"name": r["name"], "route": "cuda",
+                               "source": src, "replaces": rep, **entry,
+                               "shapes": []}
+            kernels.append(seen[r["name"]])
+        seen[r["name"]]["shapes"].append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

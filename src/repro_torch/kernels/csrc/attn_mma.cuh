@@ -204,25 +204,51 @@ __device__ __forceinline__ int b_cols_off(int row0, int col0, int ld,
 // serves as B both ways: rows as N with k along the row ("K-major", k16
 // step = +32 B) and rows as k ("MN-major", transposed, k16 step = +16
 // rows); 8-row groups are SBO bytes apart in both.
+//
+// A D = 128 row (256 B) is wider than the widest swizzle atom, so a D =
+// 128 tile is two D = 64 tiles of 64 rows side by side: columns [0, 64),
+// then [64, 128) kRows * 128 bytes further.  Each half is a 128B-swizzled
+// tile as at D = 64, so every descriptor is a D = 64 one: a K-major k16
+// step past column 64 moves to the second half (kstep_off), and an N =
+// 128 product is two m64n64 products, one per half (wgmma_nd).
+
+// columns of one swizzled part of a tile: D, or 64 for D = 128
+template <int D>
+constexpr int kSwzCols = D < 64 ? D : 64;
 
 template <int D>
 __device__ __forceinline__ int swz(int r) {
-  static_assert(D == 32 || D == 64, "rows of 64 or 128 bytes");
-  return D == 64 ? (r & 7) : ((r >> 1) & 3);
+  static_assert(D == 32 || D == 64 || D == 128,
+                "rows of 64 or 128 bytes, or two halves of 128");
+  return D == 32 ? ((r >> 1) & 3) : (r & 7);
 }
 
-// byte offset of element (r, c) of a swizzled [rows, D] bf16 tile
+// byte offset of element (r, c) of a swizzled [kRows, D] bf16 tile
 template <int D>
 __device__ __forceinline__ int swz_off(int r, int c) {
-  return r * D * 2 + ((((c >> 3) ^ swz<D>(r)) << 4) | ((c & 7) * 2));
+  constexpr int kC = kSwzCols<D>;
+  return (c / kC) * (kRows * kC * 2) + r * kC * 2 +
+         (((((c % kC) >> 3) ^ swz<D>(r)) << 4) | ((c & 7) * 2));
+}
+
+// byte offset of k16 step kd along a K-major row (columns 16 kd ..)
+template <int D>
+__device__ __forceinline__ int kstep_off(int kd) {
+  return swz_off<D>(0, 16 * kd);
+}
+
+// byte offset of 16 rows further (an MN-major k16 step)
+template <int D>
+__device__ __forceinline__ int rows_off(int kk) {
+  return kk * 16 * kSwzCols<D> * 2;
 }
 
 template <int D>
 __device__ __forceinline__ uint64_t gmma_desc(const void* tile) {
   const uint32_t a = smem_u32(tile);
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)((8 * D * 2) >> 4) << 32) |
-         ((uint64_t)(D == 64 ? 1 : 2) << 62);
+         ((uint64_t)((8 * kSwzCols<D> * 2) >> 4) << 32) |
+         ((uint64_t)(D == 32 ? 2 : 1) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -311,15 +337,24 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(acc));
 }
 
-// d += a . B with N = D (the dk / dv products)
+// d += a . B with N = D (the dk / dv products), B the swizzled tile at
+// `tile`; D = 128: one m64n64 product per column half, the first half's
+// accumulators in d[0, 32), the second's in d[32, 64) (the m64n128
+// accumulator order)
 template <int D, int kTrans>
 __device__ __forceinline__ void wgmma_nd(float (&d)[D / 2],
                                          const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  if constexpr (D == 64)
-    wgmma_n64<kTrans>(d, a, desc, 1);
-  else
-    wgmma_n32<kTrans>(d, a, desc, 1);
+                                         const unsigned char* tile) {
+  if constexpr (D == 128) {
+    wgmma_n64<kTrans>(*reinterpret_cast<float(*)[32]>(&d[0]), a,
+                      gmma_desc<D>(tile), 1);
+    wgmma_n64<kTrans>(*reinterpret_cast<float(*)[32]>(&d[32]), a,
+                      gmma_desc<D>(tile + kRows * 128), 1);
+  } else if constexpr (D == 64) {
+    wgmma_n64<kTrans>(d, a, gmma_desc<D>(tile), 1);
+  } else {
+    wgmma_n32<kTrans>(d, a, gmma_desc<D>(tile), 1);
+  }
 }
 
 // cp.async rows [r0, r0 + 64) of a row-major [n, D] bf16 matrix into a
@@ -332,7 +367,7 @@ __device__ __forceinline__ void stage_swz(unsigned char* dst, const bf16* src,
   for (int i = tid; i < kRows * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     const bool in = r0 + r < n;
-    cp_async16(dst + r * D * 2 + ((c ^ swz<D>(r)) << 4),
+    cp_async16(dst + swz_off<D>(r, c * 8),
                in ? src + (size_t)(r0 + r) * D + c * 8 : src, in ? 16 : 0);
   }
 }
@@ -1036,22 +1071,24 @@ __device__ __forceinline__ void dkv_issue(
   wgmma_fence();
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd) {
-    const uint64_t ak = gmma_desc<D>(k_hi + 32 * kd);
-    const uint64_t bq = gmma_desc<D>(qh + 32 * kd);
+    const int off = kstep_off<D>(kd);
+    const uint64_t ak = gmma_desc<D>(k_hi + off);
+    const uint64_t bq = gmma_desc<D>(qh + off);
     wgmma_ss_n64(s, ak, bq, kd > 0);
     if constexpr (kF32) {
-      wgmma_ss_n64(s, ak, gmma_desc<D>(ql + 32 * kd), 1);
-      wgmma_ss_n64(s, gmma_desc<D>(k_lo + 32 * kd), bq, 1);
+      wgmma_ss_n64(s, ak, gmma_desc<D>(ql + off), 1);
+      wgmma_ss_n64(s, gmma_desc<D>(k_lo + off), bq, 1);
     }
   }
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd) {
-    const uint64_t av = gmma_desc<D>(v_hi + 32 * kd);
-    const uint64_t bo = gmma_desc<D>(do_hi + 32 * kd);
+    const int off = kstep_off<D>(kd);
+    const uint64_t av = gmma_desc<D>(v_hi + off);
+    const uint64_t bo = gmma_desc<D>(do_hi + off);
     wgmma_ss_n64(dp, av, bo, kd > 0);
-    wgmma_ss_n64(dp, av, gmma_desc<D>(do_lo + 32 * kd), 1);
+    wgmma_ss_n64(dp, av, gmma_desc<D>(do_lo + off), 1);
     if constexpr (kF32)
-      wgmma_ss_n64(dp, gmma_desc<D>(v_lo + 32 * kd), bo, 1);
+      wgmma_ss_n64(dp, gmma_desc<D>(v_lo + off), bo, 1);
   }
   wgmma_commit();
 }
@@ -1109,15 +1146,13 @@ __device__ __forceinline__ void dkv_finish(
     wgmma_fence();
 #pragma unroll
     for (int kk = 2 * half; kk < 2 * half + 2; ++kk) {
-      const int off = kk * 16 * D * 2;          // 16 query rows further
-      const uint64_t bo = gmma_desc<D>(do_hi + off);
-      const uint64_t bq = gmma_desc<D>(qh + off);
-      wgmma_nd<D, 1>(av, ph[kk], bo);
-      wgmma_nd<D, 1>(av, ph[kk], gmma_desc<D>(do_lo + off));
-      wgmma_nd<D, 1>(av, pl[kk], bo);
-      wgmma_nd<D, 1>(ak, dh[kk], bq);
-      wgmma_nd<D, 1>(ak, dl[kk], bq);
-      if constexpr (kF32) wgmma_nd<D, 1>(ak, dh[kk], gmma_desc<D>(ql + off));
+      const int off = rows_off<D>(kk);          // 16 query rows further
+      wgmma_nd<D, 1>(av, ph[kk], do_hi + off);
+      wgmma_nd<D, 1>(av, ph[kk], do_lo + off);
+      wgmma_nd<D, 1>(av, pl[kk], do_hi + off);
+      wgmma_nd<D, 1>(ak, dh[kk], qh + off);
+      wgmma_nd<D, 1>(ak, dl[kk], qh + off);
+      if constexpr (kF32) wgmma_nd<D, 1>(ak, dh[kk], ql + off);
     }
   }
   wgmma_commit();

@@ -51,7 +51,8 @@
 // as the A operand of dS.K (FA2's trick): they never touch shared memory.
 //
 // dk/dv (kernel 6): one warpgroup per block.  The block's K and V are
-// 128B- (D = 64) or 64B-swizzled (D = 32) bf16 tiles in shared memory,
+// 128B- (D = 64; D = 128 as two such tiles, one per 64-column half) or
+// 64B-swizzled (D = 32) bf16 tiles in shared memory,
 // read by wgmma through descriptors; each q tile's Q comes through a
 // two-slot cp.async ring in the same layout, and its f32 dO in one bulk
 // copy (cp.async.bulk, completing an mbarrier) that is split into
@@ -79,17 +80,17 @@
 // are set before the exponent (lse is -1e30 on dead rows).
 //
 // ptxas -v (CUDA 12.8, sm_90a; __launch_bounds__(128, 3) caps both at
-// 168), registers a thread and spill stores / loads in bytes, the same
-// in every build as when the tile bodies were written out in this file:
-//   dq     bf16 D=64 162, 0 / 0;   D=32 122, 0 / 0
-//          f32  D=64 168, 40 / 60; D=32 141, 0 / 0
-//   dk/dv  bf16 D=64 168, 28 / 28; D=32 166, 0 / 0
-//          f32  D=64 168, 8 / 8;   D=32 163, 0 / 0
+// 168 for D <= 64; D = 128 at 255), registers a thread and spill stores /
+// loads in bytes:
+//   dq     bf16 D=64 162, 0 / 0;   D=32 122, 0 / 0; D=128 250, 0 / 0
+//          f32  D=64 168, 40 / 60; D=32 141, 0 / 0; D=128 255, 24 / 44
+//   dk/dv  bf16 D=64 168, 28 / 28; D=32 166, 0 / 0; D=128 255, 16 / 16
+//          f32  D=64 168, 8 / 8;   D=32 163, 0 / 0; D=128 255, 0 / 0
 //
 // Layouts (row-major, contiguous, 16-byte aligned): q/do [B, H, Sq, D]
 // (do f32), k/v [B, KH, Sk, D]; seg_q/pos_q [B, Sq], seg_k/pos_k [B, Sk];
 // lse/delta/dlse [B, H, Sq] f32; dq [B, H, Sq, D], dk/dv [B, KH, Sk, D]
-// in the dtype of q/k/v.  D is 32 or 64.
+// in the dtype of q/k/v.  D is 32, 64 or 128.
 
 #include <cstdint>
 
@@ -128,8 +129,18 @@ constexpr int kDkvSmem = 1024 + (kIsF32<T> ? 8 : 6) * kSwzTileBytes<D> +
                          kRows * D * 4 + (kIsF32<T> ? 2 * kRows * D * 4 : 0) +
                          2 * 3 * kRows * 4 + 16;
 
+// blocks an SM the registers must allow: three at D <= 64 (168
+// registers a thread); at D = 128, two for dq (255: its Q, dO and dq
+// fragments take 160 in bf16) and one for dk/dv (255: the dk and dv
+// accumulators take 128 beside S^T and dP^T, and its tiles 131 KB of
+// shared memory in bf16)
+template <int D>
+constexpr int kDqMinBlocks = D > 64 ? 2 : 3;
+template <int D>
+constexpr int kDkvMinBlocks = D > 64 ? 1 : 3;
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 3) bwd_dq_kernel(
+__global__ void __launch_bounds__(kThreads, kDqMinBlocks<D>) bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ seg_q,
     const int* __restrict__ pos_q, const int* __restrict__ seg_k,
@@ -257,7 +268,7 @@ __global__ void __launch_bounds__(kThreads, 3) bwd_dq_kernel(
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 3) bwd_dkv_kernel(
+__global__ void __launch_bounds__(kThreads, kDkvMinBlocks<D>) bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ seg_q,
     const int* __restrict__ pos_q, const int* __restrict__ seg_k,
@@ -487,7 +498,7 @@ Args make_args(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and the outputs share it);
-// D is 32 or 64; q, k, v and dout 16-byte aligned (cp.async).  Each
+// D is 32, 64 or 128; q, k, v and dout 16-byte aligned (cp.async).  Each
 // returns cudaGetLastError() after its launch.
 extern "C" int fcp_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* seg_q,
@@ -505,6 +516,8 @@ extern "C" int fcp_flash_attention_bwd_dq(
   if (dtype == 0 && D == 64) return launch_dq<float, 64>(a, dq);
   if (dtype == 1 && D == 32) return launch_dq<__nv_bfloat16, 32>(a, dq);
   if (dtype == 1 && D == 64) return launch_dq<__nv_bfloat16, 64>(a, dq);
+  if (dtype == 0 && D == 128) return launch_dq<float, 128>(a, dq);
+  if (dtype == 1 && D == 128) return launch_dq<__nv_bfloat16, 128>(a, dq);
   return cudaErrorInvalidValue;
 }
 
@@ -524,5 +537,8 @@ extern "C" int fcp_flash_attention_bwd_dkv(
   if (dtype == 0 && D == 64) return launch_dkv<float, 64>(a, dk, dv);
   if (dtype == 1 && D == 32) return launch_dkv<__nv_bfloat16, 32>(a, dk, dv);
   if (dtype == 1 && D == 64) return launch_dkv<__nv_bfloat16, 64>(a, dk, dv);
+  if (dtype == 0 && D == 128) return launch_dkv<float, 128>(a, dk, dv);
+  if (dtype == 1 && D == 128)
+    return launch_dkv<__nv_bfloat16, 128>(a, dk, dv);
   return cudaErrorInvalidValue;
 }

@@ -58,10 +58,14 @@
 // emulates that arithmetic against the plain version.  The decode variant
 // computes in f32 throughout.
 //
-// ptxas -v (sm_90a; __launch_bounds__(128, 4) caps (a)'s bf16 builds at
-// 128 registers): printed by chip_smoke.py's build phase; PERF.md keeps
-// the numbers of the last run (the bf16 D=64 build spills a few dozen
-// bytes there).
+// At D = 128 (b) keeps its layout; f32 rows of 512 bytes would need 256
+// KB for a split's K and V, so there K and V share one buffer (kOneBuf):
+// V loads once the scores are taken.
+//
+// ptxas -v (sm_90a; __launch_bounds__(128, 4) caps (a)'s bf16 builds of D
+// <= 64 at 128 registers, the others at 255): printed by chip_smoke.py's
+// build phase; PERF.md keeps the numbers of the last run (the bf16 D=64
+// build spills a few dozen bytes there, D=128 none at 254).
 //
 // Layouts: q [B, H, Sq, D], k/v [B, KH, Sk, D] with any element strides
 // (unit stride on D; the rows and the tensors 16-byte aligned);
@@ -84,11 +88,12 @@ constexpr bool kIsF32 = std::is_same<T, float>::value;
 template <int D>
 constexpr int kLd = D + 8;          // padded bf16 row of an ldmatrix tile
 
-// blocks an SM the registers must allow: bf16 builds at <= 128 registers
-// a thread (four blocks: the tile loop is bound by latency, so more warps
-// in flight pay), f32 ones, with hi and lo fragments, at <= 255
-template <typename T>
-constexpr int kMinBlocks = kIsF32<T> ? 2 : 4;
+// blocks an SM the registers must allow: bf16 builds of D <= 64 at <= 128
+// registers a thread (four blocks: the tile loop is bound by latency, so
+// more warps in flight pay), the others (f32 hi and lo fragments, D =
+// 128) at <= 255, as kernel 1
+template <typename T, int D>
+constexpr int kMinBlocks = kIsF32<T> || D > 64 ? 2 : 4;
 
 struct Strides {
   long long qb, qh, qs;       // q
@@ -119,7 +124,7 @@ constexpr int kTiledSmem = 4 * kStageBytes<T, D> +
                            2 * 2 * kRows * 4;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<T>) tiled_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T, D>) tiled_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ seg_q,
     const int* __restrict__ pos_q, const int* __restrict__ seg_k,
@@ -241,10 +246,17 @@ __device__ __forceinline__ Ranges span_ranges(const int* seg, const int* pos,
   return r;
 }
 
+// K and V of a split share one buffer where two would not fit in shared
+// memory (f32 rows of D = 128: 2 x 128 KB); V then loads once the scores
+// are taken, and a chunk after the first loads K again
+template <typename T, int D>
+constexpr bool kOneBuf = (int)sizeof(T) * D > 256;
+
 // K and V of a split, the scores of a chunk of RC query rows, the warps'
 // partial sums, the rows' (m, l), the sub-tiles' liveness
 template <typename T, int D, int RC>
-constexpr int kDecodeSmem = 2 * kSplit * D * (int)sizeof(T) +
+constexpr int kDecodeSmem = (kOneBuf<T, D> ? 1 : 2) * kSplit * D *
+                                (int)sizeof(T) +
                             RC * kSplit * 4 + kWarps * RC * D * 4 +
                             2 * RC * 4 + kWarps * 4;
 
@@ -287,8 +299,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   constexpr int kGroups = kThreads / kLanes;   // keys of one pass
   static_assert(kLanes <= 32 && 32 % kLanes == 0, "a key row in one warp");
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kOne = kOneBuf<T, D>;
   T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + kSplit * D;
+  T* v_s = kOne ? k_s : k_s + kSplit * D;
   float* s_s = reinterpret_cast<float*>(v_s + kSplit * D);   // [RC][kSplit]
   float* red = s_s + RC * kSplit;                 // [kWarps][RC][D]
   float* m_s = red + kWarps * RC * D;
@@ -322,10 +335,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
       ws_ml[(orow(r) * ns + split) * 2 + 1] = 0.f;
     return;
   }
-  // the live sub-tiles' rows, K then V (two groups: scores start while V
-  // lands); rows past Sk are zero-filled
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
+  // the live sub-tiles' rows of K (half 0) or V (half 1) as one cp.async
+  // group; rows past Sk are zero-filled
+  auto stage = [&](int half) {
     const T* src = half ? vp : kp;
     T* dst = half ? v_s : k_s;
     for (int i = tid; i < kSplit * kLanes; i += kThreads) {
@@ -336,11 +348,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
                  in ? 16 : 0);
     }
     cp_async_commit();
-  }
+  };
+  stage(0);
+  if constexpr (!kOne) stage(1);      // two groups: scores start while V lands
 
   const float sl2 = scale * kLog2e;
   const int gi = tid / kLanes, li = tid % kLanes;
   for (int r0 = 0; r0 < R; r0 += RC) {
+    if constexpr (kOne)
+      if (r0 > 0) stage(0);           // V holds the buffer: K again
     const int nr = min(RC, R - r0);
     // this lane's kVec columns of the chunk's query rows, f32
     float qv[RC][kVec];
@@ -361,7 +377,10 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
         pq[r] = qps[i];
       }
     }
-    cp_async_wait<1>();               // K has landed
+    if constexpr (kOne)               // K has landed
+      cp_async_wait<0>();
+    else
+      cp_async_wait<1>();
     __syncthreads();
     // scores, in log2 units; -inf where masked or in a dead sub-tile
     for (int kk = gi; kk < kSplit; kk += kGroups) {
@@ -390,6 +409,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
       }
     }
     __syncthreads();
+    if constexpr (kOne) stage(1);      // K is read: V takes its place
     // per row (a warp each): m, p = 2^(x - m) in place, l
     for (int r = warp; r < nr; r += kWarps) {
       float x[kSplit / 32];
@@ -602,7 +622,7 @@ Args make_args(const void* q, const void* k, const void* v,
 }  // namespace
 
 // (a) tiled.  dtype: 0 = float32, 1 = bfloat16 (q, k and v share it); D is
-// 32 or 64.  Strides are in elements.  Returns cudaGetLastError() after
+// 32, 64 or 128.  Strides are in elements.  Returns cudaGetLastError() after
 // the launch (0 on success).
 extern "C" int fcp_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* seg_q,
@@ -621,6 +641,8 @@ extern "C" int fcp_flash_attention_fwd(
   if (dtype == 0 && D == 64) return launch_tiled<float, 64>(a);
   if (dtype == 1 && D == 32) return launch_tiled<__nv_bfloat16, 32>(a);
   if (dtype == 1 && D == 64) return launch_tiled<__nv_bfloat16, 64>(a);
+  if (dtype == 0 && D == 128) return launch_tiled<float, 128>(a);
+  if (dtype == 1 && D == 128) return launch_tiled<__nv_bfloat16, 128>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -651,5 +673,8 @@ extern "C" int fcp_flash_attention_fwd_decode(
     return decode_rc<__nv_bfloat16, 32>(a, wo, wm, n_split);
   if (dtype == 1 && D == 64)
     return decode_rc<__nv_bfloat16, 64>(a, wo, wm, n_split);
+  if (dtype == 0 && D == 128) return decode_rc<float, 128>(a, wo, wm, n_split);
+  if (dtype == 1 && D == 128)
+    return decode_rc<__nv_bfloat16, 128>(a, wo, wm, n_split);
   return cudaErrorInvalidValue;
 }

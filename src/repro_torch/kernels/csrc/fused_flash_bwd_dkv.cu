@@ -44,10 +44,15 @@
 // and a partial tile's validity bits come from its staged q metadata
 // while S^T and dP^T run.
 //
-// ptxas -v (sm_90a; __launch_bounds__(128, 3) caps it at 168), registers
-// a thread and spill stores / loads in bytes: bf16 D=64 168, 8 / 8; D=32
-// 165, 0 / 0; f32 D=64 168, 0 / 0; D=32 164, 0 / 0.  The bf16 D=64 build
-// holds 52 HGMMA and 64 FFMA (cuobjdump -sass).
+// At D = 128 the tiles are two 64-column halves (attn_mma.cuh, section
+// wgmma), and the dk and dv accumulators take 128 registers a thread, so
+// the block runs alone on its SM (kMinBlocks).
+//
+// ptxas -v (sm_90a; __launch_bounds__(128, 3) caps D <= 64 at 168, (128,
+// 1) D = 128 at 255), registers a thread and spill stores / loads in
+// bytes: bf16 D=64 168, 8 / 8; D=32 165, 0 / 0; D=128 253, 0 / 0; f32
+// D=64 168, 0 / 0; D=32 164, 0 / 0; D=128 247, 0 / 0.  The bf16 D=64
+// build holds 52 HGMMA and 64 FFMA, D=128 104 and 64 (cuobjdump -sass).
 //
 // Layouts (row-major, contiguous; N = stacked workers):
 //   qs [N, SL, H, bs, D], kxt/vxt [N, EX, KH, bs, D] (f32 or bf16)
@@ -71,16 +76,25 @@ template <int D>
 constexpr int kSwzTileBytes = kRows * D * 2;
 
 // 1024 bytes of alignment slack, the swizzled tiles (6; 8 for f32), the
-// f32 g_o tile, two f32 Q slots for f32 q, two lse / delta slots, two
+// f32 g_o tile, the f32 Q tile for f32 q, two lse / delta slots, two
 // q_seg / q_pos slots, the mbarrier of the g_o copies; the tile classes
-// follow (set at launch)
+// follow (set at launch).  Like the g_o tile, the f32 Q tile is free once
+// split, so one suffices: f32 at D = 128 fits the card's 227 KB only so.
 template <typename T, int D>
 constexpr int kSmem = 1024 + (kIsF32<T> ? 8 : 6) * kSwzTileBytes<D> +
-                      kRows * D * 4 + (kIsF32<T> ? 2 * kRows * D * 4 : 0) +
+                      kRows * D * 4 + (kIsF32<T> ? kRows * D * 4 : 0) +
                       2 * 2 * kRows * 4 + 2 * 2 * kRows * 4 + 16;
 
+// blocks an SM the registers must allow: three at D <= 64 (168 registers
+// a thread); one at D = 128, whose dk and dv accumulators (64 x 128 f32
+// each over the warpgroup) take 128 registers a thread beside S^T and
+// dP^T (64), up to 255, and whose tiles take 131 KB (bf16) of the SM's
+// shared memory anyway
+template <int D>
+constexpr int kMinBlocks = D > 64 ? 1 : 3;
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 3) fused_dkv_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks<D>) fused_dkv_kernel(
     const T* __restrict__ qs, const T* __restrict__ kxt,
     const T* __restrict__ vxt, const int* __restrict__ bwd_q,
     const int* __restrict__ bwd_kv, const int* __restrict__ q_seg,
@@ -101,9 +115,9 @@ __global__ void __launch_bounds__(kThreads, 3) fused_dkv_kernel(
   // swizzled bf16 tiles on a 1024-byte boundary: Q (ring slots 0 and 1;
   // for f32 q its hi and lo), dO hi, dO lo, the block's K and V (and
   // their lo tiles for f32); then the dense f32 g_o tile (free again once
-  // split, so the next one loads during compute), for f32 q two dense
-  // f32 Q slots, the lse / delta slots, the q_seg / q_pos slots, the
-  // mbarrier and the tile classes
+  // split, so the next one loads during compute), for f32 q the dense
+  // f32 Q tile (the same), the lse / delta slots, the q_seg / q_pos
+  // slots, the mbarrier and the tile classes
   constexpr int kTiles = kF32 ? 8 : 6;
   unsigned char* tiles =
       smem_in + ((1024u - (smem_u32(smem_in) & 1023u)) & 1023u);
@@ -115,7 +129,7 @@ __global__ void __launch_bounds__(kThreads, 3) fused_dkv_kernel(
   unsigned char* v_lo = tiles + 7 * kTile;
   float* do_raw = reinterpret_cast<float*>(tiles + kTiles * kTile);
   float* q_raw = do_raw + kRows * D;
-  float* stats = q_raw + (kF32 ? 2 * kRows * D : 0);
+  float* stats = q_raw + (kF32 ? kRows * D : 0);
   int* qmeta = reinterpret_cast<int*>(stats + 2 * 2 * kRows);
   uint64_t* bar = reinterpret_cast<uint64_t*>(qmeta + 2 * 2 * kRows);
   unsigned char* cls = reinterpret_cast<unsigned char*>(bar + 1);
@@ -171,8 +185,7 @@ __global__ void __launch_bounds__(kThreads, 3) fused_dkv_kernel(
     const int m = (j / nqt) % group, qr0 = (j % nqt) * kRows;
     const size_t hr = (((size_t)n * SL + qslot) * H + kh * group + m) * bs;
     if constexpr (kF32)
-      stage_tile<float, D>(q_raw + sl * kRows * D, D, qs + hr * D, qr0, bs,
-                           tid);
+      stage_tile<float, D>(q_raw, D, qs + hr * D, qr0, bs, tid);
     else
       stage_swz<D>(tiles + sl * kTile, qs + hr * D, qr0, bs, tid);
     // one bulk copy; a ragged tile's last rows are zeroed (finite values
@@ -217,7 +230,7 @@ __global__ void __launch_bounds__(kThreads, 3) fused_dkv_kernel(
     const int sl = it & 1;
     split_tile_swz<D>(do_raw, do_hi, do_lo, tid);
     if constexpr (kF32)
-      split_tile_swz<D>(q_raw + sl * kRows * D, tiles, tiles + kTile, tid);
+      split_tile_swz<D>(q_raw, tiles, tiles + kTile, tid);
     fence_async_smem();
     __syncthreads();              // tiles written, the g_o tile is free
     const int nxt = next(cur + 1);
@@ -297,6 +310,7 @@ cudaError_t dispatch_d(int D, const void* qs, const void* kxt,
   switch (D) {
     FCP_CASE(32)
     FCP_CASE(64)
+    FCP_CASE(128)
     default:
       return cudaErrorInvalidValue;
   }

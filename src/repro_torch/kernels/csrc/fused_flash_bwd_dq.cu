@@ -41,10 +41,12 @@
 // per-element test.  The last q tiles start first: a causal mask shows
 // them the most keys.
 //
-// ptxas -v (sm_90a; __launch_bounds__(128, 3) caps it at 168), registers
-// a thread and spill stores / loads in bytes: bf16 D=64 168, 0 / 0; D=32
-// 128, 0 / 0; f32 D=64 168, 56 / 100; D=32 152, 0 / 0.  The bf16 D=64
-// build holds 80 HMMA and 16 FFMA (cuobjdump -sass).
+// ptxas -v (sm_90a; __launch_bounds__(128, 3) caps D <= 64 at 168, (128,
+// 2) D = 128 at 255), registers a thread and spill stores / loads in
+// bytes: bf16 D=64 168, 0 / 0; D=32 128, 0 / 0; D=128 255, 20 / 16; f32
+// D=64 168, 56 / 100; D=32 152, 0 / 0; D=128 255, 12 / 24.  The bf16
+// D=64 build holds 80 HMMA and 16 FFMA, D=128 160 and 16 (cuobjdump
+// -sass).
 //
 // Layouts (row-major, contiguous; N = stacked workers):
 //   qs [N, SL, H, bs, D], kxt/vxt [N, EX, KH, bs, D] (f32 or bf16)
@@ -78,8 +80,14 @@ template <typename T, int D>
 constexpr int kSmem = 4 * kStageBytes<T, D> +
                       (kIsF32<T> ? 4 * kPlaneBytes<D> : 0) + 2 * 2 * kRows * 4;
 
+// blocks an SM the registers must allow: three at D <= 64 (168
+// registers a thread), two at D = 128 (255), whose Q, g_o and dq
+// fragments alone take 160 registers a thread in bf16
+template <int D>
+constexpr int kMinBlocks = D > 64 ? 2 : 3;
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 3) fused_dq_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks<D>) fused_dq_kernel(
     const T* __restrict__ qs, const T* __restrict__ kxt,
     const T* __restrict__ vxt, const int* __restrict__ step_q,
     const int* __restrict__ step_kv, const int* __restrict__ q_seg,
@@ -251,6 +259,7 @@ cudaError_t dispatch_d(int D, const void* qs, const void* kxt,
   switch (D) {
     FCP_CASE(32)
     FCP_CASE(64)
+    FCP_CASE(128)
     default:
       return cudaErrorInvalidValue;
   }

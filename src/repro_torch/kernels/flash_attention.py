@@ -39,6 +39,9 @@ from . import build
 from .ref import NEG_INF, mask_matrix, reference_attention
 
 _MASK_KINDS = {"causal": 0, "sliding_window": 1, "chunked": 2, "full": 3}
+# the head dims every CUDA kernel is built for (the reference's kernels
+# take any D whose blocks divide)
+HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -136,7 +139,7 @@ def _flash_fwd_prep(q, k, v, seg_q, pos_q, seg_k, pos_k, mask, scale):
     _require(H % KH == 0, f"{H} heads not a multiple of {KH} kv heads")
     _require(q.dtype in _DTYPES and k.dtype == q.dtype
              and v.dtype == q.dtype, f"unsupported dtypes {q.dtype}")
-    _require(D in (32, 64), f"head_dim {D} not in (32, 64)")
+    _require(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
     _require(q.stride(-1) == 1 and k.stride(-1) == 1,
              "head_dim must be the unit-stride dim")
     _require(_aligned(k, 16) and _aligned(v, 16) and _aligned(q, 8),
@@ -208,7 +211,8 @@ def flash_attention_fwd(q, k, v, seg_q, pos_q, seg_k, pos_k, *,
     ``cache.transpose(1, 2)`` without a copy; seg/pos: ``[Sq]``/``[Sk]``
     (shared by the batch) or ``[B, Sq]``/``[B, Sk]``, int32.  A fully
     masked row gives ``o = 0``, ``lse = NEG_INF``.  On the CUDA kernel
-    ``D`` is 32 or 64, and the variant is :func:`fwd_variant` of ``Sq``.
+    ``D`` is 32, 64 or 128, and the variant is :func:`fwd_variant` of
+    ``Sq``.
     """
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, seg_q, pos_q, seg_k,
@@ -328,7 +332,7 @@ def fused_flash_fwd(step_q, step_kv, qs, kxt, vxt, q_seg, q_pos,
     _require(kxt.shape == (N, EX, KH, bs, D) and vxt.shape == kxt.shape,
              f"kxt/vxt {tuple(kxt.shape)} do not match qs {tuple(qs.shape)}")
     _require(H % KH == 0, f"{H} heads not a multiple of {KH} kv heads")
-    _require(D in (32, 64, 128), f"head_dim {D} not in (32, 64, 128)")
+    _require(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
     _require(qs.dtype in _DTYPES and kxt.dtype == qs.dtype
              and vxt.dtype == qs.dtype, f"unsupported dtypes {qs.dtype}")
     _require(ao.shape == (N, SL, H, bs, D) and al.shape == (N, SL, H, bs)
@@ -446,7 +450,7 @@ def fused_flash_bwd_dq(step_q, step_kv, qs, kxt, vxt, q_seg, q_pos, k_seg,
     ``[SL, H, bs, D]``; ``delta``: ``g_o . o_out - g_lse`` ``[SL, H,
     bs]``, all f32.  ``segments`` as for :func:`fused_flash_fwd`.  Slots
     no segment names come back zero (the reference's visited mask).  On
-    the CUDA kernel ``D`` is 32 or 64.
+    the CUDA kernel ``D`` is 32, 64 or 128.
     """
     if qs.device.type == "cpu":
         return fused_flash_bwd_dq_plain(
@@ -529,7 +533,7 @@ def fused_flash_bwd_dkv(bwd_q, bwd_kv, qs, kxt, vxt, q_seg, q_pos, k_seg,
     the ``(lo, hi)`` table over ``bwd_kv`` (:func:`run_segments`; the
     executor skips the kv trash row), derived on the host when omitted.
     Rows no segment names come back zero.  On the CUDA kernel ``D`` is
-    32 or 64.
+    32, 64 or 128.
     """
     if qs.device.type == "cpu":
         return fused_flash_bwd_dkv_plain(
@@ -575,7 +579,6 @@ def _check_fused(name, step_q, step_kv, qs, kxt, vxt, q_seg, q_pos, k_seg,
                  k_pos, lse, go, delta):
     """Shape/dtype/device checks of a fused backward launch; returns
     ``(N, SL, H, bs, D, EX, KH, S)``."""
-    _require(qs.device.type == "cuda", f"unsupported device {qs.device}")
     N, SL, H, bs, D = qs.shape
     EX, KH = kxt.shape[1], kxt.shape[2]
     S = step_q.shape[1]
@@ -583,7 +586,7 @@ def _check_fused(name, step_q, step_kv, qs, kxt, vxt, q_seg, q_pos, k_seg,
              f"{name}: kxt/vxt {tuple(kxt.shape)} do not match qs "
              f"{tuple(qs.shape)}")
     _require(H % KH == 0, f"{H} heads not a multiple of {KH} kv heads")
-    _require(D in (32, 64), f"{name}: head_dim {D} not in (32, 64)")
+    _require(D in HEAD_DIMS, f"{name}: head_dim {D} not in {HEAD_DIMS}")
     _require(qs.dtype in _DTYPES and kxt.dtype == qs.dtype
              and vxt.dtype == qs.dtype, f"unsupported dtypes {qs.dtype}")
     _require(lse.shape == (N, SL, H, bs) and delta.shape == lse.shape
@@ -598,6 +601,7 @@ def _check_fused(name, step_q, step_kv, qs, kxt, vxt, q_seg, q_pos, k_seg,
     for x in (step_q, step_kv, q_seg, q_pos, k_seg, k_pos):
         _require(x.dtype == torch.int32 and x.device == qs.device,
                  "tables must be int32 on the device of qs")
+    _require(qs.device.type == "cuda", f"unsupported device {qs.device}")
     return N, SL, H, bs, D, EX, KH, S
 
 
@@ -676,7 +680,6 @@ def _flash_bwd_prep(q, k, v, seg_q, pos_q, seg_k, pos_k, o, lse, do, dlse,
     """Checks and the inputs kernels 5 and 6 share: contiguous q/k/v,
     batched seg/pos, and the f32 lse, do, delta = sum(do * o) (computed
     here, as the reference computes it outside its kernel) and dlse."""
-    _require(q.device.type == "cuda", f"unsupported device {q.device}")
     unbatched = q.ndim == 3
     if unbatched:
         q, k, v, o, lse, do, dlse = (x[None] for x in (q, k, v, o, lse, do,
@@ -688,7 +691,8 @@ def _flash_bwd_prep(q, k, v, seg_q, pos_q, seg_k, pos_k, o, lse, do, dlse,
     _require(H % KH == 0, f"{H} heads not a multiple of {KH} kv heads")
     _require(q.dtype in _DTYPES and k.dtype == q.dtype
              and v.dtype == q.dtype, f"unsupported dtypes {q.dtype}")
-    _require(D in (32, 64), f"head_dim {D} not in (32, 64)")
+    _require(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
+    _require(q.device.type == "cuda", f"unsupported device {q.device}")
     _require(o.shape == q.shape and do.shape == q.shape
              and lse.shape == (B, H, Sq) and dlse.shape == lse.shape,
              "o/do must be [B, H, Sq, D] and lse/dlse [B, H, Sq]")
@@ -747,8 +751,8 @@ def flash_attention_bwd_dq(q, k, v, seg_q, pos_q, seg_k, pos_k, o, lse,
     D]``; seg/pos ``[S]`` or ``[B, S]``); o/do ``[(B,) H, Sq, D]``,
     lse/dlse ``[(B,) H, Sq]``.  ``dlse`` is the cotangent of the lse
     output (non-zero when the partial feeds a flash merge, the
-    executor's case).  On the CUDA kernel ``D`` is 32 or 64; q/k/v are
-    taken contiguous.
+    executor's case).  On the CUDA kernel ``D`` is 32, 64 or 128; q/k/v
+    are taken contiguous.
     """
     args = (q, k, v, seg_q, pos_q, seg_k, pos_k, o, lse, do, dlse)
     if q.device.type == "cpu":

@@ -1,5 +1,5 @@
 """Serving steps on stacked workers: bucketed FCP prefill and CP decode
-(port of ``repro.launch.serve``, dense family).
+(port of ``repro.launch.serve``; the dense and MoE families).
 
 * ``build_prefill_step`` — packed-stream forward through FCP attention
   (the fused run kernel), emitting each prompt's last-token logits and
@@ -117,7 +117,11 @@ def serving_stream(rng, vocab: int, n: int, min_len: int, max_len: int,
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", required=True)
+    p.add_argument("--arch", required=True,
+                   help="a config of repro_torch/configs of a ported "
+                        "family: dense (stablelm_1_6b, codeqwen1_5_7b, "
+                        "llama3_70b, qwen1_5_32b/110b) or MoE "
+                        "(granite_moe_3b_a800m, moonshot_v1_16b_a3b)")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--mesh", default="1x1")
     p.add_argument("--cache-len", type=int, default=512)

@@ -1,5 +1,5 @@
 """Training step assembly + CLI entry point on stacked workers (port of
-``repro.launch.train``, dense family).
+``repro.launch.train``; the dense and MoE families).
 
 ``build_train_step`` wires: FCP schedule -> attention closure over the
 stacked-worker executor -> model loss -> gradients (``torch.autograd``
@@ -311,7 +311,11 @@ PARITY_ONLY_FLAGS = ("shape", "attn_block_q", "attn_block_k",
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", required=True)
+    p.add_argument("--arch", required=True,
+                   help="a config of repro_torch/configs of a ported "
+                        "family: dense (stablelm_1_6b, codeqwen1_5_7b, "
+                        "llama3_70b, qwen1_5_32b/110b) or MoE "
+                        "(granite_moe_3b_a800m, moonshot_v1_16b_a3b)")
     p.add_argument("--shape", default=None,
                    help="assigned shape cell (accepted for parity; the "
                         "loop does not read it and warns when it is set)")

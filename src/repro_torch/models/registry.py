@@ -1,11 +1,12 @@
-"""Model registry (port of ``repro.models.registry``, dense family).
+"""Model registry (port of ``repro.models.registry``: the dense and MoE
+families).
 
 ``Model(cfg, tp)`` offers ``init``, ``forward``, ``features``,
 ``head_fn``, ``loss`` and ``param_count`` (training), ``forward_prefill``,
 ``init_cache`` and ``decode_step`` (serving), all with pluggable
 attention, plus the single-device oracles ``dense_attn_fn`` /
-``dense_decode_attn`` / ``dense_cache_update``.  The MoE, SSM and
-hybrid families are not ported yet and raise.
+``dense_decode_attn`` / ``dense_cache_update``.  The SSM, hybrid, audio
+and vision-language families are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ref
 from . import layers, transformer
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,10 +29,10 @@ class Model:
     tp: int = 1
 
     def __post_init__(self):
-        if self.cfg.family not in PORTED_FAMILIES or self.cfg.n_experts:
+        if self.cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet (dense "
-                f"transformers only)")
+                f"family {self.cfg.family!r} is not ported yet (ported: "
+                f"{', '.join(PORTED_FAMILIES)})")
 
     def init(self, generator: torch.Generator, device="cuda") -> dict:
         return transformer.init_params(self.cfg, generator, device,

@@ -1,5 +1,5 @@
-"""Dense decoder-only transformer, GQA + RoPE + SwiGLU (port of
-``repro.models.transformer``, dense family).
+"""Decoder-only transformer, GQA + RoPE + SwiGLU or a Mixture-of-Experts
+FFN (port of ``repro.models.transformer``: the dense and MoE families).
 
 The parameter tree is a dict of tensors in the reference's layout
 (``wq [L, d, H, Dh]``, ``wo [L, H, Dh, d]``, ...), so every einsum maps
@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from .moe import init_moe_ffn, moe_ffn
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -40,9 +41,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``device``), with the reference's shapes and scales.  A given seed
     gives other numbers than ``jax.random``; to run both packages on
     the same weights, convert the reference's with
-    :func:`repro_torch.models.convert.params_from_numpy`."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
+    :func:`repro_torch.models.convert.params_from_numpy`.  An MoE config
+    (``n_experts``) gets the router and expert leaves of
+    :func:`repro_torch.models.moe.init_moe_ffn` in place of ``wi``,
+    ``wg`` and ``wdown``."""
     nh, nkv = cfg.padded_heads(tp)
     vpad = cfg.padded_vocab(tp)
     d, dh, ff, nl = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.n_layers
@@ -63,10 +65,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "ln1": ones(nl, d), "ln2": ones(nl, d), "wq": wq,
         "wk": normal((nl, d, nkv, dh), d ** -0.5),
         "wv": normal((nl, d, nkv, dh), d ** -0.5), "wo": wo,
-        "wi": normal((nl, d, ff), d ** -0.5),
-        "wg": normal((nl, d, ff), d ** -0.5),
-        "wdown": normal((nl, ff, d), ff ** -0.5),
     }
+    if cfg.n_experts:
+        lyr.update(init_moe_ffn(cfg, generator, device, tp))
+    else:
+        lyr.update(wi=normal((nl, d, ff), d ** -0.5),
+                   wg=normal((nl, d, ff), d ** -0.5),
+                   wdown=normal((nl, ff, d), ff ** -0.5))
     if cfg.qkv_bias:
         for name, h in (("bq", nh), ("bk", nkv), ("bv", nkv)):
             lyr[name] = torch.zeros((nl, h, dh), dtype=dt, device=device)
@@ -92,8 +97,15 @@ def _attention_qkv(lp, cfg: ModelConfig, h, pos):
 
 
 def _ffn(x, lp, cfg: ModelConfig):
+    """The residual FFN block of ``x [F, T, d]``, or ``[B, d]`` at decode
+    (the MoE then routes each row as a frame of one token, as the
+    reference's ``moe_ffn(h2[:, None])[:, 0]``)."""
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + L.swiglu(h2, lp["wi"], lp["wg"], lp["wdown"])
+    if not cfg.n_experts:
+        return x + L.swiglu(h2, lp["wi"], lp["wg"], lp["wdown"])
+    if h2.ndim == 2:
+        return x + moe_ffn(h2[:, None], lp, cfg)[:, 0]
+    return x + moe_ffn(h2, lp, cfg)
 
 
 def _layer_body(x, lp, cfg: ModelConfig, pos, attn_fn):
@@ -119,10 +131,10 @@ def forward(params, cfg: ModelConfig, batch: dict, attn_fn,
     backward keeps only the layer inputs and recomputes the layer.  The
     reference's ``"dots"`` policy (save the matmul outputs) has no eager
     counterpart, so both policies recompute the whole layer: the saved
-    set differs from the reference's, the numbers do not.
+    set differs from the reference's, the numbers do not (the MoE
+    dispatch is deterministic, so the recomputed layer routes as the
+    forward did).
     """
-    if cfg.n_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
     fns = [attn_fn] * cfg.n_layers if callable(attn_fn) else list(attn_fn)
     if len(fns) != cfg.n_layers:
         raise ValueError(f"per-layer attn_fn sequence has {len(fns)} "
@@ -166,8 +178,6 @@ def forward_prefill(params, cfg: ModelConfig, batch: dict,
     construction; with ``return_features`` the pre-unembed hidden state
     ``[F, T, d]`` comes back instead of the logits (the serving loop
     unembeds only each prompt's last token)."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
     x = embed_tokens(params, cfg, batch)
     pos = batch["positions"]
     ks, vs = [], []

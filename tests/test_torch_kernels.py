@@ -148,11 +148,12 @@ def test_run_segments():
 # per-step varlen forward (decode kernel at Sq = 1)
 # --------------------------------------------------------------------------
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("sq", [128, 1])
 @pytest.mark.parametrize("mask", MASKS)
-def test_flash_plain_matches_interpret_kernel(mask, sq):
+def test_flash_plain_matches_interpret_kernel(mask, sq, d):
     rng = np.random.default_rng(21)
-    h, kh, sk, d = 4, 2, 256, 64
+    h, kh, sk = 4, 2, 256
     q = rng.normal(size=(h, sq, d)).astype(np.float32)
     k = rng.normal(size=(kh, sk, d)).astype(np.float32)
     v = rng.normal(size=(kh, sk, d)).astype(np.float32)
@@ -262,14 +263,15 @@ def _bwd_order(tabs):
                 k_seg_b=tabs["k_seg"][order], k_pos_b=tabs["k_pos"][order])
 
 
+@pytest.mark.parametrize("d", [32, 128])
 @pytest.mark.parametrize("mask", ["causal", "swa:40"])
-def test_fused_bwd_plain_matches_interpret_kernels(mask):
+def test_fused_bwd_plain_matches_interpret_kernels(mask, d):
     """Kernels 3 and 4 (plain versions) against ``fused_flash_bwd_dq`` /
     ``fused_flash_bwd_dkv`` in interpret mode: shared kv rows (dkv
     revisits), an incoming accumulator, a fully masked row, a trash
     step, GQA; the window edge falls mid-tile."""
     rng = np.random.default_rng(41)
-    qs, kxt, vxt, acc_o, acc_lse, tabs = _fused_inputs(rng, bs=64)
+    qs, kxt, vxt, acc_o, acc_lse, tabs = _fused_inputs(rng, bs=64, d=d)
     jm, tm = jmasks.parse_mask(mask), tmasks.parse_mask(mask)
     _, l2 = jops.fused_run_attention(
         *map(jnp.asarray, (qs, kxt, vxt, acc_o, acc_lse)),
@@ -305,13 +307,14 @@ def test_fused_bwd_plain_matches_interpret_kernels(mask):
     assert tfa.fused_flash_bwd_dkv.launches == 0
 
 
+@pytest.mark.parametrize("d", [32, 128])
 @pytest.mark.parametrize("mask", ["chunked:48", "full"])
-def test_flash_bwd_plain_matches_interpret_kernel(mask):
+def test_flash_bwd_plain_matches_interpret_kernel(mask, d):
     """Kernels 5 and 6 (plain version) against ``flash_attention_bwd`` in
     interpret mode, with a non-zero ``dlse`` (the merge case) and GQA
     (H = 2 KH: dk/dv sum over the group)."""
     rng = np.random.default_rng(51)
-    h, kh, sq, sk, d = 4, 2, 64, 128, 32
+    h, kh, sq, sk = 4, 2, 64, 128
     q = rng.normal(size=(h, sq, d)).astype(np.float32)
     k = rng.normal(size=(kh, sk, d)).astype(np.float32)
     v = rng.normal(size=(kh, sk, d)).astype(np.float32)
@@ -728,6 +731,34 @@ def test_fused_run_function_matches_jax_grad():
     live = acc_lse > -1e29
     assert _nerr(tg[3].numpy()[live], np.asarray(jg[3])[live]) <= 1e-5
     assert _nerr(tg[4].numpy()[live], np.asarray(jg[4])[live]) <= 1e-5
+
+
+@pytest.mark.parametrize("d", [16, 80])
+def test_wrappers_refuse_unbuilt_head_dims(d):
+    """The CUDA kernels are built for ``HEAD_DIMS`` (32, 64, 128): the
+    launch checks of kernels 2-6 refuse another head dim (zamba2's 80,
+    the smoke configs' 16) before any launch, with the message the card
+    shows."""
+    rng = np.random.default_rng(61)
+    msg = f"head_dim {d} not in"
+    q, k = (_t(rng.normal(size=(1, 2, 64, d)).astype(np.float32))
+            for _ in range(2))
+    meta = torch.zeros(64, dtype=torch.int32)
+    lse = torch.zeros(1, 2, 64)
+    with pytest.raises(ValueError, match=msg):
+        tfa._flash_fwd_prep(q, k, k, meta, meta, meta, meta, True, None)
+    with pytest.raises(ValueError, match=msg):
+        tfa._flash_bwd_prep(q, k, k, meta, meta, meta, meta, q, lse, q, lse,
+                            True, None)
+    qs, kxt, vxt, acc_o, acc_lse, tabs = _fused_inputs(rng, bs=64, d=d)
+    tabs = {k_: _t(v)[None] for k_, v in tabs.items()}
+    ins = [_t(x)[None] for x in (qs, kxt, vxt, acc_lse, acc_o, acc_lse)]
+    for name in ("fused_flash_bwd_dq", "fused_flash_bwd_dkv"):
+        with pytest.raises(ValueError, match=msg):
+            tfa._check_fused(name, tabs["step_q"], tabs["step_kv"],
+                             *ins[:3], tabs["q_seg"], tabs["q_pos"],
+                             tabs["k_seg"], tabs["k_pos"], *ins[3:])
+    assert 80 not in tfa.HEAD_DIMS and 128 in tfa.HEAD_DIMS
 
 
 def test_kernel_impl_rejects_unknown():

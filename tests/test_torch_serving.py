@@ -1,8 +1,14 @@
-"""The port's serving loop (FCP prefill + CP decode on a stacked 2x2 mesh,
+"""The port's serving loop (FCP prefill + CP decode on a stacked mesh,
 plain kernel versions on the CPU) against the reference: token for token
 equal to the JAX ``ServingLoop`` on a 1x1 mesh, and prefill last-token
 logits within 1e-5 normalized of the JAX dense-attention prefill, on the
-same f32 smoke StableLM weights."""
+same f32 smoke weights of a dense (StableLM) and an MoE (Granite) model.
+
+MoE capacity is per frame, and a prefill batch's frames are its CP
+workers (``[n_cp, tokens_per_worker]`` in both packages), so the MoE
+model serves on one CP worker, as the reference's 1x1 mesh does (2
+cache shards); a dense model's tokens do not depend on the split and
+serve on 2 workers."""
 
 import dataclasses
 
@@ -30,48 +36,50 @@ SERVE = dict(cache_len=160, decode_slots=2, queue_depth=8,
              max_new_tokens=8, prefill_tokens_per_worker=128,
              bucket_min=16)
 LENS = [5, 23, 64, 128]          # below the smallest edge .. largest
+MESH = {"stablelm_1_6b": (2, 2), "granite_moe_3b_a800m": (1, 2)}
 
 
-@pytest.fixture(scope="module")
-def weights():
-    cfg = dataclasses.replace(j_smoke("stablelm_1_6b"),
+@pytest.fixture(scope="module", params=list(MESH))
+def weights(request):
+    cfg = dataclasses.replace(j_smoke(request.param),
                               param_dtype="float32")
     jparams = JModel(cfg).init(jax.random.key(0))
-    return cfg, jparams, params_from_numpy(jax.device_get(jparams), "cpu")
+    return (request.param, cfg, jparams,
+            params_from_numpy(jax.device_get(jparams), "cpu"))
 
 
-def _port_loop(tparams):
-    cfg = dataclasses.replace(smoke_config("stablelm_1_6b"),
-                              param_dtype="float32")
+def _port_loop(tparams, arch="stablelm_1_6b"):
+    cfg = dataclasses.replace(smoke_config(arch), param_dtype="float32")
     return ServingLoop(Model(cfg), tparams,
-                       StackedMesh((2, 2), ("data", "model")),
+                       StackedMesh(MESH[arch], ("data", "model")),
                        ParallelConfig(block_size=16), ServeConfig(**SERVE),
                        device="cpu")
 
 
 def test_tokens_match_jax_serving_loop(weights):
-    cfg, jparams, tparams = weights
+    arch, cfg, jparams, tparams = weights
     rng = np.random.default_rng(3)
     prompts = [rng.integers(1, cfg.vocab_size, (L,)).astype(np.int32)
                for L in LENS]
     jloop = JLoop(JModel(cfg), jparams, make_mesh((1, 1), ("data", "model")),
                   JParallel(block_size=16), JServe(**SERVE))
     jloop.run(prompts, max_new=6)
-    loop = _port_loop(tparams)
+    loop = _port_loop(tparams, arch)
     rep = loop.run(prompts, max_new=6)
     want = {r.rid: list(map(int, r.tokens)) for r in jloop.stats.finished}
     got = {r.rid: list(map(int, r.tokens)) for r in loop.stats.finished}
     assert got == want
-    # every prompt rode one FCP prefill call (2 workers) and its bucket
-    # plan was cached; decode ran over 2 cache shards
-    assert rep["prefill_impl"] == "fcp" and loop.n_cp == 2
+    # every prompt rode one FCP prefill call and its bucket plan was
+    # cached; decode ran over 2 cache shards
+    assert rep["prefill_impl"] == "fcp" and loop.n_cp == loop.mesh.shape[
+        "data"]
     assert all(r.mode == "pad" for r in loop.stats.finished)
     assert rep["plan_cache"]["misses"] == rep["prefill_batches"]
 
 
 def test_prefill_logits_match_jax_dense_prefill(weights):
-    cfg, jparams, tparams = weights
-    loop = _port_loop(tparams)
+    arch, cfg, jparams, tparams = weights
+    loop = _port_loop(tparams, arch)
     rng = np.random.default_rng(4)
     reqs = [loop.submit(rng.integers(1, cfg.vocab_size, (L,)), max_new=2)
             for L in (61, 33)]

@@ -141,11 +141,12 @@ def test_ship_backward_reverses_the_permutation(kind):
 # train step against the JAX train step
 # --------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def smoke():
-    jcfg = dataclasses.replace(j_smoke("stablelm_1_6b"),
+@pytest.fixture(scope="module",
+                params=["stablelm_1_6b", "granite_moe_3b_a800m"])
+def smoke(request):
+    jcfg = dataclasses.replace(j_smoke(request.param),
                                param_dtype="float32")
-    cfg = dataclasses.replace(smoke_config("stablelm_1_6b"),
+    cfg = dataclasses.replace(smoke_config(request.param),
                               param_dtype="float32")
     jparams = jax.device_get(JModel(jcfg).init(jax.random.key(0)))
     return jcfg, cfg, jparams
@@ -154,7 +155,9 @@ def smoke():
 def test_train_step_matches_jax(smoke):
     """FCP over 4 stacked workers (``fused_xla``, remat on) against the
     reference's jitted train step with dense attention on a 1x1 mesh:
-    same f32 smoke weights, same loader batch, three steps."""
+    same f32 smoke weights, same loader batch, three steps; a dense and an
+    MoE model (the batch's 4 frames are the MoE's routing frames in both
+    packages)."""
     jcfg, cfg, np_params = smoke
     jparams = jax.tree.map(jnp.asarray, np_params)   # the step donates
     tpw, bs = 128, 32
@@ -255,6 +258,28 @@ def test_adamw_schedule_compression_match_reference():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
     with pytest.raises(ValueError, match="scale-free"):
         compression.compress_grads(tg, tr, twire.WIRE_INT8)
+
+
+def test_adamw_large_leaves_in_blocks_same_bytes(monkeypatch):
+    """A leaf above ``adamw.BLOCK`` elements is updated in blocks of its
+    leading dim with the same arithmetic: the same bytes as one pass."""
+    rng = np.random.default_rng(10)
+    tree = {"w": rng.normal(size=(6, 5, 4)), "b": rng.normal(size=(3, 7)),
+            "s": rng.normal(size=(40,))}
+    outs = []
+    for block in (adamw.BLOCK, 16):
+        monkeypatch.setattr(adamw, "BLOCK", block)
+        p = params_from_numpy(tree, "cpu", torch.float32)
+        g = params_from_numpy({k: v * 2 for k, v in tree.items()}, "cpu",
+                              torch.float32)
+        st = adamw.init(p)
+        for _ in range(2):
+            p, st, _ = adamw.update(p, g, st, lr=torch.tensor(1e-2))
+        outs.append(adamw.tree_leaves(p) + adamw.tree_leaves(st.m)
+                    + adamw.tree_leaves(st.v))
+    assert len(adamw._blocks(torch.zeros(6, 5, 4))) == 6    # BLOCK = 16
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_chunked_cross_entropy_matches_full():
