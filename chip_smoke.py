@@ -7,16 +7,17 @@ Phases, each reported on its own line:
 
 1. build   — compile the CUDA kernels from ``kernels/csrc`` (nvcc), print
              ``ptxas -v`` per entry and the HMMA/HGMMA/FFMA counts of
-             every kernel (``cuobjdump -sass``); the bf16 D=64 and D=128
-             builds of kernel 1, kernel 2's tiled variant and kernels 3-6
-             must hold tensor-core instructions, and kernels 3 and 4 no
-             FFMA dot-product loop.
+             every kernel (``cuobjdump -sass``); the bf16 D=64, D=80 and
+             D=128 builds of kernel 1, kernel 2's tiled variant and
+             kernels 3-6 must hold tensor-core instructions, and kernels
+             3 and 4 no FFMA dot-product loop.
 2. kernels — each kernel against its plain PyTorch version on the card,
              first at small shapes (all four mask kinds, GQA groups 1-4
-             and 8, D 32, 64 and 128, a fully masked row, ragged tiles, a
-             trash step; f32 and bf16), then at the shapes the main paths
-             give it, with StableLM's heads (32 of 64), Granite's (24 of
-             64 over 8 kv heads) and Moonlight's (16 of 128); times (CUDA
+             and 8, D 32, 64, 80 and 128, a fully masked row, ragged
+             tiles, a trash step; f32 and bf16), then at the shapes the
+             main paths give it, with StableLM's heads (32 of 64),
+             Granite's (24 of 64 over 8 kv heads), Moonlight's (16 of
+             128) and Zamba2's shared block's (32 of 80); times (CUDA
              events around 10 launches back to back, median of 21 such
              windows; kernel 2, whose wrapper's host work is of the order
              of its kernels, alone on inputs prepared once, the wrapper
@@ -48,7 +49,10 @@ Phases, each reported on its own line:
              Granite-3.0-3B-A800M (MoE, 40 experts top-8, full depth) and
              Moonlight-16B-A3B (MoE, head_dim 128, 4 of 48 layers), whose
              kernel runs take the experts the plain runs chose
-             (``PinnedRoutes``).
+             (``PinnedRoutes``); Zamba2-2.7B (hybrid, head_dim 80, full
+             depth; its f32 tokens kernels vs plain on a short stream,
+             bf16's reported) and Mamba2-130M (SSM, no attention: its
+             prefill held against its recurrent decode).
 4. train   — (a) full width, 4 layers, f32 weights: every parameter's
              gradient through the kernels against the plain versions,
              for the fused (kernels 1, 3, 4) and the per-step (2, 5, 6)
@@ -65,7 +69,10 @@ Phases, each reported on its own line:
              (b) at full depth, 3 fused steps, one profiled, one pallas
              step, the bf16 step-0 loss check and where an MoE layer's
              time goes; and Moonlight at 2 layers: 2 fused steps, one
-             pallas step, the loss check.
+             pallas step, the loss check; and Zamba2 at full depth: 6-layer
+             f32 gradients (one shared-attention invocation), 3 fused
+             steps, one pallas step, the loss check and where a Mamba2
+             layer's time goes (``ssm_breakdown``).
 
 The line before the card's line is a JSON object with one entry per
 kernel, its StableLM main-path row at the top (kernel 2's at decode) and
@@ -106,6 +113,10 @@ D128_TRAIN_LAYERS = 2
 D128_WHY = ("depth cut for the run's time; the layers kept are at full "
             "width (d 2048, 16 heads of 128, 64 experts top-6, vocab "
             "163840)")
+HYBRID_ARCH = "zamba2_2_7b"         # the hybrid (head_dim 80), full size
+HYBRID_GRAD_LAYERS = 6              # one shared-attention invocation
+SSM_ARCH = "mamba2_130m"            # the SSM, full size (no attention)
+TOL_SSM_F32 = 1e-4                  # f32 prefill vs recurrent decode logits
 
 
 def log(msg: str) -> None:
@@ -227,7 +238,10 @@ def small_flash_cases(fa, masks, dev):
                     ((2, 8, 8, t_sq, 300, 128), 2, 0.0),
                     ((1, 6, 2, 136, 200, 64), 3, 0.1),
                     ((1, 12, 4, 128, 192, 128), 1, 0.0),
-                    ((2, 6, 2, t_sq, 300, 128), 2, 0.0)):
+                    ((2, 6, 2, t_sq, 300, 128), 2, 0.0),
+                    ((1, 4, 4, 136, 200, 80), 3, 0.1),
+                    ((1, 4, 4, 128, 192, 80), 1, 0.0),
+                    ((2, 4, 4, t_sq, 300, 80), 2, 0.0)):
                 q = torch.tensor(rng.normal(size=(B, H, Sq, D)),
                                  dtype=dtype, device=dev)
                 k = torch.tensor(rng.normal(size=(B, KH, Sk, D)),
@@ -249,7 +263,8 @@ def small_flash_cases(fa, masks, dev):
     lengths = [0, 1, n - 1, n, n + 1, 3 * n + 60]
     for dtype in (torch.float32, torch.bfloat16):
         for KH, H, D in ((2, 4, 64), (1, 8, 32), (4, 4, 64), (2, 8, 128),
-                         (4, 4, 128), (2, 6, 64), (4, 12, 128), (8, 24, 64)):
+                         (4, 4, 128), (2, 6, 64), (4, 12, 128), (8, 24, 64),
+                         (4, 4, 80)):
             B, S = len(lengths), 3 * n + 100
             cache_k = torch.tensor(rng.normal(size=(B, S, KH, D)),
                                    dtype=dtype, device=dev)
@@ -279,7 +294,8 @@ def small_fused_cases(fa, masks, dev):
         for mask in masks:
             for D, bs, H, KH in ((64, 128, 4, 2), (32, 80, 8, 1),
                                  (128, 128, 8, 2), (64, 72, 4, 1),
-                                 (64, 128, 6, 2), (128, 80, 12, 4)):
+                                 (64, 128, 6, 2), (128, 80, 12, 4),
+                                 (80, 128, 4, 4), (80, 72, 4, 4)):
                 qs = torch.tensor(rng.normal(size=(N, SL, H, bs, D)),
                                   dtype=dtype, device=dev)
                 kxt = torch.tensor(rng.normal(size=(N, EX, KH, bs, D)),
@@ -517,7 +533,8 @@ def small_bwd_fused_cases(fa, masks, dev):
             for D, bs, H, KH in ((64, 128, 4, 2), (32, 80, 8, 1),
                                  (64, 80, 4, 4), (32, 128, 8, 2),
                                  (128, 128, 4, 2), (128, 80, 8, 1),
-                                 (64, 128, 6, 2), (128, 80, 12, 4)):
+                                 (64, 128, 6, 2), (128, 80, 12, 4),
+                                 (80, 128, 4, 4), (80, 80, 4, 4)):
                 def rnd(*shape, dt=dtype):
                     return torch.tensor(rng.normal(size=shape), dtype=dt,
                                         device=dev)
@@ -612,7 +629,9 @@ def small_bwd_flash_cases(fa, masks, dev):
                     ((2, 4, 2, 128, 256, 128), 3, 0.1),
                     ((1, 8, 1, 72, 200, 128), 1, 0.0),
                     ((1, 6, 2, 128, 200, 64), 3, 0.1),
-                    ((1, 12, 4, 72, 192, 128), 1, 0.0)):
+                    ((1, 12, 4, 72, 192, 128), 1, 0.0),
+                    ((1, 4, 4, 72, 200, 80), 3, 0.1),
+                    ((2, 4, 4, 128, 192, 80), 1, 0.0)):
                 def rnd(*shape, dt=dtype):
                     return torch.tensor(rng.normal(size=shape), dtype=dt,
                                         device=dev)
@@ -958,11 +977,17 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
     TOL_SERVE_F32.  For an MoE model the unpinned f32 error and a null
     floor (the plain path with each attention output moved by the
     kernels' own deviation from it under random signs, the largest of
-    three draws) are printed beside it."""
+    three draws) are printed beside it.
+
+    A recurrent model (SSM, hybrid) chunks its prompts down to a bucket
+    edge, and its prefill step reads no last index.  An attention-free
+    model (SSM) launches no kernel: its kernel checks give way to
+    ``ssm_check`` (the chunked scan against the recurrent decode)."""
     import torch
     from repro_torch.launch import serve as servelib
     from repro_torch.launch.mesh import StackedMesh
     from repro_torch.models import Model, moe
+    from repro_torch.models.registry import RECURRENT
     from repro_torch.runtime.serving import ServingLoop
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -978,7 +1003,7 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
     inner = loop._prefill_and_insert
 
     def spy(reqs, free):                   # remember the first batch
-        if not first:
+        if not first and reqs[0].mode != "fresh":
             first.append((reqs[0].bucket, list(reqs)))
         return inner(reqs, free)
     loop._prefill_and_insert = spy
@@ -1000,7 +1025,7 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
     if not bool(torch.isfinite(loop.last_logits.float()).all()):
         raise AssertionError("decode logits not finite")
     for name, n in launches.items():
-        if n <= 0:
+        if cfg.uses_attention and n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
     # the first prefill batch again, through the kernels and through the
     # plain versions, on the same schedule and weights.  With f32 copies
@@ -1015,6 +1040,35 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
     params32 = {k: ({n: w.float() for n, w in v.items()}
                     if isinstance(v, dict) else v.float())
                 for k, v in params.items()}
+    common = {"arch": cfg.name, "n_layers": cfg.n_layers,
+              "params": model.param_count(params), "warmup_s": warm_s,
+              "wall_s": report["wall_s"],
+              "sustained_tok_s": report["sustained_tok_s"],
+              "requests": report["requests"],
+              "generated_tokens": report["generated_tokens"],
+              "tail_tokens": report["tail_tokens"],
+              "prefill_batches": report["prefill_batches"],
+              "prefill_fill": report["prefill_fill"],
+              "decode_steps": report["decode_steps"],
+              "prefill_ms_p50": report["prefill_ms"]["p50"],
+              "prefill_ms_p99": report["prefill_ms"]["p99"],
+              "decode_ms_p50": report["decode_ms"]["p50"],
+              "decode_ms_p99": report["decode_ms"]["p99"],
+              "plan_cache_hit_rate": report["plan_cache"]["hit_rate"],
+              "peak_mem_gib": peak_gb, "launches": launches,
+              "first_batch_bucket": E}
+    if not cfg.uses_attention:
+        out = {**common, "ssm_check": ssm_check(model, params32, loop, dev)}
+        del params32
+        out["decode_step_ms"] = wall_ms(loop._loop_step, 10)
+        out["prefill_batch_ms"] = wall_ms(
+            lambda: loop.prefill_fn(E)(params, batch, last), 3)
+        out["profile"] = {
+            "decode_step": profile(loop._loop_step, 5),
+            "prefill_batch": profile(
+                lambda: loop.prefill_fn(E)(params, batch, last), 1)}
+        return out
+    ragged = cfg.family not in RECURRENT
     logits, pins = {}, {}
     for tag, prm in (("bf16", params), ("f32", params32)):
         pins[tag] = PinnedRoutes(moe)
@@ -1045,11 +1099,12 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
         sign = torch.randn(o.shape, generator=g, device=dev).sign()
         return o * (1 + 2.0 ** -23 * sign)
     step = servelib.build_prefill_step(model, nudged, loop.budget // E, E,
-                                       ragged=True)
+                                       ragged=ragged)
+    rows = (batch, last) if ragged else (batch,)
     floor = []
     for _ in range(3):
         with pins["bf16"]:                 # the plain run's experts
-            lg = step(params, batch, last)[0].float()
+            lg = step(params, *rows)[0].float()
         floor.append(nerr(lg, logits["bf16", "fused_xla"]))
     errs["bf16_floor"] = max(floor)
     if cfg.n_experts:
@@ -1088,24 +1143,96 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
     prof = {"decode_step": profile(loop._loop_step, 5),
             "prefill_batch": profile(
                 lambda: loop.prefill_fn(E)(params, batch, last), 1)}
-    return {"arch": cfg.name, "n_layers": cfg.n_layers,
-            "params": model.param_count(params),
-            "warmup_s": warm_s, "wall_s": report["wall_s"],
-            "sustained_tok_s": report["sustained_tok_s"],
-            "requests": report["requests"],
-            "generated_tokens": report["generated_tokens"],
-            "prefill_batches": report["prefill_batches"],
-            "prefill_fill": report["prefill_fill"],
-            "decode_steps": report["decode_steps"],
-            "prefill_ms_p50": report["prefill_ms"]["p50"],
-            "prefill_ms_p99": report["prefill_ms"]["p99"],
-            "decode_ms_p50": report["decode_ms"]["p50"],
-            "decode_ms_p99": report["decode_ms"]["p99"],
-            "plan_cache_hit_rate": report["plan_cache"]["hit_rate"],
-            "peak_mem_gib": peak_gb, "launches": launches,
-            "first_batch_bucket": E, "prefill_logits_err": errs,
+    return {**common, "prefill_logits_err": errs,
             "decode_step_ms": decode_ms, "prefill_batch_ms": prefill_ms,
             "profile": prof}
+
+
+def ssm_check(model, params32, loop, dev, n: int = 256) -> dict:
+    """An attention-free model on the card, f32 weights: the prefill
+    step's last-token logits of an ``n``-token prompt (the chunked SSD
+    scan, one chunk per ``ssm_chunk`` tokens) against feeding the same
+    prompt token by token through the recurrent decode step from a zero
+    cache, held to TOL_SSM_F32 (two forms of one recurrence, summed in
+    other orders).  Also checks the prefill's final state against the
+    decode's."""
+    import torch
+    cfg = model.cfg
+    if n not in loop.edges or n % cfg.ssm_chunk:
+        raise AssertionError(f"no bucket of {n} whole chunks")
+    from repro_torch.runtime.serving import Request
+    prompt = np.random.default_rng(11).integers(1, cfg.vocab_size, n)
+    req = Request(rid=-1, prompt=prompt.astype(np.int32), max_new=1,
+                  bucket=n, mode="chunk")
+    batch, last = loop.assemble(n, [req])
+    # the decode cache in f32 (the conv tail is kept in param_dtype)
+    m32 = type(model)(cfg.replace(param_dtype="float32"))
+    with torch.no_grad():
+        lg_p, cache_p = loop.prefill_fn(n)(params32, batch, last)
+        cache = m32.init_cache(1, 0, dev)
+        tok = torch.from_numpy(prompt.astype(np.int32)).to(dev)
+        for t in range(n):
+            lg_d, cache = m32.decode_step(
+                params32, tok[t:t + 1],
+                torch.full((1,), t, dtype=torch.int32, device=dev), cache)
+    torch.cuda.synchronize()
+
+    def nerr(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+    out = {"prompt_tokens": n,
+           "logits_err": nerr(lg_p[0].float(), lg_d[0].float()),
+           "state_err": nerr(cache_p["state"][:, 0], cache["state"][:, 0])}
+    if not (out["logits_err"] <= TOL_SSM_F32
+            and out["state_err"] <= TOL_SSM_F32):
+        raise AssertionError(f"SSM prefill vs recurrent decode (f32): "
+                             f"{out} > {TOL_SSM_F32}")
+    return out
+
+
+def serve_tokens(fa, cfg, pcfg, scfg, dev, n_req=4, max_len=512) -> dict:
+    """The serving loop twice on one short stream (``n_req`` prompts of
+    64..``max_len`` tokens, seed 1), on the kernels (``attn_impl`` fused)
+    and on their plain versions (fused_xla), with the same weights:
+    f32, whose tokens must be the same (the kernels sit ~1e-6 from plain,
+    far inside a top-2 logit gap), and bf16, whose token agreement is
+    reported: bf16's own noise floor (~2e-2 of the logits, ``serve``)
+    flips near-ties of random weights' logits."""
+    import torch
+    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.models import Model
+    from repro_torch.runtime.serving import ServingLoop
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, (int(L),)).astype(np.int32)
+               for L in rng.integers(64, max_len + 1, n_req)]
+    sc = scfg.replace(max_new_tokens=8)
+    out = {}
+    for tag in ("f32", "bf16"):
+        prm = params if tag == "bf16" else {
+            k: ({n: w.float() for n, w in v.items()}
+                if isinstance(v, dict) else v.float())
+            for k, v in params.items()}
+        # the caches take the weights' dtype
+        m = model if tag == "bf16" else Model(cfg.replace(
+            param_dtype="float32"))
+        toks = {}
+        for impl in ("fused", "fused_xla"):
+            loop = ServingLoop(m, prm, StackedMesh((4, 2), ("data",
+                                                            "model")),
+                               pcfg, sc, device=dev, attn_impl=impl)
+            loop.run(prompts, max_new=8)
+            toks[impl] = {r.rid: list(map(int, r.tokens))
+                          for r in loop.stats.finished}
+            del loop
+            release()
+        same = sum(a == b for r in toks["fused"] for a, b in zip(
+            toks["fused"][r], toks["fused_xla"][r]))
+        out[tag] = {"same_tokens": same, "tokens": 8 * n_req}
+        del prm
+    if out["f32"]["same_tokens"] != out["f32"]["tokens"]:
+        raise AssertionError(f"f32 tokens kernels vs plain differ: {out}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1126,17 +1253,18 @@ def read_counters(fa) -> dict:
     return {name: getattr(fa, name).launches for name in COUNTERS}
 
 
-def train_grad_check(trainlib, dev, argv) -> dict:
-    """(a) Full width, 4 layers, f32 weights, the first batch of the CLI's
-    stream: each parameter's gradient through the kernels against the
-    plain versions — fused executor (kernels 1, 3, 4 vs fused_xla), then
-    per-step (kernels 2, 5, 6 vs xla).  An MoE model's kernel run takes
-    the experts its plain run chose (``PinnedRoutes``)."""
+def train_grad_check(trainlib, dev, argv, n_layers: int = 4) -> dict:
+    """(a) Full width, ``n_layers`` layers, f32 weights, the first batch
+    of the CLI's stream: each parameter's gradient through the kernels
+    against the plain versions — fused executor (kernels 1, 3, 4 vs
+    fused_xla), then per-step (kernels 2, 5, 6 vs xla).  An MoE model's
+    kernel run takes the experts its plain run chose
+    (``PinnedRoutes``)."""
     import torch
     from repro_torch.models import moe
     from repro_torch.optimizer import adamw
     tr = trainlib.trainer_from_args(trainlib.parse_args(
-        argv + ["--override", "n_layers=4",
+        argv + ["--override", f"n_layers={n_layers}",
                 "--override", "param_dtype=float32"]))
     try:
         b = tr.loader.next()
@@ -1163,8 +1291,8 @@ def train_grad_check(trainlib, dev, argv) -> dict:
             if not (err <= TOL_TRAIN_F32 and all(
                     bool(torch.isfinite(x).all()) for x in res[kern][1])):
                 raise AssertionError(
-                    f"train grads {kern} vs {plain} (f32, 4 layers): max "
-                    f"leaf err {err:.3e} > {TOL_TRAIN_F32}")
+                    f"train grads {kern} vs {plain} (f32, {n_layers} "
+                    f"layers): max leaf err {err:.3e} > {TOL_TRAIN_F32}")
             out[kern] = {"max_leaf_err": err, "loss": res[kern][0],
                          "loss_plain": res[plain][0]}
             del res
@@ -1322,7 +1450,7 @@ def train(fa, trainlib, dev) -> dict:
     return out
 
 
-def moe_argv(arch: str, n_layers: int | None, steps: int) -> list:
+def model_argv(arch: str, n_layers: int | None, steps: int) -> list:
     """The train CLI's main-path arguments for ``arch`` (its depth cut to
     ``n_layers`` when given)."""
     argv = [x for x in TRAIN_ARGV]
@@ -1333,13 +1461,13 @@ def moe_argv(arch: str, n_layers: int | None, steps: int) -> list:
     return argv
 
 
-def train_moe(fa, trainlib, dev, arch: str, steps: int,
-              n_layers: int | None, why: str) -> dict:
-    """An MoE model on the training CLI's main path at full width and
+def train_model(fa, trainlib, dev, arch: str, steps: int,
+                n_layers: int | None, why: str) -> dict:
+    """A model on the training CLI's main path at full width and
     ``n_layers`` deep (None: the config's own depth): ``steps`` fused
     steps (one more profiled), one ``--attn-impl pallas`` step, and the
     bf16 step-0 loss check."""
-    argv = moe_argv(arch, n_layers, steps)
+    argv = model_argv(arch, n_layers, steps)
     out = train_steps(fa, trainlib, dev, argv, steps)
     out["depth"] = {"n_layers": out["n_layers"], "why": why}
     out["pallas_step"] = train_pallas(fa, trainlib, dev, argv, False)
@@ -1400,6 +1528,64 @@ def moe_breakdown(dev, arch: str, n_layers: int) -> dict:
     return {"layer_ms": {"moe_fwd": moe_f, "moe_fwd_bwd": moe_fb,
                          "experts_fwd": exp_f, "experts_fwd_bwd": exp_fb},
             "per_step_ms": per_step, "capacity": cap, "experts": ep}
+
+
+def ssm_breakdown(dev, arch: str, n_layers: int, prefill_bucket: int
+                  ) -> dict:
+    """Where a Mamba2 layer's time goes, as device time under the
+    profiler (``device_ms``), at the training step's shapes (the
+    8192-token stream scanned as one sequence, 4 documents of 2048, bf16,
+    full width): one ``mamba_block`` forward and forward + backward, and
+    its ``ssd_scan`` alone (f32, as the block calls it); and the forward
+    of both at a prefill batch's shape (``8192 / prefill_bucket``
+    sequences of ``prefill_bucket`` tokens).  Per step, a layer runs its
+    forward twice (remat) and its backward once."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import ssm
+    cfg = get_config(arch)
+    g = torch.Generator(device=dev).manual_seed(10)
+    lp = {k: v[0].detach().requires_grad_(True) for k, v in
+          ssm.init_mamba_layers(cfg, g, 1, dev).items()}
+    _, _, nh, din = ssm.ssm_dims(cfg)
+    hd, ds = din // nh, cfg.ssm_state
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    out = {}
+    for tag, bt, s in (("train", 1, 8192),
+                       ("prefill", 8192 // prefill_bucket, prefill_bucket)):
+        x = rnd(bt, s, cfg.d_model, dtype=torch.bfloat16).requires_grad_(True)
+        pos = (torch.arange(s, device=dev) % 2048).int().expand(bt, s)
+        ins = [rnd(bt, s, nh, hd), -torch.rand((bt, s, nh), generator=g,
+                                               device=dev),
+               rnd(bt, s, ds), rnd(bt, s, ds)]
+        with torch.no_grad():
+            blk_f, _ = device_ms(lambda: ssm.mamba_block(x, lp, cfg, pos),
+                                 n=3)
+            ssd_f, _ = device_ms(lambda: ssm.ssd_scan(*ins, cfg.ssm_chunk),
+                                 n=3)
+        out[tag] = {"mamba_block_fwd": blk_f, "ssd_scan_fwd": ssd_f}
+        if tag == "train":
+            cot = torch.randn(x.shape, generator=g, device=dev).bfloat16()
+            leaves = [x, *lp.values()]
+            out[tag]["mamba_block_fwd_bwd"], _ = device_ms(
+                lambda: torch.autograd.grad(ssm.mamba_block(x, lp, cfg, pos),
+                                            leaves, cot), n=3)
+            sins = [t.requires_grad_(True) for t in ins]
+            out[tag]["ssd_scan_fwd_bwd"], _ = device_ms(
+                lambda: torch.autograd.grad(
+                    ssm.ssd_scan(*sins, cfg.ssm_chunk)[0].sum(), sins), n=3)
+        del x, ins
+        release()
+    t = out["train"]
+    out["train_per_step_ms"] = {
+        k: n_layers * (t[f"{k}_fwd"] + t[f"{k}_fwd_bwd"])
+        for k in ("mamba_block", "ssd_scan")}
+    out["prefill_per_batch_ms"] = {
+        k: n_layers * out["prefill"][f"{k}_fwd"]
+        for k in ("mamba_block", "ssd_scan")}
+    return out
 
 
 def release() -> None:
@@ -1503,7 +1689,7 @@ def check_tensor_cores(counts: dict) -> None:
     holds do not grow with D)."""
     for prefix in ("tiled_kernel", "fused_fwd_kernel", "fused_dq_kernel",
                    "fused_dkv_kernel", "bwd_dq_kernel", "bwd_dkv_kernel"):
-        for d in (64, 128):
+        for d in (64, 80, 128):
             hits = [c for fn, c in counts.items() if prefix in fn
                     and "__nv_bfloat16" in fn and f"Li{d}E" in fn]
             if not hits or not all(c["HMMA"] + c["HGMMA"] > 0 for c in hits):
@@ -1558,13 +1744,15 @@ def main() -> int:
     cfg = get_config("stablelm_1_6b")
     cfg_moe = get_config(MOE_ARCH)
     cfg128 = get_config(D128_ARCH)
+    cfg_z = get_config(HYBRID_ARCH)
     pcfg = ParallelConfig(block_size=512, in_dtype_bytes=2)
     # every kernel at the main paths' shapes of each model: StableLM (32
-    # heads of 64), Granite (24 of 64 over 8 kv heads: GQA group 3) and
-    # Moonlight (16 of 128)
+    # heads of 64), Granite (24 of 64 over 8 kv heads: GQA group 3),
+    # Moonlight (16 of 128) and Zamba2's shared block (32 of 80)
     rows = []
-    for path, c in (("stablelm", cfg), ("granite", cfg_moe),
-                    ("moonshot", cfg128)):
+    paths = (("stablelm", cfg), ("granite", cfg_moe), ("moonshot", cfg128),
+             ("zamba2", cfg_z))
+    for path, c in paths:
         new = [main_path_fused(fa, ex, servelib, c, pcfg, dev),
                main_path_decode(fa, c, dev),
                *main_path_bwd(fa, ex, trainlib, c, pcfg, dev)]
@@ -1586,7 +1774,7 @@ def main() -> int:
     # the backward kernels' rates side by side: counted flop (valid pairs
     # only) over each kernel's time, the fused run (3, 4) beside the
     # per-step block (5, 6)
-    for path in ("stablelm", "granite", "moonshot"):
+    for path, _ in paths:
         log(f"phase kernels counted TFLOP/s ({path}): " + ", ".join(
             f"{r['name']} {r['flops'] / r['ms'] / 1e9:.1f}" for r in rows
             if "bwd" in r["name"] and r["path"] == path))
@@ -1597,17 +1785,21 @@ def main() -> int:
                        bucket_min=64)
     served = {}
     for tag, c, depth in (("stablelm", cfg, None), ("granite", cfg_moe, None),
-                          ("moonshot", cfg128, D128_SERVE_LAYERS)):
+                          ("moonshot", cfg128, D128_SERVE_LAYERS),
+                          ("zamba2", cfg_z, None),
+                          ("mamba2", get_config(SSM_ARCH), None)):
         t0 = time.perf_counter()
         served[tag] = serve(fa, c.replace(n_layers=depth or c.n_layers),
                             pcfg, scfg, dev)
         if depth is not None:
             served[tag]["depth_cut"] = (
                 f"{depth} of {c.n_layers} layers: {D128_WHY}")
+        if tag == "zamba2":
+            served[tag]["tokens_kernels_vs_plain"] = serve_tokens(
+                fa, c, pcfg, scfg, dev)
         log(f"phase serve {tag}: ok {time.perf_counter() - t0:.2f}s "
             f"{json.dumps(served[tag])}")
         release()
-    s = served["stablelm"]
 
     t0 = time.perf_counter()
     tr = train(fa, trainlib, dev)
@@ -1615,19 +1807,32 @@ def main() -> int:
     trained = {"stablelm": tr}
     t0 = time.perf_counter()
     trained["granite"] = {"grad_check_4_layers_f32": train_grad_check(
-        trainlib, dev, moe_argv(MOE_ARCH, None, 3))}
+        trainlib, dev, model_argv(MOE_ARCH, None, 3))}
     release()
-    trained["granite"].update(train_moe(
+    trained["granite"].update(train_model(
         fa, trainlib, dev, MOE_ARCH, 3, None, "the full depth, no cut"))
     trained["granite"]["moe_breakdown"] = moe_breakdown(
         dev, MOE_ARCH, trained["granite"]["n_layers"])
     log(f"phase train granite: ok {time.perf_counter() - t0:.2f}s "
         f"{json.dumps(trained['granite'])}")
     t0 = time.perf_counter()
-    trained["moonshot"] = train_moe(
+    trained["moonshot"] = train_model(
         fa, trainlib, dev, D128_ARCH, 2, D128_TRAIN_LAYERS, D128_WHY)
     log(f"phase train moonshot: ok {time.perf_counter() - t0:.2f}s "
         f"{json.dumps(trained['moonshot'])}")
+    t0 = time.perf_counter()
+    trained["zamba2"] = {
+        f"grad_check_{HYBRID_GRAD_LAYERS}_layers_f32": train_grad_check(
+            trainlib, dev, model_argv(HYBRID_ARCH, None, 3),
+            HYBRID_GRAD_LAYERS)}
+    release()
+    trained["zamba2"].update(train_model(
+        fa, trainlib, dev, HYBRID_ARCH, 3, None, "the full depth, no cut"))
+    trained["zamba2"]["ssm_breakdown"] = ssm_breakdown(
+        dev, HYBRID_ARCH, cfg_z.n_layers,
+        served["zamba2"]["first_batch_bucket"])
+    log(f"phase train zamba2: ok {time.perf_counter() - t0:.2f}s "
+        f"{json.dumps(trained['zamba2'])}")
 
     # launches: each kernel's count over the main path that runs it (the
     # row's phase) of the model whose shapes it was timed at (the row's

@@ -211,44 +211,58 @@ __device__ __forceinline__ int b_cols_off(int row0, int col0, int ld,
 // tile as at D = 64, so every descriptor is a D = 64 one: a K-major k16
 // step past column 64 moves to the second half (kstep_off), and an N =
 // 128 product is two m64n64 products, one per half (wgmma_nd).
+//
+// A D = 80 row (160 B, zamba2's heads) is no whole number of swizzle
+// atoms, so it lies in a D = 128 tile (kTileD): columns [0, 64) in the
+// first half, [64, 80) at the start of the second.  Copies and stores
+// touch the 80 columns only.  A product over D as its depth (S^T, dP^T)
+// takes the 5 k16 steps of the real columns; one with D as its N (dV,
+// dK) runs the whole second half, and its accumulators of columns 80 ..
+// 127, which read only never-written tile columns, are never stored.
+// That costs 1.6x the dV / dK products of a 5-step tile: a simple layout
+// first (a narrower second swizzle would cut it).
 
-// columns of one swizzled part of a tile: D, or 64 for D = 128
+// the width of the swizzled tile that holds a row of D elements
 template <int D>
-constexpr int kSwzCols = D < 64 ? D : 64;
+constexpr int kTileD = D == 80 ? 128 : D;
 
-template <int D>
+// columns of one swizzled part of a tile of width W: W, or 64 for W = 128
+template <int W>
+constexpr int kSwzCols = W < 64 ? W : 64;
+
+template <int W>
 __device__ __forceinline__ int swz(int r) {
-  static_assert(D == 32 || D == 64 || D == 128,
+  static_assert(W == 32 || W == 64 || W == 128,
                 "rows of 64 or 128 bytes, or two halves of 128");
-  return D == 32 ? ((r >> 1) & 3) : (r & 7);
+  return W == 32 ? ((r >> 1) & 3) : (r & 7);
 }
 
-// byte offset of element (r, c) of a swizzled [kRows, D] bf16 tile
-template <int D>
+// byte offset of element (r, c) of a swizzled [kRows, W] bf16 tile
+template <int W>
 __device__ __forceinline__ int swz_off(int r, int c) {
-  constexpr int kC = kSwzCols<D>;
+  constexpr int kC = kSwzCols<W>;
   return (c / kC) * (kRows * kC * 2) + r * kC * 2 +
-         (((((c % kC) >> 3) ^ swz<D>(r)) << 4) | ((c & 7) * 2));
+         (((((c % kC) >> 3) ^ swz<W>(r)) << 4) | ((c & 7) * 2));
 }
 
 // byte offset of k16 step kd along a K-major row (columns 16 kd ..)
-template <int D>
+template <int W>
 __device__ __forceinline__ int kstep_off(int kd) {
-  return swz_off<D>(0, 16 * kd);
+  return swz_off<W>(0, 16 * kd);
 }
 
 // byte offset of 16 rows further (an MN-major k16 step)
-template <int D>
+template <int W>
 __device__ __forceinline__ int rows_off(int kk) {
-  return kk * 16 * kSwzCols<D> * 2;
+  return kk * 16 * kSwzCols<W> * 2;
 }
 
-template <int D>
+template <int W>
 __device__ __forceinline__ uint64_t gmma_desc(const void* tile) {
   const uint32_t a = smem_u32(tile);
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)((8 * kSwzCols<D> * 2) >> 4) << 32) |
-         ((uint64_t)(D == 32 ? 2 : 1) << 62);
+         ((uint64_t)((8 * kSwzCols<W> * 2) >> 4) << 32) |
+         ((uint64_t)(W == 32 ? 2 : 1) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -337,28 +351,28 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(acc));
 }
 
-// d += a . B with N = D (the dk / dv products), B the swizzled tile at
-// `tile`; D = 128: one m64n64 product per column half, the first half's
-// accumulators in d[0, 32), the second's in d[32, 64) (the m64n128
-// accumulator order)
-template <int D, int kTrans>
-__device__ __forceinline__ void wgmma_nd(float (&d)[D / 2],
+// d += a . B with N = W (the dk / dv products), B the swizzled tile of
+// width W at `tile`; W = 128: one m64n64 product per column half, the
+// first half's accumulators in d[0, 32), the second's in d[32, 64) (the
+// m64n128 accumulator order)
+template <int W, int kTrans>
+__device__ __forceinline__ void wgmma_nd(float (&d)[W / 2],
                                          const uint32_t (&a)[4],
                                          const unsigned char* tile) {
-  if constexpr (D == 128) {
+  if constexpr (W == 128) {
     wgmma_n64<kTrans>(*reinterpret_cast<float(*)[32]>(&d[0]), a,
-                      gmma_desc<D>(tile), 1);
+                      gmma_desc<W>(tile), 1);
     wgmma_n64<kTrans>(*reinterpret_cast<float(*)[32]>(&d[32]), a,
-                      gmma_desc<D>(tile + kRows * 128), 1);
-  } else if constexpr (D == 64) {
-    wgmma_n64<kTrans>(d, a, gmma_desc<D>(tile), 1);
+                      gmma_desc<W>(tile + kRows * 128), 1);
+  } else if constexpr (W == 64) {
+    wgmma_n64<kTrans>(d, a, gmma_desc<W>(tile), 1);
   } else {
-    wgmma_n32<kTrans>(d, a, gmma_desc<D>(tile), 1);
+    wgmma_n32<kTrans>(d, a, gmma_desc<W>(tile), 1);
   }
 }
 
 // cp.async rows [r0, r0 + 64) of a row-major [n, D] bf16 matrix into a
-// swizzled tile; rows >= n are zero-filled
+// swizzled tile of width kTileD<D>; rows >= n are zero-filled
 template <int D>
 __device__ __forceinline__ void stage_swz(unsigned char* dst, const bf16* src,
                                           int r0, int n, int tid) {
@@ -367,7 +381,7 @@ __device__ __forceinline__ void stage_swz(unsigned char* dst, const bf16* src,
   for (int i = tid; i < kRows * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     const bool in = r0 + r < n;
-    cp_async16(dst + swz_off<D>(r, c * 8),
+    cp_async16(dst + swz_off<kTileD<D>>(r, c * 8),
                in ? src + (size_t)(r0 + r) * D + c * 8 : src, in ? 16 : 0);
   }
 }
@@ -464,7 +478,8 @@ __device__ __forceinline__ void stage_tile(T* dst, int ld, const T* src,
   }
 }
 
-// hi / lo swizzled bf16 tiles of a staged f32 [64, D] tile
+// hi / lo swizzled bf16 tiles (width kTileD<D>) of a staged f32 [64, D]
+// tile
 template <int D>
 __device__ __forceinline__ void split_tile_swz(const float* src,
                                                unsigned char* hi,
@@ -476,7 +491,7 @@ __device__ __forceinline__ void split_tile_swz(const float* src,
     uint2 h, l;
     split2(x.x, x.y, h.x, l.x);
     split2(x.z, x.w, h.y, l.y);
-    const int off = swz_off<D>(r, c);
+    const int off = swz_off<kTileD<D>>(r, c);
     *reinterpret_cast<uint2*>(hi + off) = h;
     *reinterpret_cast<uint2*>(lo + off) = l;
   }
@@ -499,7 +514,8 @@ __device__ __forceinline__ void split_tile(const float* src, bf16* hi,
 }
 
 // rows [r0, r0 + 64) of a row-major [n, D] matrix into a swizzled bf16
-// tile (bf16 as it is; f32 split into a hi and a lo tile); rows >= n as 0
+// tile of width kTileD<D> (bf16 as it is; f32 split into a hi and a lo
+// tile); rows >= n as 0
 template <int D>
 __device__ __forceinline__ void fill_swz(unsigned char* hi, unsigned char*,
                                          const bf16* src, int r0, int n,
@@ -510,7 +526,7 @@ __device__ __forceinline__ void fill_swz(unsigned char* hi, unsigned char*,
     const uint4 x = r0 + r < n ? *reinterpret_cast<const uint4*>(
                                      src + (size_t)(r0 + r) * D + c)
                                : make_uint4(0u, 0u, 0u, 0u);
-    *reinterpret_cast<uint4*>(hi + swz_off<D>(r, c)) = x;
+    *reinterpret_cast<uint4*>(hi + swz_off<kTileD<D>>(r, c)) = x;
   }
 }
 
@@ -527,8 +543,9 @@ __device__ __forceinline__ void fill_swz(unsigned char* hi, unsigned char* lo,
     uint2 h, l;
     split2(x.x, x.y, h.x, l.x);
     split2(x.z, x.w, h.y, l.y);
-    *reinterpret_cast<uint2*>(hi + swz_off<D>(r, c)) = h;
-    *reinterpret_cast<uint2*>(lo + swz_off<D>(r, c)) = l;
+    const int off = swz_off<kTileD<D>>(r, c);
+    *reinterpret_cast<uint2*>(hi + off) = h;
+    *reinterpret_cast<uint2*>(lo + off) = l;
   }
 }
 
@@ -638,7 +655,8 @@ __device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
 
 // a warp's 16 x D f32 accumulators to rows row0.. of a row-major [n, D]
 // output in T: D / 8 mma.sync C tiles, or the warp's part of a wgmma
-// m64nD accumulator (the same tiles, flat)
+// m64nW accumulator, W = kTileD<D> (the same tiles, flat; the columns
+// past D are not stored)
 template <typename T, int D>
 __device__ __forceinline__ void store_acc(T* out, const float (&acc)[D / 8][4],
                                           int row0, int n, int lane) {
@@ -653,7 +671,8 @@ __device__ __forceinline__ void store_acc(T* out, const float (&acc)[D / 8][4],
 }
 
 template <typename T, int D>
-__device__ __forceinline__ void store_acc(T* out, const float (&acc)[D / 2],
+__device__ __forceinline__ void store_acc(T* out,
+                                          const float (&acc)[kTileD<D> / 2],
                                           int row0, int n, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int ra = row0 + g, rb = ra + 8;
@@ -1068,27 +1087,28 @@ __device__ __forceinline__ void dkv_issue(
     const unsigned char* v_lo, const unsigned char* qh,
     const unsigned char* ql, const unsigned char* do_hi,
     const unsigned char* do_lo) {
+  constexpr int W = kTileD<D>;         // the k16 steps: D's columns only
   wgmma_fence();
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd) {
-    const int off = kstep_off<D>(kd);
-    const uint64_t ak = gmma_desc<D>(k_hi + off);
-    const uint64_t bq = gmma_desc<D>(qh + off);
+    const int off = kstep_off<W>(kd);
+    const uint64_t ak = gmma_desc<W>(k_hi + off);
+    const uint64_t bq = gmma_desc<W>(qh + off);
     wgmma_ss_n64(s, ak, bq, kd > 0);
     if constexpr (kF32) {
-      wgmma_ss_n64(s, ak, gmma_desc<D>(ql + off), 1);
-      wgmma_ss_n64(s, gmma_desc<D>(k_lo + off), bq, 1);
+      wgmma_ss_n64(s, ak, gmma_desc<W>(ql + off), 1);
+      wgmma_ss_n64(s, gmma_desc<W>(k_lo + off), bq, 1);
     }
   }
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd) {
-    const int off = kstep_off<D>(kd);
-    const uint64_t av = gmma_desc<D>(v_hi + off);
-    const uint64_t bo = gmma_desc<D>(do_hi + off);
+    const int off = kstep_off<W>(kd);
+    const uint64_t av = gmma_desc<W>(v_hi + off);
+    const uint64_t bo = gmma_desc<W>(do_hi + off);
     wgmma_ss_n64(dp, av, bo, kd > 0);
-    wgmma_ss_n64(dp, av, gmma_desc<D>(do_lo + off), 1);
+    wgmma_ss_n64(dp, av, gmma_desc<W>(do_lo + off), 1);
     if constexpr (kF32)
-      wgmma_ss_n64(dp, gmma_desc<D>(v_lo + off), bo, 1);
+      wgmma_ss_n64(dp, gmma_desc<W>(v_lo + off), bo, 1);
   }
   wgmma_commit();
 }
@@ -1097,13 +1117,15 @@ __device__ __forceinline__ void dkv_issue(
 // registers (columns are queries: their stats from `meta`, lse at [0,
 // 64), delta at [64, 128), dlse at [128, 192) when kDlse), packs them as
 // the A fragments of the four k16 steps over the tile's queries, and
-// runs dV += P^T.dO and dK += dS^T.Q (wgmma m64nDk16, A in registers, B
+// runs dV += P^T.dO and dK += dS^T.Q (wgmma m64nWk16, W = kTileD<D>, A in
+// registers, B
 // the same Q and dO tiles read transposed); the products of the first
 // two steps run while the last two are computed.  Returns with every
 // product done.  `bits` as elem_bits<false> lays them out.
 template <bool kFull, bool kF32, bool kDlse, int D>
 __device__ __forceinline__ void dkv_finish(
-    float (&ak)[D / 2], float (&av)[D / 2], float (&s)[32], float (&dp)[32],
+    float (&ak)[kTileD<D> / 2], float (&av)[kTileD<D> / 2], float (&s)[32],
+    float (&dp)[32],
     const unsigned char* qh, const unsigned char* ql,
     const unsigned char* do_hi, const unsigned char* do_lo,
     const float* meta, unsigned bits, float sl2, float scale, int lane) {
@@ -1146,13 +1168,14 @@ __device__ __forceinline__ void dkv_finish(
     wgmma_fence();
 #pragma unroll
     for (int kk = 2 * half; kk < 2 * half + 2; ++kk) {
-      const int off = rows_off<D>(kk);          // 16 query rows further
-      wgmma_nd<D, 1>(av, ph[kk], do_hi + off);
-      wgmma_nd<D, 1>(av, ph[kk], do_lo + off);
-      wgmma_nd<D, 1>(av, pl[kk], do_hi + off);
-      wgmma_nd<D, 1>(ak, dh[kk], qh + off);
-      wgmma_nd<D, 1>(ak, dl[kk], qh + off);
-      if constexpr (kF32) wgmma_nd<D, 1>(ak, dh[kk], ql + off);
+      constexpr int W = kTileD<D>;
+      const int off = rows_off<W>(kk);          // 16 query rows further
+      wgmma_nd<W, 1>(av, ph[kk], do_hi + off);
+      wgmma_nd<W, 1>(av, ph[kk], do_lo + off);
+      wgmma_nd<W, 1>(av, pl[kk], do_hi + off);
+      wgmma_nd<W, 1>(ak, dh[kk], qh + off);
+      wgmma_nd<W, 1>(ak, dl[kk], qh + off);
+      if constexpr (kF32) wgmma_nd<W, 1>(ak, dh[kk], ql + off);
     }
   }
   wgmma_commit();

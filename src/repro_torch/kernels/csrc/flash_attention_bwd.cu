@@ -51,8 +51,9 @@
 // as the A operand of dS.K (FA2's trick): they never touch shared memory.
 //
 // dk/dv (kernel 6): one warpgroup per block.  The block's K and V are
-// 128B- (D = 64; D = 128 as two such tiles, one per 64-column half) or
-// 64B-swizzled (D = 32) bf16 tiles in shared memory,
+// 128B- (D = 64; D = 128 as two such tiles, one per 64-column half; D =
+// 80 in a D = 128 tile, attn_mma.cuh kTileD) or 64B-swizzled (D = 32) bf16
+// tiles in shared memory,
 // read by wgmma through descriptors; each q tile's Q comes through a
 // two-slot cp.async ring in the same layout, and its f32 dO in one bulk
 // copy (cp.async.bulk, completing an mbarrier) that is split into
@@ -90,7 +91,7 @@
 // Layouts (row-major, contiguous, 16-byte aligned): q/do [B, H, Sq, D]
 // (do f32), k/v [B, KH, Sk, D]; seg_q/pos_q [B, Sq], seg_k/pos_k [B, Sk];
 // lse/delta/dlse [B, H, Sq] f32; dq [B, H, Sq, D], dk/dv [B, KH, Sk, D]
-// in the dtype of q/k/v.  D is 32, 64 or 128.
+// in the dtype of q/k/v.  D is 32, 64, 80 or 128.
 
 #include <cstdint>
 
@@ -119,7 +120,7 @@ constexpr int kDqSmem = 2 * 2 * kStageBytes<T, D> +
                         (kIsF32<T> ? 4 * kPlaneBytes<D> : 0);
 
 template <int D>
-constexpr int kSwzTileBytes = kRows * D * 2;
+constexpr int kSwzTileBytes = kRows * kTileD<D> * 2;
 
 // 1024 bytes of alignment slack, the swizzled tiles (6; 8 for f32), the
 // f32 dO tile, two f32 Q slots for f32 q, two lse / delta / dlse slots,
@@ -315,9 +316,10 @@ __global__ void __launch_bounds__(kThreads, kDkvMinBlocks<D>) bwd_dkv_kernel(
 
   if (tid == 0) mbar_init(bar);
   __syncthreads();
-  float ak[D / 2], av[D / 2];       // m64nD accumulators of the warpgroup
+  // m64nW accumulators of the warpgroup, W = kTileD<D>
+  float ak[kTileD<D> / 2], av[kTileD<D> / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) ak[i] = av[i] = 0.f;
+  for (int i = 0; i < kTileD<D> / 2; ++i) ak[i] = av[i] = 0.f;
 
   const float sl2 = scale * kLog2e;
   const Ranges kr = tile_ranges(ksg, kps, k0, Sk, lane);
@@ -498,7 +500,7 @@ Args make_args(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and the outputs share it);
-// D is 32, 64 or 128; q, k, v and dout 16-byte aligned (cp.async).  Each
+// D is 32, 64, 80 or 128; q, k, v and dout 16-byte aligned (cp.async).  Each
 // returns cudaGetLastError() after its launch.
 extern "C" int fcp_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* seg_q,
@@ -516,6 +518,8 @@ extern "C" int fcp_flash_attention_bwd_dq(
   if (dtype == 0 && D == 64) return launch_dq<float, 64>(a, dq);
   if (dtype == 1 && D == 32) return launch_dq<__nv_bfloat16, 32>(a, dq);
   if (dtype == 1 && D == 64) return launch_dq<__nv_bfloat16, 64>(a, dq);
+  if (dtype == 0 && D == 80) return launch_dq<float, 80>(a, dq);
+  if (dtype == 1 && D == 80) return launch_dq<__nv_bfloat16, 80>(a, dq);
   if (dtype == 0 && D == 128) return launch_dq<float, 128>(a, dq);
   if (dtype == 1 && D == 128) return launch_dq<__nv_bfloat16, 128>(a, dq);
   return cudaErrorInvalidValue;
@@ -537,6 +541,8 @@ extern "C" int fcp_flash_attention_bwd_dkv(
   if (dtype == 0 && D == 64) return launch_dkv<float, 64>(a, dk, dv);
   if (dtype == 1 && D == 32) return launch_dkv<__nv_bfloat16, 32>(a, dk, dv);
   if (dtype == 1 && D == 64) return launch_dkv<__nv_bfloat16, 64>(a, dk, dv);
+  if (dtype == 0 && D == 80) return launch_dkv<float, 80>(a, dk, dv);
+  if (dtype == 1 && D == 80) return launch_dkv<__nv_bfloat16, 80>(a, dk, dv);
   if (dtype == 0 && D == 128) return launch_dkv<float, 128>(a, dk, dv);
   if (dtype == 1 && D == 128)
     return launch_dkv<__nv_bfloat16, 128>(a, dk, dv);

@@ -60,7 +60,10 @@
 //
 // At D = 128 (b) keeps its layout; f32 rows of 512 bytes would need 256
 // KB for a split's K and V, so there K and V share one buffer (kOneBuf):
-// V loads once the scores are taken.
+// V loads once the scores are taken.  A key row is spread over a power of
+// two of lanes, 16 bytes each, so a group of lanes stays inside a warp:
+// at D = 80 (160 B in bf16, 320 B in f32) 16 and 32 lanes, of which 10
+// and 20 hold a part of the row and the rest load nothing and add 0.
 //
 // ptxas -v (sm_90a; __launch_bounds__(128, 4) caps (a)'s bf16 builds of D
 // <= 64 at 128 registers, the others at 255): printed by chip_smoke.py's
@@ -281,11 +284,18 @@ __device__ __forceinline__ void load_vec(float (&x)[4], const float* p) {
   x[3] = f.w;
 }
 
+// the lanes of one key row: the power of two at or above its 16-byte
+// pieces
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
 // One block per (split, kv head, batch row).  Its query rows are the
 // group's heads times the Sq rows, r = member * Sq + i, taken RC at a
-// time; a group of kLanes lanes owns one key of a pass, each lane 16
-// bytes of it.  Writes the unnormalized partial (acc, m, l) of every row
-// for this split, l = 0 where the split holds no valid key.
+// time; a group of kLanes lanes owns one key of a pass, each of its first
+// kUsed lanes 16 bytes of it.  Writes the unnormalized partial (acc, m,
+// l) of every row for this split, l = 0 where the split holds no valid
+// key.
 template <typename T, int D, int RC>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
@@ -295,9 +305,10 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     float* __restrict__ ws_ml, int H, int KH, int Sq, int Sk, Strides st,
     float scale, int kind, int window, int chunk) {
   constexpr int kVec = 16 / (int)sizeof(T);    // elements of a 16-byte load
-  constexpr int kLanes = D / kVec;             // lanes of one key row
+  constexpr int kUsed = D / kVec;              // 16-byte pieces of a key row
+  constexpr int kLanes = pow2_at_least(kUsed);  // lanes of one key row
   constexpr int kGroups = kThreads / kLanes;   // keys of one pass
-  static_assert(kLanes <= 32 && 32 % kLanes == 0, "a key row in one warp");
+  static_assert(D % kVec == 0 && kLanes <= 32, "a key row in one warp");
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool kOne = kOneBuf<T, D>;
   T* k_s = reinterpret_cast<T*>(smem);
@@ -340,8 +351,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   auto stage = [&](int half) {
     const T* src = half ? vp : kp;
     T* dst = half ? v_s : k_s;
-    for (int i = tid; i < kSplit * kLanes; i += kThreads) {
-      const int r = i / kLanes, c = (i % kLanes) * kVec;
+    for (int i = tid; i < kSplit * kUsed; i += kThreads) {
+      const int r = i / kUsed, c = (i % kUsed) * kVec;
       if (!live_s[r / kRows]) continue;
       const bool in = k0 + r < Sk;
       cp_async16(dst + r * D + c, in ? src + (k0 + r) * st.ks + c : src,
@@ -354,6 +365,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
 
   const float sl2 = scale * kLog2e;
   const int gi = tid / kLanes, li = tid % kLanes;
+  const bool holds = li < kUsed;      // this lane holds a part of a row
   for (int r0 = 0; r0 < R; r0 += RC) {
     if constexpr (kOne)
       if (r0 > 0) stage(0);           // V holds the buffer: K again
@@ -371,8 +383,10 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
         const int row = r0 + r, i = row % Sq;
         const T* qrow = q + b * st.qb + (kh * group + row / Sq) * st.qh +
                         i * st.qs + li * kVec;
+        if (holds) {
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) qv[r][e] = to_f32(qrow[e]);
+          for (int e = 0; e < kVec; ++e) qv[r][e] = to_f32(qrow[e]);
+        }
         sq[r] = qsg[i];
         pq[r] = qps[i];
       }
@@ -389,8 +403,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
           for (int r = 0; r < nr; ++r) s_s[r * kSplit + kk] = neg_inf();
         continue;
       }
-      float kv[kVec];
-      load_vec(kv, k_s + kk * D + li * kVec);
+      float kv[kVec] = {};
+      if (holds) load_vec(kv, k_s + kk * D + li * kVec);
       const int key = k0 + kk;
       const int sk = key < Sk ? ksg[key] : kPad;
       const int pk = key < Sk ? kps[key] : 0;
@@ -448,8 +462,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
       for (int e = 0; e < kVec; ++e) acc[r][e] = 0.f;
     for (int kk = gi; kk < kSplit; kk += kGroups) {
       if (!live_s[kk / kRows]) continue;
-      float vv[kVec];
-      load_vec(vv, v_s + kk * D + li * kVec);
+      float vv[kVec] = {};
+      if (holds) load_vec(vv, v_s + kk * D + li * kVec);
 #pragma unroll
       for (int r = 0; r < RC; ++r) {
         if (r >= nr) break;
@@ -468,7 +482,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
 #pragma unroll
         for (int off = kLanes; off < 32; off <<= 1)
           x += __shfl_xor_sync(0xffffffffu, x, off);
-        if (lane < kLanes) red[(warp * RC + r) * D + li * kVec + e] = x;
+        if (lane < kLanes && holds)
+          red[(warp * RC + r) * D + li * kVec + e] = x;
       }
     }
     __syncthreads();
@@ -501,9 +516,10 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(
   float M = neg_inf();
   for (int s = 0; s < ns; ++s)
     if (ml[2 * s + 1] > 0.f) M = fmaxf(M, ml[2 * s]);
-  float L = 0.f, acc[D / 32];
+  constexpr int kC = (D + 31) / 32;   // this lane's columns lane + 32 c < D
+  float L = 0.f, acc[kC];
 #pragma unroll
-  for (int c = 0; c < D / 32; ++c) acc[c] = 0.f;
+  for (int c = 0; c < kC; ++c) acc[c] = 0.f;
   for (int s = 0; s < ns; ++s) {
     const float l = ml[2 * s + 1];
     if (!(l > 0.f)) continue;         // an empty split: acc_s is not read
@@ -511,12 +527,14 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(
     L = fmaf(l, w, L);
     const float* p = ws_o + ((size_t)row * ns + s) * D;
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[c] = fmaf(w, p[lane + 32 * c], acc[c]);
+    for (int c = 0; c < kC; ++c)
+      if (lane + 32 * c < D) acc[c] = fmaf(w, p[lane + 32 * c], acc[c]);
   }
   const bool live = L > 0.f;
 #pragma unroll
-  for (int c = 0; c < D / 32; ++c)
-    o[(size_t)row * D + lane + 32 * c] = live ? acc[c] / L : 0.f;
+  for (int c = 0; c < kC; ++c)
+    if (lane + 32 * c < D)
+      o[(size_t)row * D + lane + 32 * c] = live ? acc[c] / L : 0.f;
   if (lane == 0) lse[row] = live ? M * kLn2 + logf(L) : kNegInf;
 }
 
@@ -622,7 +640,7 @@ Args make_args(const void* q, const void* k, const void* v,
 }  // namespace
 
 // (a) tiled.  dtype: 0 = float32, 1 = bfloat16 (q, k and v share it); D is
-// 32, 64 or 128.  Strides are in elements.  Returns cudaGetLastError() after
+// 32, 64, 80 or 128.  Strides are in elements.  Returns cudaGetLastError() after
 // the launch (0 on success).
 extern "C" int fcp_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* seg_q,
@@ -641,6 +659,8 @@ extern "C" int fcp_flash_attention_fwd(
   if (dtype == 0 && D == 64) return launch_tiled<float, 64>(a);
   if (dtype == 1 && D == 32) return launch_tiled<__nv_bfloat16, 32>(a);
   if (dtype == 1 && D == 64) return launch_tiled<__nv_bfloat16, 64>(a);
+  if (dtype == 0 && D == 80) return launch_tiled<float, 80>(a);
+  if (dtype == 1 && D == 80) return launch_tiled<__nv_bfloat16, 80>(a);
   if (dtype == 0 && D == 128) return launch_tiled<float, 128>(a);
   if (dtype == 1 && D == 128) return launch_tiled<__nv_bfloat16, 128>(a);
   return cudaErrorInvalidValue;
@@ -673,6 +693,9 @@ extern "C" int fcp_flash_attention_fwd_decode(
     return decode_rc<__nv_bfloat16, 32>(a, wo, wm, n_split);
   if (dtype == 1 && D == 64)
     return decode_rc<__nv_bfloat16, 64>(a, wo, wm, n_split);
+  if (dtype == 0 && D == 80) return decode_rc<float, 80>(a, wo, wm, n_split);
+  if (dtype == 1 && D == 80)
+    return decode_rc<__nv_bfloat16, 80>(a, wo, wm, n_split);
   if (dtype == 0 && D == 128) return decode_rc<float, 128>(a, wo, wm, n_split);
   if (dtype == 1 && D == 128)
     return decode_rc<__nv_bfloat16, 128>(a, wo, wm, n_split);

@@ -46,7 +46,9 @@
 //
 // At D = 128 the tiles are two 64-column halves (attn_mma.cuh, section
 // wgmma), and the dk and dv accumulators take 128 registers a thread, so
-// the block runs alone on its SM (kMinBlocks).
+// the block runs alone on its SM (kMinBlocks).  A D = 80 row lies in such
+// a tile (kTileD): loads and stores move its 80 columns, S^T and dP^T
+// take its 5 k16 steps, dV and dK the tile's whole N = 128.
 //
 // ptxas -v (sm_90a; __launch_bounds__(128, 3) caps D <= 64 at 168, (128,
 // 1) D = 128 at 255), registers a thread and spill stores / loads in
@@ -73,7 +75,7 @@ template <typename T>
 constexpr bool kIsF32 = std::is_same<T, float>::value;
 
 template <int D>
-constexpr int kSwzTileBytes = kRows * D * 2;
+constexpr int kSwzTileBytes = kRows * kTileD<D> * 2;
 
 // 1024 bytes of alignment slack, the swizzled tiles (6; 8 for f32), the
 // f32 g_o tile, the f32 Q tile for f32 q, two lse / delta slots, two
@@ -149,9 +151,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<D>) fused_dkv_kernel(
   const int pa = ra < bs ? kps[ra] : 0, pb = rb < bs ? kps[rb] : 0;
 
   if (tid == 0) mbar_init(bar);
-  float ak[D / 2], av[D / 2];       // m64nD accumulators of the warpgroup
+  // m64nW accumulators of the warpgroup, W = kTileD<D>
+  float ak[kTileD<D> / 2], av[kTileD<D> / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) ak[i] = av[i] = 0.f;
+  for (int i = 0; i < kTileD<D> / 2; ++i) ak[i] = av[i] = 0.f;
   const float sl2 = scale * kLog2e;
 
   // the segment's (step, member, q tile) triples, j = ((s - lo) * group +
@@ -310,6 +313,7 @@ cudaError_t dispatch_d(int D, const void* qs, const void* kxt,
   switch (D) {
     FCP_CASE(32)
     FCP_CASE(64)
+    FCP_CASE(80)
     FCP_CASE(128)
     default:
       return cudaErrorInvalidValue;

@@ -259,6 +259,7 @@ cudaError_t dispatch_d(int D, const void* qs, const void* kxt,
   switch (D) {
     FCP_CASE(32)
     FCP_CASE(64)
+    FCP_CASE(80)
     FCP_CASE(128)
     default:
       return cudaErrorInvalidValue;

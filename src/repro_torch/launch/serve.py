@@ -1,13 +1,18 @@
 """Serving steps on stacked workers: bucketed FCP prefill and CP decode
-(port of ``repro.launch.serve``; the dense and MoE families).
+(port of ``repro.launch.serve``; the dense, MoE, SSM and hybrid
+families).
 
 * ``build_prefill_step`` — packed-stream forward through FCP attention
   (the fused run kernel), emitting each prompt's last-token logits and
   the KV cache re-laid-out as ``[L, B, S, KH, D]`` (stream order is
-  sequence-major for uniform shapes, so this is a reshape).
+  sequence-major for uniform shapes, so this is a reshape).  Recurrent
+  families (SSM, hybrid) also emit each sequence's final SSM state and
+  conv tail; the hybrid's shared attention runs through FCP, the SSM
+  takes no attention.
 * ``build_decode_step`` — one token for the whole batch against the
   sequence-sharded cache: ``cp_decode_attention`` (the per-step flash
-  kernel at ``Sq = 1``, one launch per layer) + ``cp_cache_update``.
+  kernel at ``Sq = 1``, one launch per layer or shared-block invocation)
+  + ``cp_cache_update``; the SSM family's recurrent step takes neither.
 
 CLI: PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch stablelm_1_6b --smoke --mesh 4x2 --tokens 16
@@ -28,6 +33,7 @@ from ..configs.base import (ModelConfig, ParallelConfig, apply_overrides,
                             get_config, smoke_config)
 from ..core import executor as ex
 from ..models import Model
+from ..models.registry import RECURRENT
 from .train import (build_schedule, make_fcp_attn_fn,  # noqa: F401
                     param_dtype_bytes)
 
@@ -71,15 +77,31 @@ def build_decode_step(model: Model, mesh, kind: str, impl: str = "fused"):
 # prefill
 # --------------------------------------------------------------------------
 
-def build_prefill_step(model: Model, attn_fn: Callable, batch_size: int,
-                       seq_len: int, ragged: bool = False):
+def build_prefill_step(model: Model, attn_fn: Callable | None,
+                       batch_size: int, seq_len: int, ragged: bool = False):
     """Returns ``prefill_step(params, batch) -> (last_logits, cache)``.
 
-    With ``ragged=True`` the step is ``prefill_step(params, batch,
-    last_idx)``: each sequence's logits are taken at its true last-token
-    index, so right-padded prompts prefill exactly (under a causal mask
-    real tokens never attend the padding; the padded cache tail is
-    masked at decode time).  Only the gathered rows are unembedded."""
+    With ``ragged=True`` (attention families only) the step is
+    ``prefill_step(params, batch, last_idx)``: each sequence's logits
+    are taken at its true last-token index, so right-padded prompts
+    prefill exactly (under a causal mask real tokens never attend the
+    padding; the padded cache tail is masked at decode time).  Only the
+    gathered rows are unembedded.  Recurrent families cannot pad up
+    exactly (the state scans the padding), so they refuse ``ragged`` and
+    chunk instead (``runtime/serving.py``)."""
+    cfg = model.cfg
+    if ragged and cfg.family in RECURRENT:
+        raise ValueError(
+            f"ragged prefill is exact only for attention families; "
+            f"{cfg.family!r} states would scan the padding — chunk the "
+            f"prompt instead (round down to a bucket edge and "
+            f"teacher-force the tail)")
+    if cfg.family in RECURRENT:
+        def recurrent_step(params, batch):
+            return model.forward_prefill(params, batch, attn_fn,
+                                         batch_size=batch_size,
+                                         seq_len=seq_len)
+        return recurrent_step
 
     def step(params, batch, last_idx):
         x, ks, vs = model.forward_prefill(params, batch, attn_fn,
@@ -120,8 +142,9 @@ def main(argv=None):
     p.add_argument("--arch", required=True,
                    help="a config of repro_torch/configs of a ported "
                         "family: dense (stablelm_1_6b, codeqwen1_5_7b, "
-                        "llama3_70b, qwen1_5_32b/110b) or MoE "
-                        "(granite_moe_3b_a800m, moonshot_v1_16b_a3b)")
+                        "llama3_70b, qwen1_5_32b/110b), MoE "
+                        "(granite_moe_3b_a800m, moonshot_v1_16b_a3b), SSM "
+                        "(mamba2_130m) or hybrid (zamba2_2_7b)")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--mesh", default="1x1")
     p.add_argument("--cache-len", type=int, default=512)

@@ -1,5 +1,7 @@
 """Training step assembly + CLI entry point on stacked workers (port of
-``repro.launch.train``; the dense and MoE families).
+``repro.launch.train``; the dense, MoE, SSM and hybrid families: the
+hybrid's shared attention block takes one FCP closure, every invocation
+on the same plan; the SSM family plans no attention).
 
 ``build_train_step`` wires: FCP schedule -> attention closure over the
 stacked-worker executor -> model loss -> gradients (``torch.autograd``
@@ -253,11 +255,11 @@ class Trainer:
     def step_fn(self, b: Batch, prefetch: bool = True):
         """The step function of batch ``b``'s plan (planned, or taken
         from the cache); prefetches the next batch's plan when
-        ``prefetch``."""
+        ``prefetch``.  An attention-free model (SSM) plans nothing."""
         scheds: dict[MaskSpec, Schedule] = {}
         keys = []
         nxt = self.loader.peek_seqlens() if prefetch else None
-        for m in self.group_masks:
+        for m in self.group_masks if self.cfg.uses_attention else ():
             key_m, build_m = self._plan_of(b.seqlens, m)
             scheds[m] = self.planner.get(key_m, build_m)
             keys.append(key_m)
@@ -268,7 +270,8 @@ class Trainer:
             attn = route_layers(
                 self.cfg, self.layer_masks, self.group_masks,
                 lambda m: make_fcp_attn_fn(scheds[m], self.device,
-                                           self.pcfg, self.attn_impl))
+                                           self.pcfg, self.attn_impl)
+            ) if self.cfg.uses_attention else None
             self.step_cache[key] = build_train_step(
                 self.model, self.mesh, self.pcfg, self.tcfg, attn)
             while len(self.step_cache) > max(self.pcfg.plan_cache_size, 1):
@@ -314,8 +317,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--arch", required=True,
                    help="a config of repro_torch/configs of a ported "
                         "family: dense (stablelm_1_6b, codeqwen1_5_7b, "
-                        "llama3_70b, qwen1_5_32b/110b) or MoE "
-                        "(granite_moe_3b_a800m, moonshot_v1_16b_a3b)")
+                        "llama3_70b, qwen1_5_32b/110b), MoE "
+                        "(granite_moe_3b_a800m, moonshot_v1_16b_a3b), SSM "
+                        "(mamba2_130m) or hybrid (zamba2_2_7b)")
     p.add_argument("--shape", default=None,
                    help="assigned shape cell (accepted for parity; the "
                         "loop does not read it and warns when it is set)")

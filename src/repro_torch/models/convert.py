@@ -7,8 +7,9 @@ import numpy as np
 import torch
 
 # leaves the reference keeps in f32 whatever ``param_dtype`` is: the MoE
-# router (a bf16 router would choose other experts)
-F32_LEAVES = frozenset({"router"})
+# router (a bf16 router would choose other experts) and the Mamba2 decay,
+# skip and step-bias parameters
+F32_LEAVES = frozenset({"router", "A_log", "D", "dt_bias"})
 
 
 def params_from_numpy(tree, device="cuda", dtype: torch.dtype | None = None,

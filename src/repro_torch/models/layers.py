@@ -16,6 +16,12 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's normalization: RMSNorm(x * silu(z)), the gate in f32."""
+    return rms_norm(x * F.silu(z.to(torch.float32)).to(x.dtype), w, eps)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """Rotary embedding. x: [..., T, H, D]; positions: [..., T]."""
@@ -37,6 +43,15 @@ def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
     h = torch.matmul(x, wi)
     g = torch.matmul(x, wg)
     return torch.matmul(F.silu(g) * h, wo)
+
+
+def maybe_checkpoint(fn, remat, *args):
+    """``fn(*args)``, under a non-reentrant ``torch.utils.checkpoint`` when
+    ``remat`` is set and a gradient flows: the backward keeps only the
+    inputs and recomputes ``fn`` (the reference's ``apply_remat``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def normal(generator: torch.Generator, shape, scale: float,

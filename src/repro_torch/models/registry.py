@@ -1,12 +1,18 @@
-"""Model registry (port of ``repro.models.registry``: the dense and MoE
-families).
+"""Model registry (port of ``repro.models.registry``: the dense, MoE, SSM
+and hybrid families).
 
-``Model(cfg, tp)`` offers ``init``, ``forward``, ``features``,
-``head_fn``, ``loss`` and ``param_count`` (training), ``forward_prefill``,
-``init_cache`` and ``decode_step`` (serving), all with pluggable
-attention, plus the single-device oracles ``dense_attn_fn`` /
-``dense_decode_attn`` / ``dense_cache_update``.  The SSM, hybrid, audio
-and vision-language families are not ported yet and raise.
+``Model(cfg, tp)`` dispatches on ``cfg.family``:
+
+* dense / moe  -> ``transformer.py`` (the MoE FFN via the config)
+* ssm          -> a pure Mamba2 stack (this module; mamba2-130m)
+* hybrid       -> ``hybrid.py`` (zamba2)
+
+It offers ``init``, ``forward``, ``features``, ``head_fn``, ``loss`` and
+``param_count`` (training), ``forward_prefill``, ``init_cache``,
+``decode_step`` and ``unembed`` (serving), all with pluggable attention
+(the SSM family takes none), plus the single-device oracles
+``dense_attn_fn`` / ``dense_decode_attn`` / ``dense_cache_update``.  The
+audio and vision-language families are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -18,10 +24,88 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ref
-from . import layers, transformer
+from . import hybrid, layers, ssm, transformer
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+RECURRENT = ("ssm", "hybrid")
 
+
+# --------------------------------------------------------------------------
+# pure-SSM model (mamba2-130m)
+# --------------------------------------------------------------------------
+
+def _init_ssm_model(cfg: ModelConfig, generator: torch.Generator, device,
+                    tp: int) -> dict:
+    dt = transformer._dt(cfg)
+    vpad = cfg.padded_vocab(tp)
+    # tied embeddings are also the unembedding: scale d^-1/2 keeps the
+    # initial logits O(1)
+    emb_scale = cfg.d_model ** -0.5 if cfg.tie_embeddings else 1.0
+    params = {
+        "embed": layers.normal(generator, (vpad, cfg.d_model), emb_scale,
+                               dt, device),
+        "mamba": ssm.init_mamba_layers(cfg, generator, cfg.n_layers, device,
+                                       tp),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.normal(
+            generator, (cfg.d_model, vpad), cfg.d_model ** -0.5, dt, device)
+    return params
+
+
+def _forward_ssm(params, cfg: ModelConfig, batch: dict, remat=False,
+                 return_features: bool = False) -> torch.Tensor:
+    """The packed stream ``[F, T]`` scanned as one sequence (resets at
+    document starts); ``remat`` recomputes each layer in the backward."""
+    f, t = batch["tokens"].shape
+    x = params["embed"][batch["tokens"].long()].reshape(1, f * t, -1)
+    pos = batch["positions"].reshape(1, f * t)
+    names = sorted(params["mamba"])
+
+    def one(x, *ws):
+        return ssm.mamba_block(x, dict(zip(names, ws)), cfg, pos)
+    for i in range(cfg.n_layers):
+        x = layers.maybe_checkpoint(one, remat, x,
+                                    *[params["mamba"][n][i] for n in names])
+    x = x.reshape(f, t, -1)
+    return x if return_features else transformer.unembed(params, cfg, x)
+
+
+def _prefill_ssm(params, cfg: ModelConfig, batch: dict, batch_size: int,
+                 seq_len: int):
+    """Per-sequence scans of a prefill batch (the reference's ``vmap`` in
+    ``launch/serve.py``): the logits of each sequence's last token and
+    every layer's final state and conv tail."""
+    x = params["embed"][batch["tokens"].long()]
+    xb = x.reshape(batch_size, seq_len, cfg.d_model)
+    pos_b = batch["positions"].reshape(batch_size, seq_len)
+    states, convs = [], []
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in params["mamba"].items()}
+        xb, (st, cv) = ssm.mamba_block(xb, lp, cfg, pos_b,
+                                       return_state=True)
+        states.append(st)
+        convs.append(cv)
+    logits = transformer.unembed(params, cfg, xb[:, -1])
+    return logits, {"state": torch.stack(states), "conv": torch.stack(convs)}
+
+
+def _decode_ssm(params, cfg: ModelConfig, tokens, pos, cache):
+    """One recurrent step of every layer; the cache is written in place."""
+    x = params["embed"][tokens.long()]
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in params["mamba"].items()}
+        x, st, cv = ssm.mamba_decode_step(x, lp, cache["state"][i],
+                                          cache["conv"][i], cfg)
+        cache["state"][i] = st
+        cache["conv"][i] = cv
+    return transformer.unembed(params, cfg, x), cache
+
+
+# --------------------------------------------------------------------------
+# registry
+# --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class Model:
@@ -35,21 +119,34 @@ class Model:
                 f"{', '.join(PORTED_FAMILIES)})")
 
     def init(self, generator: torch.Generator, device="cuda") -> dict:
+        if self.cfg.family == "ssm":
+            return _init_ssm_model(self.cfg, generator, device, self.tp)
+        if self.cfg.family == "hybrid":
+            return hybrid.init_params(self.cfg, generator, device, self.tp)
         return transformer.init_params(self.cfg, generator, device,
                                        self.tp)
 
+    def _stack(self, params, batch, attn_fn, remat, return_features):
+        if self.cfg.family == "ssm":
+            return _forward_ssm(params, self.cfg, batch, remat,
+                                return_features)
+        if self.cfg.family == "hybrid":
+            return hybrid.forward(params, self.cfg, batch, attn_fn, remat,
+                                  return_features)
+        return transformer.forward(params, self.cfg, batch, attn_fn, remat,
+                                   return_features)
+
     def forward(self, params, batch: dict, attn_fn=None,
                 remat=False) -> torch.Tensor:
-        return transformer.forward(params, self.cfg, batch, attn_fn, remat)
+        return self._stack(params, batch, attn_fn, remat, False)
 
     def features(self, params, batch: dict, attn_fn=None, remat=False):
         """Pre-unembed hidden states (chunked-loss path)."""
-        return transformer.forward(params, self.cfg, batch, attn_fn, remat,
-                                   return_features=True)
+        return self._stack(params, batch, attn_fn, remat, True)
 
     def head_fn(self, params):
         """Chunk-applicable unembedding (norm + lm head)."""
-        return lambda x: transformer.unembed(params, self.cfg, x)
+        return lambda x: self.unembed(params, x)
 
     def loss(self, params, batch: dict, attn_fn=None, remat=False,
              chunked: bool = False, chunk: int = 4096) -> torch.Tensor:
@@ -70,16 +167,40 @@ class Model:
         return count(params)
 
     def forward_prefill(self, params, batch: dict, attn_fn: Callable,
-                        return_features: bool = False):
+                        return_features: bool = False,
+                        batch_size: int | None = None,
+                        seq_len: int | None = None):
+        """Attention families: ``(logits or features [F, T, ...], k, v)``
+        with every layer's roped K/V ``[L, F, T, KH, Dh]``.  Recurrent
+        families (``batch_size`` sequences of ``seq_len``): ``(last-token
+        logits [batch_size, V], cache)``, the cache in the layout of
+        :meth:`init_cache` with ``batch_size`` rows."""
+        if self.cfg.family == "ssm":
+            return _prefill_ssm(params, self.cfg, batch, batch_size,
+                                seq_len)
+        if self.cfg.family == "hybrid":
+            return hybrid.forward_prefill(params, self.cfg, batch, attn_fn,
+                                          batch_size, seq_len)
         return transformer.forward_prefill(params, self.cfg, batch,
                                            attn_fn, return_features)
 
     def init_cache(self, batch: int, seq_len: int, device="cuda") -> dict:
+        if self.cfg.family == "ssm":
+            return ssm.init_ssm_cache(self.cfg, self.cfg.n_layers, batch,
+                                      self.tp, device)
+        if self.cfg.family == "hybrid":
+            return hybrid.init_cache(self.cfg, batch, seq_len, self.tp,
+                                     device)
         return transformer.init_kv_cache(self.cfg, batch, seq_len,
                                          self.tp, device)
 
-    def decode_step(self, params, tokens, pos, cache, decode_attn_fn,
-                    cache_update_fn):
+    def decode_step(self, params, tokens, pos, cache, decode_attn_fn=None,
+                    cache_update_fn=None):
+        if self.cfg.family == "ssm":
+            return _decode_ssm(params, self.cfg, tokens, pos, cache)
+        if self.cfg.family == "hybrid":
+            return hybrid.decode_step(params, self.cfg, tokens, pos, cache,
+                                      decode_attn_fn, cache_update_fn)
         return transformer.decode_step(params, self.cfg, tokens, pos,
                                        cache, decode_attn_fn,
                                        cache_update_fn)

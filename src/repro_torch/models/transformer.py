@@ -24,7 +24,6 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers as L
@@ -151,10 +150,7 @@ def forward(params, cfg: ModelConfig, batch: dict, attn_fn,
 
         def body(x, *ws, fn=fn):
             return _layer_body(x, dict(zip(names, ws)), cfg, pos, fn)
-        if remat and torch.is_grad_enabled():
-            x = checkpoint(body, x, *ws, use_reentrant=False)
-        else:
-            x = body(x, *ws)
+        x = L.maybe_checkpoint(body, remat, x, *ws)
     if return_features:
         return x
     return unembed(params, cfg, x)

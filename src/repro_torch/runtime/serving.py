@@ -1,5 +1,5 @@
 """Continuous-batching FCP serving loop on stacked workers (port of
-``repro.runtime.serving``, attention families).
+``repro.runtime.serving``).
 
 * :class:`RequestQueue` — bounded admission-controlled queue; a request
   that cannot fit the decode cache is rejected up front with the
@@ -10,9 +10,13 @@
   plans once per bucket.  Unlike the reference, the port runs FCP
   prefill on a one-worker mesh too: on the card, prefill always goes
   through the fused run kernel.
-* **Exactness** — pad-up plus the ragged last-index gather is exact
-  under the causal mask; a prompt longer than the budget chunks down and
-  its tail teacher-forces through the decode loop on the device.
+* **Exactness per family** — attention families pad *up* to the edge:
+  the ragged last-index gather is exact under the causal mask, and a
+  prompt longer than the budget chunks down.  Recurrent families (SSM,
+  hybrid) always chunk *down* (the state must not scan padding), and a
+  prompt below the smallest edge skips prefill ("fresh": its slot's
+  cache rows are zeroed).  A chunked prompt's tail teacher-forces
+  through the decode loop on the device.
 * :class:`ServingLoop` — slot-based continuous batching against the
   sequence-sharded cache.  Per-slot state (next token, position,
   tail, generated tokens) lives in device tensors updated in place;
@@ -37,6 +41,7 @@ from ..configs.base import ParallelConfig, ServeConfig
 from ..core import plan_cache as pc
 from ..launch import serve as servelib
 from ..models import Model
+from ..models.registry import RECURRENT
 
 
 class QueueFull(RuntimeError):
@@ -52,8 +57,8 @@ class Request:
     rid: int
     prompt: np.ndarray              # int32 [prompt_len]
     max_new: int
-    bucket: int                     # prefill bucket edge E
-    mode: str                       # "pad" | "chunk"
+    bucket: int                     # prefill bucket edge E (0 = no chunk)
+    mode: str                       # "pad" | "chunk" | "fresh"
     submit_t: float = 0.0
     queue_ms: float = 0.0
     prefill_ms: float = 0.0         # wall of the prefill batch it rode
@@ -154,14 +159,15 @@ class RequestQueue:
         return self._q[0] if self._q else None
 
     def pop_batch(self, limit: int) -> list[Request]:
-        """Up to ``limit`` requests sharing the head request's bucket
-        (FIFO within the bucket)."""
+        """Up to ``limit`` requests sharing the head request's bucket and
+        fresh-ness (FIFO within the bucket)."""
         if not self._q or limit < 1:
             return []
         head = self._q[0]
         out, keep = [], deque()
         for r in self._q:
-            if len(out) < limit and r.bucket == head.bucket:
+            if len(out) < limit and (r.bucket, r.mode == "fresh") == \
+                    (head.bucket, head.mode == "fresh"):
                 out.append(r)
             else:
                 keep.append(r)
@@ -199,16 +205,19 @@ class ServingLoop:
 
     ``device`` defaults to ``"cuda"`` and raises when no card is
     present; prefill and decode run the CUDA kernels (their plain
-    versions on the CPU).  ``run(prompts)`` drives an offline stream end to
-    end; ``submit``/``_refill``/``_dispatch_step`` are the building
+    versions on the CPU).  ``attn_impl`` is the executor impl of both
+    (``"fused_xla"`` runs the plain versions on the card, to hold the
+    kernels against them).  ``run(prompts)`` drives an offline stream end
+    to end; ``submit``/``_refill``/``_dispatch_step`` are the building
     blocks an online server would call.
     """
 
     def __init__(self, model: Model, params, mesh,
                  pcfg: ParallelConfig, scfg: ServeConfig, *,
                  plan_cache: pc.PlanCache | None = None,
-                 device="cuda"):
+                 device="cuda", attn_impl: str = "fused"):
         self.device = resolve_device(device)
+        self.attn_impl = attn_impl
         self.model, self.mesh = model, mesh
         self.pcfg, self.scfg = pcfg, scfg
         cfg = model.cfg
@@ -240,7 +249,7 @@ class ServingLoop:
         # ---- decode side -------------------------------------------------
         B = int(scfg.decode_slots)
         self._decode_step, batch_axis, _ = servelib.build_decode_step(
-            model, mesh, scfg.kind)
+            model, mesh, scfg.kind, attn_impl)
         if batch_axis in axis_sizes and B % axis_sizes[batch_axis]:
             raise ValueError(
                 f"decode_slots {B} must be a multiple of the "
@@ -273,15 +282,21 @@ class ServingLoop:
     # -- admission ---------------------------------------------------------
 
     def bucket_of(self, prompt_len: int) -> tuple[int, str]:
-        """(bucket edge E, mode): pad UP to the smallest covering edge
-        (exact under the causal mask; one prefill call, no tail); a
-        prompt beyond the budget chunks DOWN to the largest edge and
-        teacher-forces the remainder through the decode loop."""
+        """(bucket edge E, mode).  Attention families pad UP to the
+        smallest covering edge (exact under the causal mask; one prefill
+        call, no tail); a prompt beyond the budget chunks DOWN to the
+        largest edge and teacher-forces the remainder through the decode
+        loop.  Recurrent families always chunk down to the largest edge
+        at or below the prompt; a prompt below the smallest edge skips
+        prefill (``(0, "fresh")``)."""
         L = int(prompt_len)
-        for e in self.edges:
-            if L <= e:
-                return e, "pad"
-        return self.edges[-1], "chunk"
+        if self.model.cfg.family not in RECURRENT:
+            for e in self.edges:
+                if L <= e:
+                    return e, "pad"
+            return self.edges[-1], "chunk"
+        down = max((e for e in self.edges if e <= L), default=0)
+        return (down, "chunk") if down else (0, "fresh")
 
     def submit(self, prompt, max_new: int | None = None) -> Request:
         prompt = np.asarray(prompt, np.int32).ravel()
@@ -364,18 +379,27 @@ class ServingLoop:
                 self.model.cfg, pcfg, comp, self.n_cp, self.tpw,
                 mask=True))
 
-    def prefill_fn(self, E: int, impl: str = "fused"):
-        """The ragged prefill step of bucket ``E`` (built once per
-        bucket and impl): ``fn(params, batch, last_idx)``.  ``impl``
-        is the executor's (``"fused_xla"`` holds the kernels against
-        their plain versions)."""
-        sched = self._schedule_for(E)       # per-batch key reuse (stats)
+    def prefill_fn(self, E: int, impl: str | None = None):
+        """The prefill step of bucket ``E`` (built once per bucket and
+        impl): ``fn(params, batch, last_idx)``.  ``impl`` is the
+        executor's (default the loop's ``attn_impl``; ``"fused_xla"``
+        holds the kernels against their plain versions).  Recurrent
+        families prefill chunks, whose last token is the row's last, so
+        their step does not read ``last_idx``; the SSM family plans no
+        attention."""
+        impl = impl or self.attn_impl
+        cfg = self.model.cfg
+        sched = self._schedule_for(E) if cfg.uses_attention else None
         if (E, impl) in self._prefill_fns:
             return self._prefill_fns[(E, impl)]
-        attn = servelib.make_fcp_attn_fn(sched, self.device, self.pcfg, impl)
-        fn = servelib.build_prefill_step(self.model, attn,
-                                         batch_size=self.budget // E,
-                                         seq_len=E, ragged=True)
+        attn = servelib.make_fcp_attn_fn(
+            sched, self.device, self.pcfg, impl) if sched else None
+        ragged = cfg.family not in RECURRENT
+        step = servelib.build_prefill_step(self.model, attn,
+                                           batch_size=self.budget // E,
+                                           seq_len=E, ragged=ragged)
+        fn = step if ragged else (
+            lambda params, batch, last_idx=None: step(params, batch))
         self._prefill_fns[(E, impl)] = fn
         return fn
 
@@ -411,8 +435,28 @@ class ServingLoop:
         tail_row[:tail.shape[0]] = tail
         return E, first_tail, has_tail, tail_row, int(tail.shape[0])
 
+    def _fresh_insert(self, reqs: list[Request], free: list[int]) -> None:
+        """Below the smallest edge (recurrent families): no prefill; the
+        slot's cache rows are zeroed and the whole prompt teacher-forces
+        from position 0."""
+        now = time.perf_counter()
+        for req, slot in zip(reqs, free):
+            for c in self.cache.values():
+                c[:, slot] = 0
+            tail_row = np.zeros((self._tail_cap,), np.int32)
+            tail = req.prompt[1:]
+            tail_row[:tail.shape[0]] = tail
+            self._state_insert(slot, int(req.prompt[0]), 0, 0, 0, tail_row,
+                               int(tail.shape[0]), req.max_new)
+            req.queue_ms = (now - req.submit_t) * 1e3
+            req.insert_t = now
+            self._slots[slot] = _SlotMeta(req, tail_len=int(tail.shape[0]),
+                                          gen0=0)
+
     def _prefill_and_insert(self, reqs: list[Request],
                             free: list[int]) -> None:
+        if reqs[0].mode == "fresh":
+            return self._fresh_insert(reqs, free)
         E = reqs[0].bucket
         fn = self.prefill_fn(E)
         batch, last = self.assemble(E, reqs)
@@ -426,8 +470,10 @@ class ServingLoop:
         first = torch.argmax(plogits, dim=-1).to(torch.int32)
         for i, (req, slot) in enumerate(zip(reqs, free)):
             pos0, ft, ht, tail_row, tl = self._tail_arrays(req, E)
+            # a prefill row into the slot: k/v ``[G, E, KH, D]`` fill the
+            # first E positions, an SSM state or conv tail its whole row
             for k, c in self.cache.items():
-                c[:, slot, :E] = pcache[k][:, i]
+                c[:, slot, :pcache[k].shape[2]] = pcache[k][:, i]
             # first generated token: argmax of the prefill's last-token
             # logits — computed on the device, never synced to the host
             self._state_insert(
@@ -445,7 +491,9 @@ class ServingLoop:
         free = [i for i, m in enumerate(self._slots) if m is None]
         while free and len(self.queue):
             head = self.queue.peek()
-            cap = min(len(free), self.budget // head.bucket)
+            cap = len(free)
+            if head.mode != "fresh":       # one prefill batch has
+                cap = min(cap, self.budget // head.bucket)  # P rows
             reqs = self.queue.pop_batch(limit=cap)
             if not reqs:
                 break
@@ -483,15 +531,18 @@ class ServingLoop:
 
     def warmup(self) -> None:
         """Touch every steady-state path once — one filler request per
-        admissible prefill bucket, with enough generation to run the
-        decode loop — so kernels are built and every bucket is planned
-        before the measured stream; then reset the counters."""
+        admissible prefill bucket (plus the below-minimum "fresh" path of
+        recurrent families), with enough generation to run the decode
+        loop — so kernels are built and every bucket is planned before
+        the measured stream; then reset the counters."""
         mn = min(2, self.scfg.max_new_tokens)
         prompts = []
         for e in self.edges:
             L = min(e, self.scfg.cache_len - mn)
             if L >= 1 and self.bucket_of(L)[0] == e:
                 prompts.append(np.ones((L,), np.int32))
+        if self.model.cfg.family in RECURRENT and self.edges[0] > 1:
+            prompts.append(np.ones((1,), np.int32))   # fresh path
         self.run(prompts, max_new=mn)
         self.reset_counters()
 

@@ -88,8 +88,18 @@ def _fused_inputs(rng, SL=5, H=4, KH=2, bs=128, d=32, EX=6):
 
 @pytest.mark.parametrize("mask", MASKS)
 def test_fused_plain_matches_interpret_kernel(mask):
+    _check_fused_fwd(mask, 32)
+
+
+@pytest.mark.parametrize("mask", ["causal", "chunked:96"])
+def test_fused_plain_matches_interpret_kernel_d80(mask):
+    """Kernel 1 at zamba2's head dim (80: no power of two)."""
+    _check_fused_fwd(mask, 80)
+
+
+def _check_fused_fwd(mask, d):
     rng = np.random.default_rng(11)
-    qs, kxt, vxt, acc_o, acc_lse, tabs = _fused_inputs(rng)
+    qs, kxt, vxt, acc_o, acc_lse, tabs = _fused_inputs(rng, d=d)
     jo, jl = jops.fused_run_attention(
         jnp.asarray(qs), jnp.asarray(kxt), jnp.asarray(vxt),
         jnp.asarray(acc_o), jnp.asarray(acc_lse),
@@ -148,7 +158,7 @@ def test_run_segments():
 # per-step varlen forward (decode kernel at Sq = 1)
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("sq", [128, 1])
 @pytest.mark.parametrize("mask", MASKS)
 def test_flash_plain_matches_interpret_kernel(mask, sq, d):
@@ -263,7 +273,7 @@ def _bwd_order(tabs):
                 k_seg_b=tabs["k_seg"][order], k_pos_b=tabs["k_pos"][order])
 
 
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 80, 128])
 @pytest.mark.parametrize("mask", ["causal", "swa:40"])
 def test_fused_bwd_plain_matches_interpret_kernels(mask, d):
     """Kernels 3 and 4 (plain versions) against ``fused_flash_bwd_dq`` /
@@ -307,7 +317,7 @@ def test_fused_bwd_plain_matches_interpret_kernels(mask, d):
     assert tfa.fused_flash_bwd_dkv.launches == 0
 
 
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 80, 128])
 @pytest.mark.parametrize("mask", ["chunked:48", "full"])
 def test_flash_bwd_plain_matches_interpret_kernel(mask, d):
     """Kernels 5 and 6 (plain version) against ``flash_attention_bwd`` in
@@ -733,11 +743,11 @@ def test_fused_run_function_matches_jax_grad():
     assert _nerr(tg[4].numpy()[live], np.asarray(jg[4])[live]) <= 1e-5
 
 
-@pytest.mark.parametrize("d", [16, 80])
+@pytest.mark.parametrize("d", [16, 48])
 def test_wrappers_refuse_unbuilt_head_dims(d):
-    """The CUDA kernels are built for ``HEAD_DIMS`` (32, 64, 128): the
-    launch checks of kernels 2-6 refuse another head dim (zamba2's 80,
-    the smoke configs' 16) before any launch, with the message the card
+    """The CUDA kernels are built for ``HEAD_DIMS`` (32, 64, 80, 128):
+    the launch checks of kernels 2-6 refuse another head dim (the smoke
+    configs' 16, or 48) before any launch, with the message the card
     shows."""
     rng = np.random.default_rng(61)
     msg = f"head_dim {d} not in"
@@ -758,7 +768,7 @@ def test_wrappers_refuse_unbuilt_head_dims(d):
             tfa._check_fused(name, tabs["step_q"], tabs["step_kv"],
                              *ins[:3], tabs["q_seg"], tabs["q_pos"],
                              tabs["k_seg"], tabs["k_pos"], *ins[3:])
-    assert 80 not in tfa.HEAD_DIMS and 128 in tfa.HEAD_DIMS
+    assert 80 in tfa.HEAD_DIMS and 128 in tfa.HEAD_DIMS
 
 
 def test_kernel_impl_rejects_unknown():

@@ -142,7 +142,8 @@ def test_ship_backward_reverses_the_permutation(kind):
 # --------------------------------------------------------------------------
 
 @pytest.fixture(scope="module",
-                params=["stablelm_1_6b", "granite_moe_3b_a800m"])
+                params=["stablelm_1_6b", "granite_moe_3b_a800m",
+                        "zamba2_2_7b"])
 def smoke(request):
     jcfg = dataclasses.replace(j_smoke(request.param),
                                param_dtype="float32")
@@ -155,9 +156,10 @@ def smoke(request):
 def test_train_step_matches_jax(smoke):
     """FCP over 4 stacked workers (``fused_xla``, remat on) against the
     reference's jitted train step with dense attention on a 1x1 mesh:
-    same f32 smoke weights, same loader batch, three steps; a dense and an
-    MoE model (the batch's 4 frames are the MoE's routing frames in both
-    packages)."""
+    same f32 smoke weights, same loader batch, three steps; a dense, an
+    MoE (the batch's 4 frames are the MoE's routing frames in both
+    packages) and a hybrid model (zamba2: every shared-block invocation
+    through the one FCP closure)."""
     jcfg, cfg, np_params = smoke
     jparams = jax.tree.map(jnp.asarray, np_params)   # the step donates
     tpw, bs = 128, 32
