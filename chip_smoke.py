@@ -49,15 +49,16 @@ Phases, each reported on its own line:
              Granite-3.0-3B-A800M (MoE, 40 experts top-8, full depth) and
              Moonlight-16B-A3B (MoE, head_dim 128, 4 of 48 layers), whose
              kernel runs take the experts the plain runs chose
-             (``PinnedRoutes``); Zamba2-2.7B (hybrid, head_dim 80, full
-             depth; its f32 tokens kernels vs plain on a short stream,
-             bf16's reported) and Mamba2-130M (SSM, no attention: its
-             prefill held against its recurrent decode).
+             (``PinnedRoutes``); Zamba2-2.7B (hybrid, head_dim 80, 18 of
+             54 layers; its f32 tokens kernels vs plain on a short
+             stream, bf16's reported) and Mamba2-130M (SSM, no
+             attention: its prefill held against its recurrent decode).
 4. train   — (a) full width, 4 layers, f32 weights: every parameter's
              gradient through the kernels against the plain versions,
              for the fused (kernels 1, 3, 4) and the per-step (2, 5, 6)
-             executor, to TOL_TRAIN_F32; (b) the training CLI's main path
-             (``launch.train``: 24 layers, bf16, 4 stacked workers, 8192
+             executor, to TOL_TRAIN_F32; (b) the training CLI's plain loop
+             (``launch.train --no-supervised``, as the earlier PRs'
+             numbers were taken: 24 layers, bf16, 4 stacked workers, 8192
              tokens per step, fused) for 3 steps with the launch counters
              read around them, one more step under the profiler, one
              ``--attn-impl pallas`` step with its counters, a second one
@@ -73,6 +74,32 @@ Phases, each reported on its own line:
              f32 gradients (one shared-attention invocation), 3 fused
              steps, one pallas step, the loss check and where a Mamba2
              layer's time goes (``ssm_breakdown``).
+5. the rest of the training path, StableLM at full width:
+             (a) 4 layers, f32: the executor at StableLM's shapes with
+             the double-buffered round loop on and off (fused and
+             pallas: o and dq bitwise, dk/dv to DKDV_TOL), the side
+             stream's ship kernels of a forward and of a forward and
+             backward (the backward's must land there too), one serving
+             prefill batch (logits bitwise), one train step (loss
+             bitwise, leaves to TOL_OVERLAP_LEAF), and the layer pipeline
+             on and off (loss and leaves to TOL_PIPELINE); (b) full
+             depth, bf16: two steps serial and two with ``--overlap``,
+             one more of each profiled per CUDA stream
+             (``stream_profile``: ship kernels on the side and main
+             streams, the side time under a main-stream kernel; the side
+             count must be > 0), then 3 steps with ``--layer-pipeline``
+             and 3 with ``--layer-pipeline --overlap`` (one more of each
+             profiled: device time, copies, peak), beside the plain step
+             of phase 4; (c) the Supervisor (``launch/drills.py``) at 4
+             layers, f32: the kill drill (worker 1 lost at step 7,
+             checkpoints every 2 steps under build/, at most 2 steps
+             lost, the replay within 1e-6 of an uninterrupted survivor
+             run) and the straggler drill (worker 3 2x slow: demoted
+             within the window and cooldown, its plan key missing once);
+             then the CLI's default command (the Supervisor) for 3
+             full-depth bf16 steps with the counters read around them,
+             and a checkpoint round trip of its 1.6 B bf16 parameters
+             and AdamW state (save and restore seconds, bytes equal).
 
 The line before the card's line is a JSON object with one entry per
 kernel, its StableLM main-path row at the top (kernel 2's at decode) and
@@ -103,9 +130,12 @@ BF16_FLOORS = 2.0           # bf16 weights: at most this many noise floors
 LOSS_NULL_DRAWS = 8         # draws of the train loss's noise floor
 TOL_GRAD = 1e-4             # backward kernels vs plain, max err / max |plain|
 TOL_TRAIN_F32 = 1e-4        # per-leaf train gradients, kernels vs plain
+# the plain loop: the phases held against earlier plain-loop numbers
+# (the CLI's default is the Supervisor, phase 5)
 TRAIN_ARGV = ["--arch", "stablelm_1_6b", "--mesh", "4x1", "--dist",
               "real_world", "--block-size", "512", "--tokens-per-worker",
-              "2048", "--attn-impl", "fused", "--steps", "3"]
+              "2048", "--attn-impl", "fused", "--steps", "3",
+              "--no-supervised"]
 MOE_ARCH = "granite_moe_3b_a800m"   # the MoE model at full width and depth
 D128_ARCH = "moonshot_v1_16b_a3b"   # the MoE model at head_dim 128
 D128_SERVE_LAYERS = 4               # of 48: ~0.57 B parameters a layer
@@ -114,6 +144,10 @@ D128_WHY = ("depth cut for the run's time; the layers kept are at full "
             "width (d 2048, 16 heads of 128, 64 experts top-6, vocab "
             "163840)")
 HYBRID_ARCH = "zamba2_2_7b"         # the hybrid (head_dim 80), full size
+HYBRID_SERVE_LAYERS = 18            # of 54: 3 shared-attention invocations
+HYBRID_WHY = ("depth cut for the run's time (its host-bound decode loop "
+              "took 207 s at 54 layers); the layers kept are at full "
+              "width, every 6th followed by the shared block")
 HYBRID_GRAD_LAYERS = 6              # one shared-attention invocation
 SSM_ARCH = "mamba2_130m"            # the SSM, full size (no attention)
 TOL_SSM_F32 = 1e-4                  # f32 prefill vs recurrent decode logits
@@ -1588,6 +1622,438 @@ def ssm_breakdown(dev, arch: str, n_layers: int, prefill_bucket: int
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 5: the rest of the training path (overlap, layer pipeline,
+# Supervisor, checkpoints)
+# --------------------------------------------------------------------------
+
+DKDV_TOL = 1e-6             # overlap on vs off: dk/dv, normalized (the
+                            # reference's run_overlap_executor.py)
+TOL_OVERLAP_LEAF = 1e-5     # overlap on vs off: weight gradients, which
+                            # sum dk/dv's association-order drift
+TOL_PIPELINE = 1e-6         # layer pipeline vs not: loss and every leaf
+DRILL_LAYERS = 4
+DRILL_TOTAL, DRILL_EVERY = 8, 2
+DRILL_FAIL_STEP, DRILL_FAIL_WORKER, DRILL_FAIL_ROUND = 7, 1, 2
+STRAGGLER_TOTAL, STRAGGLER_WINDOW, STRAGGLER_COOLDOWN = 12, 3, 4
+BUILD = os.path.join(ROOT, "build")
+PATH_KERNELS = {"fused": ("fused_flash_fwd", "fused_flash_bwd_dq",
+                          "fused_flash_bwd_dkv"),
+                "pallas": ("flash_attention_fwd", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv")}
+# ship and copy kernels: the stacked-worker wire is gathers, cats, fills
+# and index copies
+SHIP_NAMES = ("memcpy", "copy", "index", "cat", "fill", "memset", "where",
+              "gather", "scatter")
+
+
+def _nerr(a, b) -> float:
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+
+
+def stream_profile(fn) -> dict:
+    """One call of ``fn`` (after an untimed one) under ``torch.profiler``
+    (device activity only), its trace read per CUDA stream: the main
+    stream is the one the attention kernels run on, every other one is a
+    side stream.  Counts the ship and copy kernels on each, and the share
+    of side-stream time that overlaps a main-stream kernel."""
+    import bisect
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    path = os.path.join(BUILD, "stream_trace.json")
+    os.makedirs(BUILD, exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    streams: dict = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        sid = e.get("args", {}).get("stream", e.get("tid"))
+        a = float(e["ts"])
+        streams.setdefault(sid, []).append((a, a + float(e["dur"]),
+                                            e["name"]))
+    if not streams:
+        raise AssertionError("the profiler recorded no device activity")
+
+    def n_attn(evs):
+        return sum(1 for *_, n in evs if any(k in n for k in ATTN_KERNELS))
+
+    def busy(evs):
+        return sum(b - a for a, b, _ in evs)
+    main = max(streams, key=lambda s: (n_attn(streams[s]),
+                                       busy(streams[s])))
+    union: list = []                       # main-stream busy intervals
+    for a, b, _ in sorted(streams[main]):
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
+    starts = [a for a, _ in union]
+
+    def covered(a, b) -> float:
+        i = max(bisect.bisect_right(starts, a) - 1, 0)
+        got = 0.0
+        while i < len(union) and union[i][0] < b:
+            got += max(0.0, min(b, union[i][1]) - max(a, union[i][0]))
+            i += 1
+        return got
+
+    def ships(evs):
+        return [x for x in evs if any(k in x[2].lower() for k in SHIP_NAMES)]
+    side = [x for s, evs in streams.items() if s != main for x in evs]
+    side_us = busy(side)
+    return {"wall_ms": wall * 1e3,
+            "device_ms": sum(busy(v) for v in streams.values()) / 1e3,
+            "streams": len(streams),
+            "side_kernels": len(side), "side_ship_kernels": len(ships(side)),
+            "side_ms": side_us / 1e3,
+            "main_ship_kernels": len(ships(streams[main])),
+            "main_ship_ms": busy(ships(streams[main])) / 1e3,
+            "side_overlapped_share": (sum(covered(a, b) for a, b, _ in side)
+                                      / side_us if side_us else None)}
+
+
+def overlap_and_pipeline_checks(fa, ex, trainlib, dev) -> dict:
+    """Full width, 4 layers, f32 weights, the first batch of the CLI's
+    stream (plain loop):
+
+    * the executor at StableLM's shapes (q/k/v f32, seed 0), the batch's
+      plan with overlap on and off, fused (kernels 1, 3, 4) and pallas
+      (2, 5, 6): o and dq bitwise, dk/dv within DKDV_TOL;
+    * one FCP prefill batch of the serving loop (2 prompts in the 4096
+      bucket, so KV ships), overlap on and off: logits bitwise;
+    * one fused train step's loss and gradients, overlap on and off: the
+      loss bitwise, every leaf within TOL_OVERLAP_LEAF;
+    * the same with the layer pipeline on and off: the loss and every
+      leaf within TOL_PIPELINE."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ParallelConfig, ServeConfig
+    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.optimizer import adamw
+    from repro_torch.runtime.serving import ServingLoop
+    tr = trainlib.trainer_from_args(trainlib.parse_args(
+        TRAIN_ARGV + ["--override", f"n_layers={DRILL_LAYERS}",
+                      "--override", "param_dtype=float32"]))
+    out: dict = {}
+    try:
+        b = tr.loader.next()
+        batch = trainlib.batch_arrays(b, tr.cfg, dev)
+        mask = tr.group_masks[0]
+        pcfgs = {ov: dataclasses.replace(tr.pcfg, overlap=ov)
+                 for ov in (False, True)}
+        scheds = {ov: trainlib.build_schedule(
+            tr.cfg, pcfgs[ov], b.seqlens, tr.n_cp, tr.tpw, mask=mask)
+            for ov in (False, True)}
+        if not scheds[True].spec.n_rounds:
+            raise AssertionError("the overlap plan ships nothing")
+        out["plan"] = {"rounds": scheds[True].spec.n_rounds,
+                       "ext_slots": {str(ov): scheds[ov].spec.ext_slots
+                                     for ov in scheds}}
+
+        # the executor
+        c = tr.cfg
+        g = torch.Generator(device=dev).manual_seed(0)
+        shape = (tr.n_cp, tr.tpw)
+        q = torch.randn(*shape, c.n_heads, c.head_dim, generator=g,
+                        device=dev)
+        k, v = (torch.randn(*shape, c.n_kv_heads, c.head_dim, generator=g,
+                            device=dev) for _ in range(2))
+        cot = torch.randn(q.shape, generator=g, device=dev)
+        for impl in ("fused", "pallas"):
+            res = {}
+            for ov in (False, True):
+                xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+                reset_counters(fa)
+                o = ex.fcp_attention(*xs, ex.schedule_tables(scheds[ov], dev),
+                                     spec=scheds[ov].spec,
+                                     cfg=ex.ExecConfig(impl=impl))
+                grads = torch.autograd.grad((o * cot).sum(), xs)
+                torch.cuda.synchronize()
+                res[ov] = (o.detach(), grads, read_counters(fa))
+            (o0, g0, _), (o1, g1, n1) = res[False], res[True]
+            errs = [_nerr(a, b_) for a, b_ in zip(g1[1:], g0[1:])]
+            launched = {n: n1[n] for n in PATH_KERNELS[impl]}
+            if not (torch.equal(o0, o1) and torch.equal(g0[0], g1[0])
+                    and max(errs) <= DKDV_TOL and min(launched.values())):
+                raise AssertionError(
+                    f"overlap executor ({impl}): o bitwise "
+                    f"{torch.equal(o0, o1)}, dq bitwise "
+                    f"{torch.equal(g0[0], g1[0])}, dk/dv {errs} (tol "
+                    f"{DKDV_TOL}), launches {n1}")
+            out[f"executor_{impl}"] = {"o_bitwise": True, "dq_bitwise": True,
+                                       "dkdv_err": errs, "launches": launched}
+            del res, o0, o1, g0, g1
+
+        # the backward's ships run on their forward ops' side stream: a
+        # forward and backward puts more ship kernels there than the
+        # forward alone
+        tabs, spec = ex.schedule_tables(scheds[True], dev), scheds[True].spec
+
+        def fwd():
+            with torch.no_grad():
+                ex.fcp_attention(q, k, v, tabs, spec=spec)
+
+        def fwd_bwd():
+            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            o = ex.fcp_attention(*xs, tabs, spec=spec)
+            torch.autograd.grad((o * cot).sum(), xs)
+        sides = {tag: stream_profile(fn) for tag, fn in (("forward", fwd),
+                                                         ("fwd_bwd", fwd_bwd))}
+        if not (0 < sides["forward"]["side_ship_kernels"]
+                < sides["fwd_bwd"]["side_ship_kernels"]):
+            raise AssertionError(f"side-stream ship kernels: forward "
+                                 f"{sides['forward']}, with backward "
+                                 f"{sides['fwd_bwd']}")
+        out["executor_side_stream"] = sides
+
+        # one prefill batch of the serving loop
+        scfg = ServeConfig(cache_len=4096, decode_slots=8, queue_depth=64,
+                           max_new_tokens=2, prefill_tokens_per_worker=2048,
+                           bucket_min=64)
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(1, c.vocab_size, (L,)).astype(np.int32)
+                   for L in (3500, 3900)]
+        logits = {}
+        with torch.no_grad():
+            for ov in (False, True):
+                loop = ServingLoop(
+                    tr.model, tr.state.params, StackedMesh((4, 2)),
+                    ParallelConfig(block_size=512, in_dtype_bytes=4,
+                                   overlap=ov), scfg, device=dev)
+                reqs = [loop.submit(p, max_new=2) for p in prompts]
+                E = reqs[0].bucket
+                pb, last = loop.assemble(E, reqs)
+                spec = loop._schedule_for(E).spec
+                reset_counters(fa)
+                logits[ov] = loop.prefill_fn(E)(tr.state.params, pb,
+                                                last)[0]
+                torch.cuda.synchronize()
+                n = read_counters(fa)["fused_flash_fwd"]
+                del loop
+        if not (spec.overlap and spec.n_rounds and n > 0
+                and torch.equal(logits[False], logits[True])):
+            raise AssertionError(
+                f"prefill batch overlap on vs off: bitwise "
+                f"{torch.equal(logits[False], logits[True])} (max diff "
+                f"{float((logits[False] - logits[True]).abs().max()):.3e}), "
+                f"rounds {spec.n_rounds}, kernel 1 launches {n}")
+        out["prefill_batch"] = {"bucket": E, "rounds": spec.n_rounds,
+                                "logits_bitwise": True,
+                                "fused_flash_fwd_launches": n}
+        del logits
+
+        # the train step: overlap, then the layer pipeline
+        def step(pcfg, sched):
+            attn = trainlib.attention_closures(
+                tr.cfg, pcfg, tr.layer_masks, tr.group_masks,
+                {mask: sched}, dev, "fused")
+            loss, grads = trainlib.value_and_grad(tr.model, pcfg, attn)(
+                tr.state.params, batch)
+            return loss, adamw.tree_leaves(grads)
+        l0, g0 = step(pcfgs[False], scheds[False])
+        l1, g1 = step(pcfgs[True], scheds[True])
+        err = max(_nerr(a, b_) for a, b_ in zip(g1, g0))
+        if not (torch.equal(l0, l1) and err <= TOL_OVERLAP_LEAF):
+            raise AssertionError(
+                f"train step overlap on vs off: loss {float(l1)} vs "
+                f"{float(l0)}, max leaf err {err:.3e} (tol "
+                f"{TOL_OVERLAP_LEAF})")
+        out["train_step_overlap"] = {"loss_bitwise": True,
+                                     "max_leaf_err": err, "loss": float(l0)}
+        del g1
+        lp = dataclasses.replace(tr.pcfg, layer_pipeline=True)
+        l2, g2 = step(lp, scheds[False])
+        err = max(_nerr(a, b_) for a, b_ in zip(g2, g0))
+        lerr = abs(float(l2) / float(l0) - 1)
+        if not (lerr <= TOL_PIPELINE and err <= TOL_PIPELINE):
+            raise AssertionError(
+                f"train step layer pipeline vs not: loss err {lerr:.3e}, "
+                f"max leaf err {err:.3e} (tol {TOL_PIPELINE})")
+        out["train_step_layer_pipeline"] = {"loss_err": lerr,
+                                            "max_leaf_err": err}
+        del g0, g2
+    finally:
+        tr.close()
+    del tr
+    release()
+    return out
+
+
+def overlap_step(fa, trainlib, dev, argv) -> dict:
+    """A full-depth bf16 fused step of the plain loop with ``argv``'s
+    flags: two steps with the counters read around them, then one under
+    ``stream_profile``."""
+    import torch
+    tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters(fa)
+        hist = tr.run(2)
+        launches = read_counters(fa)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = stream_profile(tr.step)
+    finally:
+        tr.close()
+    del tr
+    release()
+    for name in ("fused_flash_fwd", "fused_flash_bwd_dq",
+                 "fused_flash_bwd_dkv"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched ({argv[-1]})")
+    if not all(np.isfinite(r.loss) for r in hist):
+        raise AssertionError("overlap train losses not finite")
+    return {"step_ms": [r.ms for r in hist], "losses": [r.loss for r in hist],
+            "launches": launches, "peak_mem_gib": peak, "profile": prof}
+
+
+def overlap_phase(fa, ex, trainlib, dev) -> dict:
+    out = overlap_and_pipeline_checks(fa, ex, trainlib, dev)
+    log(f"  overlap / layer-pipeline checks: {json.dumps(out)}")
+    out["step_serial"] = overlap_step(fa, trainlib, dev, TRAIN_ARGV)
+    out["step_overlap"] = overlap_step(fa, trainlib, dev,
+                                       TRAIN_ARGV + ["--overlap"])
+    for tag in ("step_serial", "step_overlap"):
+        p = out[tag]["profile"]
+        log(f"  {tag}: device {p['device_ms']:.1f} ms in a "
+            f"{p['wall_ms']:.1f} ms window; ship/copy kernels: side stream "
+            f"{p['side_ship_kernels']} (of {p['side_kernels']}, "
+            f"{p['side_ms']:.1f} ms), main stream {p['main_ship_kernels']} "
+            f"({p['main_ship_ms']:.1f} ms); side time under a main-stream "
+            f"kernel {p['side_overlapped_share']}")
+    if out["step_overlap"]["profile"]["side_ship_kernels"] <= 0:
+        raise AssertionError("no ship kernel ran on a side stream under "
+                             "--overlap")
+    return out
+
+
+def layer_pipeline_phase(fa, trainlib, dev) -> dict:
+    """Three full-depth bf16 fused steps with ``--layer-pipeline``, then
+    with ``--layer-pipeline --overlap`` (each one more profiled)."""
+    return {"layer_pipeline": train_steps(
+                fa, trainlib, dev, TRAIN_ARGV + ["--layer-pipeline"], 3),
+            "layer_pipeline_overlap": train_steps(
+                fa, trainlib, dev,
+                TRAIN_ARGV + ["--layer-pipeline", "--overlap"], 3)}
+
+
+def supervisor_phase(fa, trainlib, dev) -> dict:
+    """StableLM at full width, 4 layers, f32, 4 stacked workers, the
+    CLI's plan settings: the kill drill (worker 1 dies at step 7,
+    checkpoints every 2 steps under build/) and the straggler drill
+    (worker 3 2x slow); then the CLI's default command (the Supervisor)
+    for 3 full-depth bf16 steps with the counters read around them, and
+    a checkpoint round trip of its params and AdamW state."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.configs.base import (ParallelConfig, TrainConfig,
+                                          get_config)
+    from repro_torch.launch import drills
+    from repro_torch.optimizer import adamw
+    root = os.path.join(BUILD, "supervisor")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = get_config("stablelm_1_6b").replace(n_layers=DRILL_LAYERS,
+                                              param_dtype="float32")
+
+    def factory(**pkw):
+        pcfg = ParallelConfig(block_size=512, in_dtype_bytes=4,
+                              checkpoint_every=DRILL_EVERY, **pkw)
+
+        def make(ckpt_dir, **kw):
+            tcfg = TrainConfig(lr=3e-4, warmup_steps=2,
+                               total_steps=DRILL_TOTAL)
+            return trainlib.Supervisor(
+                cfg, pcfg, tcfg, n_workers=4, tokens_per_worker=2048,
+                dist="real_world", checkpoint_dir=ckpt_dir,
+                checkpoint_keep=3, verbose=False, device=dev,
+                attn_impl="fused", **kw)
+        return make
+    out: dict = {}
+    t0 = time.perf_counter()
+    out["kill_drill"] = drills.kill_drill(
+        factory(), root, total=DRILL_TOTAL, fail_step=DRILL_FAIL_STEP,
+        fail_worker=DRILL_FAIL_WORKER, fail_round=DRILL_FAIL_ROUND,
+        every=DRILL_EVERY)
+    out["kill_drill"]["seconds"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    release()
+    t0 = time.perf_counter()
+    out["straggler_drill"] = drills.straggler_drill(
+        factory(health_window=STRAGGLER_WINDOW,
+                demote_cooldown=STRAGGLER_COOLDOWN),
+        total=STRAGGLER_TOTAL, window=STRAGGLER_WINDOW,
+        cooldown=STRAGGLER_COOLDOWN)
+    out["straggler_drill"]["seconds"] = time.perf_counter() - t0
+    release()
+    log(f"  drills: {json.dumps(out)}")
+
+    # the CLI's default command: the Supervisor
+    argv = [x for x in TRAIN_ARGV if x != "--no-supervised"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(fa)
+    sup = trainlib.main(argv)
+    launches = read_counters(fa)
+    if not isinstance(sup, trainlib.Supervisor):
+        raise AssertionError(f"the CLI's default ran {type(sup).__name__}")
+    for name in ("fused_flash_fwd", "fused_flash_bwd_dq",
+                 "fused_flash_bwd_dkv"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched under the "
+                                 f"Supervisor")
+    out["cli_default"] = {
+        "step_ms": [r.ms for r in sup.history],
+        "losses": [r.loss for r in sup.history], "launches": launches,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "summary": {k: v for k, v in sup.summary().items()
+                    if k in ("steps", "n_workers", "compiles", "events")}}
+    if not all(np.isfinite(out["cli_default"]["losses"])):
+        raise AssertionError("Supervisor losses not finite")
+
+    # a checkpoint round trip of the full-width bf16 params + AdamW state
+    tree = {"params": sup.state.params, "opt": sup.state.opt}
+    path = os.path.join(root, "round_trip")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpointer.save(path, tree, extra={"step": 2})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = checkpointer.restore(path, tree)
+    restore_s = time.perf_counter() - t0
+    leaves, got = adamw.tree_leaves(tree["params"]), adamw.tree_leaves(
+        back["params"])
+    for name in ("m", "v"):
+        leaves += adamw.tree_leaves(getattr(tree["opt"], name))
+        got += adamw.tree_leaves(getattr(back["opt"], name))
+    leaves.append(tree["opt"].step)
+    got.append(back["opt"].step)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    same = all(a.dtype == b.dtype and torch.equal(a.detach().cpu(), b)
+               for a, b in zip(leaves, got))
+    shutil.rmtree(root, ignore_errors=True)
+    if not same:
+        raise AssertionError("checkpoint round trip changed a byte")
+    out["checkpoint_round_trip"] = {
+        "bytes": nbytes, "leaves": len(leaves), "save_s": save_s,
+        "restore_s": restore_s, "bytes_equal": True}
+    del sup, tree, back, leaves, got
+    release()
+    return out
+
+
 def release() -> None:
     """Free what a phase left on the card before the next one measures its
     peak: reference cycles first (the serve phase's spied method, a
@@ -1632,12 +2098,17 @@ def profile(fn, n: int) -> dict:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev[e.name] = dev.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(dev.values()) / 1e3 / n
+    # the copies PERF.md counts: device-to-device copies and the index
+    # kernels (gathers, scatters, index_put) of the executor's writes
+    copies = sum(us for name, us in dev.items()
+                 if "Memcpy" in name or "index" in name.lower()) / 1e3 / n
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
     attn = {k: sum(us for name, us in dev.items() if k in name) / 1e3 / n
             for k in ATTN_KERNELS}
     return {"wall_ms": wall * 1e3 / n,
             "device_ms": busy_ms if dev else None,
             "busy_share": busy_ms / (wall * 1e3 / n) if dev else None,
+            "copies_ms": copies if dev else None,
             "attention_kernels_ms": {k: v for k, v in attn.items() if v},
             "top_ms": [[name[:70], us / 1e3 / n] for name, us in top]}
 
@@ -1784,19 +2255,19 @@ def main() -> int:
                        max_new_tokens=32, prefill_tokens_per_worker=2048,
                        bucket_min=64)
     served = {}
-    for tag, c, depth in (("stablelm", cfg, None), ("granite", cfg_moe, None),
-                          ("moonshot", cfg128, D128_SERVE_LAYERS),
-                          ("zamba2", cfg_z, None),
-                          ("mamba2", get_config(SSM_ARCH), None)):
+    for tag, c, depth, why in (
+            ("stablelm", cfg, None, None), ("granite", cfg_moe, None, None),
+            ("moonshot", cfg128, D128_SERVE_LAYERS, D128_WHY),
+            ("zamba2", cfg_z, HYBRID_SERVE_LAYERS, HYBRID_WHY),
+            ("mamba2", get_config(SSM_ARCH), None, None)):
         t0 = time.perf_counter()
-        served[tag] = serve(fa, c.replace(n_layers=depth or c.n_layers),
-                            pcfg, scfg, dev)
+        cut = c.replace(n_layers=depth or c.n_layers)
+        served[tag] = serve(fa, cut, pcfg, scfg, dev)
         if depth is not None:
-            served[tag]["depth_cut"] = (
-                f"{depth} of {c.n_layers} layers: {D128_WHY}")
+            served[tag]["depth_cut"] = f"{depth} of {c.n_layers} layers: {why}"
         if tag == "zamba2":
             served[tag]["tokens_kernels_vs_plain"] = serve_tokens(
-                fa, c, pcfg, scfg, dev)
+                fa, cut, pcfg, scfg, dev)
         log(f"phase serve {tag}: ok {time.perf_counter() - t0:.2f}s "
             f"{json.dumps(served[tag])}")
         release()
@@ -1833,6 +2304,37 @@ def main() -> int:
         served["zamba2"]["first_batch_bucket"])
     log(f"phase train zamba2: ok {time.perf_counter() - t0:.2f}s "
         f"{json.dumps(trained['zamba2'])}")
+
+    # phase 5: the rest of the training path, beside the plain fused
+    # step of the train phase (same call, same card)
+    plain = tr["profile_step"]
+    log(f"phase plain fused step (train phase): step_ms {tr['step_ms']} "
+        f"device_ms {plain['device_ms']} wall_ms {plain['wall_ms']} "
+        f"copies_ms {plain['copies_ms']} peak_mem_gib {tr['peak_mem_gib']}")
+    t0 = time.perf_counter()
+    ov = overlap_phase(fa, ex, trainlib, dev)
+    log(f"phase overlap: ok {time.perf_counter() - t0:.2f}s "
+        f"{json.dumps(ov)}")
+    t0 = time.perf_counter()
+    lp = layer_pipeline_phase(fa, trainlib, dev)
+    for tag, r in lp.items():
+        log(f"  {tag}: step_ms {r['step_ms']} tokens_per_s "
+            f"{r['tokens_per_s']:.1f} device_ms "
+            f"{r['profile_step']['device_ms']} copies_ms "
+            f"{r['profile_step']['copies_ms']} peak_mem_gib "
+            f"{r['peak_mem_gib']:.2f} (plain: device_ms "
+            f"{plain['device_ms']} copies_ms {plain['copies_ms']} "
+            f"tokens_per_s {tr['tokens_per_s']:.1f} peak_mem_gib "
+            f"{tr['peak_mem_gib']:.2f})")
+    log(f"phase layer pipeline: ok {time.perf_counter() - t0:.2f}s "
+        f"{json.dumps(lp)}")
+    t0 = time.perf_counter()
+    sv = supervisor_phase(fa, trainlib, dev)
+    log(f"  supervisor step_ms {sv['cli_default']['step_ms']} (plain loop "
+        f"{tr['step_ms']}); checkpoint round trip "
+        f"{json.dumps(sv['checkpoint_round_trip'])}")
+    log(f"phase supervisor: ok {time.perf_counter() - t0:.2f}s "
+        f"{json.dumps(sv)}")
 
     # launches: each kernel's count over the main path that runs it (the
     # row's phase) of the model whose shapes it was timed at (the row's

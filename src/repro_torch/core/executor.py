@@ -9,9 +9,20 @@ schedule's wire format, differentiable like the reference's).
 * **transparent reshuffle** — (q, k, v) blocks move from the stream
   layout to the schedule layout through the plan's reshuffle rounds (and
   ``o`` moves back through the restore rounds);
-* **serial round loop** — per coalesced round ``r``: ship the round's
-  KV stacks, compute run ``r``, then commit the arrivals into the
-  colored receive slots (consumers of round ``r`` sit in runs ``> r``);
+* **software-pipelined rounds** — the round loop has two modes.
+  Serial (``spec.overlap`` off): per coalesced round ``r`` ship the
+  round's KV stacks, compute run ``r``, then commit the arrivals into
+  the colored receive slots (consumers of round ``r`` sit in runs
+  ``> r``).  Overlap (``spec.overlap`` on, the double-buffered pipeline
+  of paper §5): round ``r+1``'s sends are issued *before* run ``r``'s
+  compute, gathered from a frozen snapshot of the local KV slots (sends
+  only ever read local slots or the zero trash row), and land in the
+  parity-allocated receive slots, so a commit never races a run's
+  reads.  On the card a round's gather, wire encode, ship and decode
+  run on a side CUDA stream: it waits on an event recorded when the
+  snapshot is ready, and the main stream waits on the round's event
+  before the commit.  Under autograd each backward op runs on its
+  forward op's stream, so the backward ships ride the side stream too;
 * **compute runs** — ``ExecConfig.impl`` takes the reference's four
   ``attention_impl`` names:
 
@@ -42,13 +53,16 @@ against a KV cache whose sequence dim is split into shards; the
 per-shard partials merge with a plain reduction over the shard dim (the
 reference's pmax/psum).
 
-Not ported yet (queued in ROADMAP): the software-pipelined round loop
-(``spec.overlap``) and the layer-pipelined ``layout="sched"`` path with
-``fcp_reshuffle``.
+For the layer-pipelined reshuffle, ``fcp_attention(...,
+layout="sched")`` takes q/k/v already in the schedule layout and returns
+o in it (no per-layer Q/K/V reshuffle or O restore), while
+:func:`fcp_reshuffle` moves any per-token tensor (the hidden state)
+between the layouts once per layer group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -191,17 +205,13 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
     q: ``[N, tpw, HQ, D]``; k/v: ``[N, tpw, KH, D]`` in the stream
     layout (frame ``w`` is worker ``w``'s share of the packed stream).
     Returns o (f32, or ``cfg.out_dtype``) in the same layout — the
-    caller never sees the schedule layout (§4.3).  Differentiable in
-    q, k and v.
+    caller never sees the schedule layout (§4.3).  ``layout="sched"`` is
+    the layer-pipelined contract: q/k/v arrive (and o returns) in the
+    schedule layout, the caller having moved the hidden state with
+    :func:`fcp_reshuffle`.  Differentiable in q, k and v.
     """
-    if layout != "stream":
-        raise NotImplementedError(
-            "layout='sched' (the layer-pipelined reshuffle) is not ported "
-            "yet")
-    if spec.overlap:
-        raise NotImplementedError(
-            "the software-pipelined round loop (spec.overlap) is not "
-            "ported yet; plan with overlap=False")
+    if layout not in ("stream", "sched"):
+        raise ValueError(f"unknown layout {layout!r}")
     bs, slots, ext = spec.block_size, spec.slots, spec.ext_slots
     N, tpw, hq, d = q.shape
     kh = k.shape[2]
@@ -226,29 +236,34 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
     q_u, k_u, v_u = frame(q, hq), frame(k, kh), frame(v, kh)
 
     # ---- transparent reshuffle: stream layout -> schedule layout ----------
-    src = t["resh_local_src"]
-    qs = _with_trash(_gather_rows(q_u, src, wk))
-    ks = _with_trash(_gather_rows(k_u, src, wk))
-    vs = _with_trash(_gather_rows(v_u, src, wk))
-    if spec.n_resh_rounds:
-        # senders gather through a trash row: idle lanes ship zeros
-        q_ut, k_ut, v_ut = _with_trash(q_u), _with_trash(k_u), _with_trash(v_u)
-    for r in range(spec.n_resh_rounds):
-        snd = t["resh_send_slot"][:, r]                # [N, S2] payload rows
-        dst = t["resh_dst_slot"][:, r]
-        off = 0
-        for g in spec.resh_rounds[r].groups:
-            idx = snd[:, off:off + g.rows]
-            payload = torch.cat([_gather_rows(q_ut, idx, wk),
-                                 _gather_rows(k_ut, idx, wk),
-                                 _gather_rows(v_ut, idx, wk)], dim=2)
-            recv = ship(payload, g.perm)
-            # one scatter per group (idle rows land on the trash row)
-            at = (wk, dst[:, off:off + g.rows].long())
-            qs = _put(qs, at, recv[:, :, :hq], inplace)
-            ks = _put(ks, at, recv[:, :, hq:hq + kh], inplace)
-            vs = _put(vs, at, recv[:, :, hq + kh:], inplace)
-            off += g.rows
+    if layout == "sched":
+        # layer-pipelined path: the inputs are already schedule-resident
+        qs, ks, vs = _with_trash(q_u), _with_trash(k_u), _with_trash(v_u)
+    else:
+        src = t["resh_local_src"]
+        qs = _with_trash(_gather_rows(q_u, src, wk))
+        ks = _with_trash(_gather_rows(k_u, src, wk))
+        vs = _with_trash(_gather_rows(v_u, src, wk))
+        if spec.n_resh_rounds:
+            # senders gather through a trash row: idle lanes ship zeros
+            q_ut, k_ut, v_ut = (_with_trash(q_u), _with_trash(k_u),
+                                _with_trash(v_u))
+        for r in range(spec.n_resh_rounds):
+            snd = t["resh_send_slot"][:, r]            # [N, S2] payload rows
+            dst = t["resh_dst_slot"][:, r]
+            off = 0
+            for g in spec.resh_rounds[r].groups:
+                idx = snd[:, off:off + g.rows]
+                payload = torch.cat([_gather_rows(q_ut, idx, wk),
+                                     _gather_rows(k_ut, idx, wk),
+                                     _gather_rows(v_ut, idx, wk)], dim=2)
+                recv = ship(payload, g.perm)
+                # one scatter per group (idle rows land on the trash row)
+                at = (wk, dst[:, off:off + g.rows].long())
+                qs = _put(qs, at, recv[:, :, :hq], inplace)
+                ks = _put(ks, at, recv[:, :, hq:hq + kh], inplace)
+                vs = _put(vs, at, recv[:, :, hq + kh:], inplace)
+                off += g.rows
 
     # ---- extended KV buffer (local slots + colored receive slots + trash) -
     zpad = ks.new_zeros((N, ext + 1, kh, bs, d))
@@ -259,22 +274,64 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
     acc_lse = torch.full((N, slots + 1, hq, bs), NEG_INF,
                          dtype=torch.float32, device=q.device)
 
+    overlap = spec.overlap and spec.n_rounds > 0
+    main = side = None
+    if overlap:
+        # immutable send sources: send rows only name LOCAL slots (<
+        # slots) or the trash row, never the receive region the commits
+        # write, so payloads gathered from this snapshot are the bytes
+        # the serial loop gathers from kxt/vxt
+        ksrc = torch.cat([ks[:, :slots], zpad[:, :1]], dim=1)
+        vsrc = torch.cat([vs[:, :slots], zpad[:, :1]], dim=1)
+        if q.is_cuda:
+            main = torch.cuda.current_stream(q.device)
+            side = torch.cuda.Stream(q.device)
+            ready = torch.cuda.Event()
+            ready.record(main)
+            side.wait_event(ready)
+            ksrc.record_stream(side)
+            vsrc.record_stream(side)
+
     def issue(r):
-        # one ship per group; each moves a stack of up to C KV blocks
+        # one ship per group; each moves a stack of up to C KV blocks.
+        # Returns ([(row offset, group, arrival), ...], the round's event)
         snd = t["send_slot"][:, r]                     # [N, S] payload rows
-        out, off = [], 0
-        for g in spec.comm_rounds[r].groups:
-            idx = snd[:, off:off + g.rows]
-            payload = torch.cat([_gather_rows(kxt, idx, wk),
-                                 _gather_rows(vxt, idx, wk)], dim=2)
-            out.append((off, g, ship(payload, g.perm)))
-            off += g.rows
-        return out
+        out, off, ev = [], 0, None
+        with (torch.cuda.stream(side) if side is not None
+              else contextlib.nullcontext()):
+            for g in spec.comm_rounds[r].groups:
+                idx = snd[:, off:off + g.rows]
+                if overlap:
+                    # the trash index (slots + ext) -> the snapshot's zero
+                    # row; -1 padding stays -1 (zeros via _gather_rows)
+                    idx = idx.clamp(max=slots)
+                    payload = torch.cat([_gather_rows(ksrc, idx, wk),
+                                         _gather_rows(vsrc, idx, wk)], dim=2)
+                else:
+                    payload = torch.cat([_gather_rows(kxt, idx, wk),
+                                         _gather_rows(vxt, idx, wk)], dim=2)
+                recv = ship(payload, g.perm)
+                if side is not None:
+                    recv.record_stream(main)
+                out.append((off, g, recv))
+                off += g.rows
+            if side is not None:
+                ev = torch.cuda.Event()
+                ev.record(side)
+        return out, ev
 
     # run r computes between the ship and the arrival commit of round r:
-    # consumers of round r's blocks sit in runs > r (§4.2)
+    # consumers of round r's blocks sit in runs > r (§4.2).  Overlap
+    # runs one round ahead: round 0 is issued in a prologue, iteration r
+    # issues round r+1 BEFORE run r's compute
+    pending = issue(0) if overlap else ([], None)
     for r in range(spec.n_runs):
-        arrivals = issue(r) if r < spec.n_rounds else []
+        if overlap:
+            arrivals = pending if r < spec.n_rounds else ([], None)
+            pending = (issue(r + 1) if r + 1 < spec.n_rounds
+                       else ([], None))
+        else:
+            arrivals = issue(r) if r < spec.n_rounds else ([], None)
         run = t["runs"][r]
         if run is not None and cfg.fused:
             # ONE launch for the whole run, all workers: step tables drive
@@ -293,8 +350,11 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
                     acc_o[w, sq], acc_lse[w, sq], o_p, lse_p)
                 acc_o = _put(acc_o, (w, sq), o_new, inplace)
                 acc_lse = _put(acc_lse, (w, sq), l_new, inplace)
-        dst = t["recv_slot"][:, r] if arrivals else None
-        for off, g, recv in arrivals:
+        arrived, ev = arrivals
+        if ev is not None:
+            main.wait_event(ev)
+        dst = t["recv_slot"][:, r] if arrived else None
+        for off, g, recv in arrived:
             at = (wk, dst[:, off:off + g.rows].long())
             kxt = _put(kxt, at, recv[:, :, :kh], inplace)
             vxt = _put(vxt, at, recv[:, :, kh:], inplace)
@@ -303,6 +363,9 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
     if cfg.out_dtype is not None:
         # cast before the restore ships: halves restore traffic
         acc_o = acc_o.to(getattr(torch, cfg.out_dtype))
+    if layout == "sched":
+        # the caller keeps consuming the schedule layout: no restore
+        return acc_o[:, :slots].permute(0, 1, 3, 2, 4).reshape(N, tpw, hq, d)
     o_u = _with_trash(_gather_rows(acc_o, t["restore_local_src"], wk))
     for r in range(spec.n_resh_rounds):
         snd = t["restore_send_slot"][:, r]
@@ -317,6 +380,49 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
                        inplace)
             off += g.rows
     return o_u[:, :slots].permute(0, 1, 3, 2, 4).reshape(N, tpw, hq, d)
+
+
+def fcp_reshuffle(x: torch.Tensor, tables: dict, *, spec: StaticSpec,
+                  reverse: bool = False) -> torch.Tensor:
+    """Move a per-token tensor between the stream and schedule layouts.
+
+    x: ``[N, tpw, C]`` (any channel count: the hidden state, or the
+    hidden state with the rope positions as one extra f32 channel).
+    Uses the schedule's reshuffle plan (``reverse=False``: stream ->
+    schedule) or its restore plan (``reverse=True``: schedule ->
+    stream), the hidden state riding as one fat head, always on the f32
+    wire (exact).  This is the layer-pipelined reshuffle primitive:
+    move the hidden state once at a layer-group boundary, then run the
+    group's layers with :func:`fcp_attention` ``layout="sched"``.
+    Differentiable: the backward is the reversed move."""
+    bs, slots = spec.block_size, spec.slots
+    N, tpw, C = x.shape
+    if N != spec.n_workers or tpw != slots * bs:
+        raise ValueError(f"x {tuple(x.shape)} does not match the plan "
+                         f"({spec.n_workers} workers x {slots * bs} tokens)")
+    t, wk = tables, tables["workers"]
+    inplace = not (torch.is_grad_enabled() and x.requires_grad)
+    xf = x.reshape(N, slots, 1, bs, C)
+    xt = _with_trash(xf)
+    # mirrors fcp_attention: forward gathers local rows from the stream
+    # frame; restore gathers from the trash-extended schedule frame
+    # (restore_local_src may name the q-trash row)
+    pre = "restore" if reverse else "resh"
+    ys = _with_trash(_gather_rows(xt if reverse else xf,
+                                  t[f"{pre}_local_src"], wk))
+    for r in range(spec.n_resh_rounds):
+        snd = t[f"{pre}_send_slot"][:, r]
+        dst = t[f"{pre}_dst_slot"][:, r]
+        off = 0
+        for g in spec.resh_rounds[r].groups:
+            perm = (tuple((d_, s_) for s_, d_ in g.perm) if reverse
+                    else g.perm)
+            recv = wirelib.ship(_gather_rows(xt, snd[:, off:off + g.rows],
+                                             wk), perm, wirelib.WIRE_F32)
+            ys = _put(ys, (wk, dst[:, off:off + g.rows].long()), recv,
+                      inplace)
+            off += g.rows
+    return ys[:, :slots, 0].reshape(N, tpw, C)
 
 
 def timed_call(fn, *args):

@@ -1,0 +1,150 @@
+"""Fault drills for the :class:`~repro_torch.launch.train.Supervisor` on
+stacked workers: the kill and straggler drills of the reference's
+``tests/multidevice/run_fault_drill.py``, held to its limits.
+
+* **kill drill** — a worker dies mid-step (``InjectedFailure``).  The
+  supervisor replans on the survivors, restores the newest committed
+  checkpoint, replays the deterministic stream and loses at most
+  ``checkpoint_every`` steps; the post-recovery losses and gradient
+  norms match an *uninterrupted* survivor-fleet run restored from the
+  same checkpoint to ``REPLAY_TOL`` normalized.
+* **straggler drill** — one worker reports ``factor``-times-slow step
+  times.  The monitor demotes it within the hysteresis window plus the
+  cooldown, the latched speeds reach the block distributor (the slow
+  worker's modeled compute drops below what uniform placement hands
+  it), and the demoted plan key misses once, then hits.
+
+Each drill takes ``make_sup(checkpoint_dir, **kw) -> Supervisor`` (the
+caller fixes model, widths, device and loader), raises
+``AssertionError`` on a breach and returns what it measured.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import shutil
+
+import numpy as np
+
+from ..core import cost_model as cm
+from ..runtime import elastic
+
+REPLAY_TOL = 1e-6        # post-recovery loss / gnorm, normalized
+
+
+def _check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def kill_drill(make_sup, tmp: pathlib.Path, *, total: int, fail_step: int,
+               fail_worker: int, fail_round: int, every: int) -> dict:
+    d = pathlib.Path(tmp) / "primary"
+    sup = make_sup(d)
+    n0 = sup.n
+    fail = elastic.InjectedFailure(worker=fail_worker, step=fail_step,
+                                   round=fail_round)
+    sup.run(total, fail=fail)
+    _check(len(sup.recoveries) == 1, f"recoveries {sup.recoveries}")
+    rec = sup.recoveries[0]
+    _check(rec["failed_step"] == fail_step and rec["worker"] == fail_worker
+           and rec["n_workers"] == n0 - 1, f"recovery {rec}")
+    # bounded step loss: the newest committed checkpoint is at most
+    # checkpoint_every steps behind the failed step
+    _check(0 <= rec["steps_lost"] <= every,
+           f"lost {rec['steps_lost']} steps > {every}")
+    fails = [e for e in sup.monitor.events if e.kind == "fail"]
+    _check(bool(fails) and fails[0].workers == (fail_worker,),
+           f"fail events {fails}")
+    by_fleet: dict = {}
+    for r in sup.history:
+        by_fleet.setdefault(r.n_workers, []).append(r.step)
+    _check(by_fleet[n0][-1] == fail_step - 1
+           and by_fleet[n0 - 1][-1] == total - 1, f"steps {by_fleet}")
+
+    # reference: an UNINTERRUPTED survivor run restored from the same
+    # checkpoint the recovery used (the only one copied)
+    d2 = pathlib.Path(tmp) / "reference"
+    d2.mkdir(parents=True)
+    src = d / f"step_{rec['resume_step'] - 1}"
+    if src.exists():
+        shutil.copytree(src, d2 / src.name)
+    ref = make_sup(d2, start_fleet=n0 - 1)
+    ref.run(total)
+    want = {r.step: r for r in ref.history}
+    got = {r.step: r for r in sup.history if r.n_workers == n0 - 1}
+    _check(sorted(got) == sorted(want), f"{sorted(got)} vs {sorted(want)}")
+    diffs = []
+    for s in got:
+        diffs.append(abs(got[s].loss - want[s].loss)
+                     / max(abs(want[s].loss), 1e-9))
+        diffs.append(abs(got[s].gnorm - want[s].gnorm)
+                     / max(abs(want[s].gnorm), 1e-9))
+    _check(max(diffs) <= REPLAY_TOL,
+           f"replay diff {max(diffs):.3e} > {REPLAY_TOL}")
+    return {"steps_lost": rec["steps_lost"],
+            "resume_step": rec["resume_step"], "n_workers": rec["n_workers"],
+            "recovery_wall_s": rec["wall_s"], "replay_max_diff": max(diffs),
+            "steps_compared": len(got),
+            "step_ms": [r.ms for r in sup.history]}
+
+
+def modeled_worker_loads(sched, n_q_heads: int, head_dim: int,
+                         speeds=None) -> np.ndarray:
+    """Per-worker modeled compute time of one schedule: cost-model block
+    FLOPs summed by owner, divided by the worker's speed."""
+    costs = cm.block_q_flops(sched.batch, sched.deps, n_q_heads, head_dim,
+                             sched.spec.mask)
+    loads = np.bincount(sched.assignment, weights=costs,
+                        minlength=sched.spec.n_workers).astype(float)
+    if speeds is not None:
+        loads = loads / np.asarray(speeds, float)
+    return loads
+
+
+def straggler_drill(make_sup, *, total: int, window: int, cooldown: int,
+                    worker: int = 3, factor: float = 2.0) -> dict:
+    sup = make_sup(None)
+    n = sup.n
+    sup.run(total, skew={worker: factor})
+    demotes = [e for e in sup.monitor.events if e.kind == "demote"]
+    _check(bool(demotes), f"{factor}x-slow worker was never demoted")
+    first = demotes[0]
+    # demoted within the hysteresis window (+ cooldown slack for the
+    # quantized latch settling)
+    _check(first.step < window + cooldown and worker in first.workers,
+           f"first demotion {first}")
+    speeds = sup.monitor.planning_speeds()
+    _check(speeds is not None and speeds[worker] <= 0.6,
+           f"latched speeds {speeds}")
+
+    # the latched speeds reached assign_blocks: the slow worker's
+    # modeled compute drops well below what uniform placement gives it
+    sched = next(iter(sup.last_scheds.values()))
+    nh, _, hd = sup._heads
+    uniform = elastic.replan(
+        sched.batch.seqlens, n, sup.pcfg.block_size, n_q_heads=nh,
+        n_kv_heads=sup._heads[1], head_dim=hd, mask=sched.spec.mask,
+        pcfg=sup.pcfg, verify=False)
+    loads = modeled_worker_loads(sched, nh, hd)
+    loads_uni = modeled_worker_loads(uniform, nh, hd)
+    _check(loads[worker] < 0.9 * loads_uni[worker],
+           f"loads {loads} vs uniform {loads_uni}")
+    real = np.ones(n)
+    real[worker] = 1.0 / factor
+    t_uni, t_dem = (loads_uni / real).max(), (loads / real).max()
+    _check(t_dem < t_uni, f"modeled step {t_dem} !< uniform {t_uni}")
+
+    # plan-cache discipline: latched speeds mint one new key per
+    # (composition, speed latch) — they miss once, then re-hit
+    s = sup.plan_cache.stats
+    n_comps = len({tuple(c) for c in sup.loader.compositions})
+    n_latches = 1 + len(demotes)
+    _check(s.misses <= n_comps * n_latches * len(sup.group_masks)
+           and s.hits + s.misses >= total
+           and s.hits >= total - s.misses, f"plan cache {s.to_dict()}")
+    return {"demoted_at": first.step, "speeds": list(speeds),
+            "slow_worker_load_vs_uniform": loads[worker] / loads_uni[worker],
+            "modeled_step_ratio": t_dem / t_uni,
+            "plan_cache": s.to_dict(),
+            "step_ms": [r.ms for r in sup.history]}

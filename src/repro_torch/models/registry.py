@@ -116,7 +116,7 @@ class Model:
         if self.cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"family {self.cfg.family!r} is not ported yet (ported: "
-                f"{', '.join(PORTED_FAMILIES)})")
+                f"{', '.join(PORTED_FAMILIES)}; ROADMAP Queue A item 5)")
 
     def init(self, generator: torch.Generator, device="cuda") -> dict:
         if self.cfg.family == "ssm":

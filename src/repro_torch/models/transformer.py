@@ -122,8 +122,13 @@ def forward(params, cfg: ModelConfig, batch: dict, attn_fn,
 
     ``attn_fn`` is one callable shared by every layer, or a per-layer
     sequence (models that interleave mask families route each layer
-    through its mask group's schedule).  The layer-pipelined entries of
-    the reference (``enter``/``exit``) are not ported and raise.
+    through its mask group's schedule).  A per-layer entry may carry the
+    layer-pipelined reshuffle protocol (``launch.train.PipelinedAttn``):
+    ``enter(x, pos) -> (x', pos')`` moves the hidden state (and rope
+    positions) into the entry's layout before a group's first layer,
+    ``exit(x) -> x`` moves it back after its last, and ``attn`` is the
+    attention callable (the entry itself when absent).  Layers in
+    between run with the moved positions.
 
     ``remat`` (``False`` | ``True`` | ``"dots"`` | ``"nothing"``) wraps
     each layer in a non-reentrant ``torch.utils.checkpoint``: the
@@ -138,19 +143,22 @@ def forward(params, cfg: ModelConfig, batch: dict, attn_fn,
     if len(fns) != cfg.n_layers:
         raise ValueError(f"per-layer attn_fn sequence has {len(fns)} "
                          f"entries for {cfg.n_layers} layers")
-    if any(hasattr(fn, "enter") or hasattr(fn, "exit") for fn in fns):
-        raise NotImplementedError(
-            "the layer-pipelined reshuffle (enter/exit entries) is not "
-            "ported yet")
     x = embed_tokens(params, cfg, batch)
-    pos = batch["positions"]
+    pos = cur_pos = batch["positions"]
     names = sorted(params["layers"])
     for i, fn in enumerate(fns):
         ws = [params["layers"][n][i] for n in names]
+        enter = getattr(fn, "enter", None)
+        if enter is not None:
+            x, cur_pos = enter(x, pos)
 
-        def body(x, *ws, fn=fn):
+        def body(x, *ws, fn=getattr(fn, "attn", fn), pos=cur_pos):
             return _layer_body(x, dict(zip(names, ws)), cfg, pos, fn)
         x = L.maybe_checkpoint(body, remat, x, *ws)
+        exit_fn = getattr(fn, "exit", None)
+        if exit_fn is not None:
+            x = exit_fn(x)
+            cur_pos = pos
     if return_features:
         return x
     return unembed(params, cfg, x)

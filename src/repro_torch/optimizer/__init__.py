@@ -1,1 +1,1 @@
-from . import adamw, schedules
+from . import adamw, grad_accum, schedules

@@ -223,7 +223,8 @@ class ServingLoop:
         cfg = model.cfg
         axis_sizes = dict(mesh.shape)
         if axis_sizes.get("pod", 1) > 1:
-            raise ValueError("pod meshes are not ported yet")
+            raise ValueError("pod meshes are not ported yet (ROADMAP Queue A "
+                             "item 7)")
         self.n_cp = axis_sizes.get("data", 1)
         self.tpw = int(scfg.prefill_tokens_per_worker)
         self.budget = self.n_cp * self.tpw
@@ -232,7 +233,7 @@ class ServingLoop:
             # card, prefill always goes through the fused run kernel
             raise NotImplementedError(
                 f"prefill_impl {scfg.prefill_impl!r} is not ported; "
-                f"only 'fcp' is")
+                f"only 'fcp' is (ROADMAP Queue A item 5)")
         if self.tpw % pcfg.block_size:
             raise ValueError(
                 f"prefill_tokens_per_worker {self.tpw} must be a "

@@ -84,13 +84,18 @@ def test_out_dtype_and_plain_impl():
 
 
 def test_unported_paths_raise():
+    """The double-buffered round loop and the sched layout, once
+    refused, run (their parity is ``tests/test_torch_overlap.py``); a
+    layout the executor does not know raises."""
     sched = make_schedule(SEQLENS, N, TPW, BS, overlap=True)
-    x = torch.zeros(N, TPW, 2, 8)
-    with pytest.raises(NotImplementedError, match="overlap"):
-        ex.fcp_attention(x, x, x, ex.schedule_tables(sched, "cpu"),
-                         spec=sched.spec)
-    with pytest.raises(NotImplementedError, match="sched"):
-        ex.fcp_attention(x, x, x, {}, spec=sched.spec, layout="sched")
+    assert sched.spec.overlap and sched.spec.n_rounds > 0
+    tabs = ex.schedule_tables(sched, "cpu")
+    x = torch.ones(N, TPW, 2, 8)
+    for layout in ("stream", "sched"):
+        o = ex.fcp_attention(x, x, x, tabs, spec=sched.spec, layout=layout)
+        assert o.shape == x.shape and torch.isfinite(o).all()
+    with pytest.raises(ValueError, match="layout"):
+        ex.fcp_attention(x, x, x, tabs, spec=sched.spec, layout="user")
 
 
 @pytest.mark.parametrize("n_shards", [1, 2])

@@ -62,7 +62,9 @@ def test_prefill_keys_and_buckets_equal(edge):
 HOST_COPIES = ["masks.py", "core/blocks.py", "core/cost_model.py",
                "core/distributor.py", "core/planner.py", "core/schedule.py",
                "core/plan_cache.py", "analysis/verifier.py",
-               "data/loader.py", "data/distributions.py"]
+               "data/loader.py", "data/distributions.py",
+               "checkpoint/manager.py", "checkpoint/__init__.py",
+               "runtime/elastic.py", "runtime/health.py"]
 
 
 @pytest.mark.parametrize("path", HOST_COPIES)

@@ -15,6 +15,7 @@ first step is a sign of the gradient and near-zero entries flip it);
 optimizer, schedule, compression and losses 1e-6."""
 
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -141,27 +142,38 @@ def test_ship_backward_reverses_the_permutation(kind):
 # train step against the JAX train step
 # --------------------------------------------------------------------------
 
-@pytest.fixture(scope="module",
-                params=["stablelm_1_6b", "granite_moe_3b_a800m",
-                        "zamba2_2_7b"])
+# a model, or a model and the executor variant of its step: the double-
+# buffered round loop (overlap) or the layer-pipelined reshuffle
+STEP_CASES = ["stablelm_1_6b", "granite_moe_3b_a800m", "zamba2_2_7b",
+              "stablelm_1_6b:overlap", "granite_moe_3b_a800m:overlap",
+              "stablelm_1_6b:layer_pipeline"]
+
+
+@pytest.fixture(scope="module")
+def jax_steps():
+    """The reference's step-0 loss and gradients and its three steps'
+    (loss, gnorm), per model (the variants share them)."""
+    return {}
+
+
+@pytest.fixture(scope="module", params=STEP_CASES)
 def smoke(request):
-    jcfg = dataclasses.replace(j_smoke(request.param),
-                               param_dtype="float32")
-    cfg = dataclasses.replace(smoke_config(request.param),
-                              param_dtype="float32")
+    arch, _, variant = request.param.partition(":")
+    jcfg = dataclasses.replace(j_smoke(arch), param_dtype="float32")
+    cfg = dataclasses.replace(smoke_config(arch), param_dtype="float32")
     jparams = jax.device_get(JModel(jcfg).init(jax.random.key(0)))
-    return jcfg, cfg, jparams
+    return jcfg, cfg, jparams, variant
 
 
-def test_train_step_matches_jax(smoke):
+def test_train_step_matches_jax(smoke, jax_steps):
     """FCP over 4 stacked workers (``fused_xla``, remat on) against the
     reference's jitted train step with dense attention on a 1x1 mesh:
     same f32 smoke weights, same loader batch, three steps; a dense, an
     MoE (the batch's 4 frames are the MoE's routing frames in both
     packages) and a hybrid model (zamba2: every shared-block invocation
-    through the one FCP closure)."""
-    jcfg, cfg, np_params = smoke
-    jparams = jax.tree.map(jnp.asarray, np_params)   # the step donates
+    through the one FCP closure); the dense and MoE steps also with the
+    double-buffered round loop, the dense one with the layer pipeline."""
+    jcfg, cfg, np_params, variant = smoke
     tpw, bs = 128, 32
     kw = dict(dist="real_world", n_frames=N, tokens_per_worker=tpw,
               vocab_size=cfg.vocab_size, seed=0)
@@ -169,32 +181,43 @@ def test_train_step_matches_jax(smoke):
     assert np.array_equal(b.tokens, jb.tokens)
     tcfg = dict(lr=1e-3, warmup_steps=1, total_steps=3)
 
-    # reference: step-0 gradients, then three jitted steps
-    jmodel, mesh = JModel(jcfg), make_mesh((1, 1), ("data", "model"))
-    jbatch = JT.batch_arrays(jb, jcfg)
-    jattn = j_dense_attn(jnp.asarray(jb.seg_ids), jbatch["positions"])
-    jloss, jgrads = jax.jit(jax.value_and_grad(
-        lambda p: jmodel.loss(p, jbatch, jattn)))(jparams)
-    jstep = JT.jit_train_step(
-        JT.build_train_step(jmodel, mesh, JParallel(remat=False),
-                            JTrain(**tcfg), jattn),
-        mesh, jparams, jadamw.init(jparams), None, jbatch)
-    p, o, jlog = jparams, jadamw.init(jparams), []
-    for _ in range(3):
-        p, o, _, loss, gnorm = jstep(p, o, None, jbatch)
-        jlog.append((float(loss), float(gnorm)))
+    if cfg.name not in jax_steps:
+        # reference: step-0 gradients, then three jitted steps
+        jparams = jax.tree.map(jnp.asarray, np_params)   # the step donates
+        jmodel, mesh = JModel(jcfg), make_mesh((1, 1), ("data", "model"))
+        jbatch = JT.batch_arrays(jb, jcfg)
+        jattn = j_dense_attn(jnp.asarray(jb.seg_ids), jbatch["positions"])
+        jloss, jgrads = jax.jit(jax.value_and_grad(
+            lambda p: jmodel.loss(p, jbatch, jattn)))(jparams)
+        jgrads = jax.device_get(jgrads)
+        jstep = JT.jit_train_step(
+            JT.build_train_step(jmodel, mesh, JParallel(remat=False),
+                                JTrain(**tcfg), jattn),
+            mesh, jparams, jadamw.init(jparams), None, jbatch)
+        p, o, jlog = jparams, jadamw.init(jparams), []
+        for _ in range(3):
+            p, o, _, loss, gnorm = jstep(p, o, None, jbatch)
+            jlog.append((float(loss), float(gnorm)))
+        jax_steps[cfg.name] = (jloss, jgrads, jlog)
+    jloss, jgrads, jlog = jax_steps[cfg.name]
 
     # port
-    pcfg = ParallelConfig(block_size=bs, attention_impl="fused_xla")
+    pcfg = ParallelConfig(block_size=bs, attention_impl="fused_xla",
+                          overlap=variant == "overlap",
+                          layer_pipeline=variant == "layer_pipeline")
     model = Model(cfg)
     sched = T.build_schedule(cfg, pcfg, b.seqlens, N, tpw)
-    assert sched.spec.n_rounds > 0
-    attn = T.make_fcp_attn_fn(sched, "cpu", pcfg, "fused_xla")
+    assert sched.spec.n_rounds > 0 and sched.spec.overlap == pcfg.overlap
+    masks = T.layer_mask_specs(cfg, pcfg)
+    attn = T.attention_closures(cfg, pcfg, masks, [masks[0]],
+                                {masks[0]: sched}, "cpu", "fused_xla")
+    if variant == "layer_pipeline":
+        assert isinstance(attn[0], T.PipelinedAttn)
     params = params_from_numpy(np_params, "cpu")
     batch = T.batch_arrays(b, cfg, "cpu")
     loss, grads = T.value_and_grad(model, pcfg, attn)(params, batch)
     assert abs(float(loss) / float(jloss) - 1) <= 1e-4
-    jflat = jax.tree.leaves(jax.device_get(jgrads))
+    jflat = jax.tree.leaves(jgrads)
     tflat = adamw.tree_leaves(grads)
     assert len(jflat) == len(tflat)
     for a, b_ in zip(tflat, jflat):
@@ -311,21 +334,30 @@ def test_chunked_cross_entropy_matches_full():
 # CLI
 # --------------------------------------------------------------------------
 
-def test_cli_rehearsal_on_cpu():
+def test_cli_rehearsal_on_cpu(tmp_path):
+    """The reference's routing: a 4x1 FCP run goes through the
+    Supervisor by default, ``--no-supervised`` through the plain loop;
+    ``--supervised``, ``--layer-pipeline``, ``--overlap`` and
+    ``--checkpoint-dir`` run; pod meshes raise."""
     argv = ["--arch", "stablelm_1_6b", "--smoke", "--mesh", "4x1",
             "--dist", "real_world", "--block-size", "32",
-            "--tokens-per-worker", "128", "--steps", "2"]
-    trainer = T.main(argv + ["--device", "cpu"])
-    assert len(trainer.history) == 2
-    assert all(np.isfinite(r.loss) and r.loss > 0 for r in trainer.history)
-    assert trainer.plan_cache.stats.misses >= 1
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        T.main(argv + ["--device", "cpu", "--supervised"])
-    for flag in (["--layer-pipeline"], ["--overlap"],
-                 ["--checkpoint-dir", "ck"]):
-        with pytest.raises(NotImplementedError):
-            T.main(argv + ["--device", "cpu"] + flag)
-    with pytest.raises(NotImplementedError, match="pod"):
+            "--tokens-per-worker", "128", "--steps", "2", "--device", "cpu"]
+    plain = T.main(argv + ["--no-supervised"])
+    assert isinstance(plain, T.Trainer)
+    losses = [r.loss for r in plain.history]
+    for flags in ([], ["--supervised"], ["--layer-pipeline"], ["--overlap"],
+                  ["--checkpoint-dir", str(tmp_path / "ck"),
+                   "--checkpoint-every", "1"]):
+        trainer = T.main(argv + flags)
+        assert isinstance(trainer, T.Supervisor)
+        assert len(trainer.history) == 2
+        assert all(np.isfinite(r.loss) and r.loss > 0
+                   for r in trainer.history)
+        assert trainer.plan_cache.stats.misses >= 1
+        np.testing.assert_allclose([r.loss for r in trainer.history],
+                                   losses, rtol=1e-5)
+    assert (tmp_path / "ck" / "step_1" / "COMMIT").exists()
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
         T.main(argv[:4] + ["2x4x1", "--device", "cpu"])
 
 
@@ -359,7 +391,14 @@ def test_parity_only_flags_warn_when_set():
             "--block-size", "32", "--tokens-per-worker", "128",
             "--device", "cpu"]
     for flag in (["--attn-block-q", "128"], ["--attn-interpret"],
-                 ["--shape", "s"], ["--checkpoint-every", "3"],
-                 ["--step-timeout", "5"]):
+                 ["--shape", "s"]):
         with pytest.warns(UserWarning, match=flag[0]):
             T.trainer_from_args(T.parse_args(argv + flag)).close()
+    # the checkpoint cadence and the Supervisor's knobs take effect now
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        sup = T.trainer_from_args(T.parse_args(
+            argv + ["--checkpoint-every", "3", "--step-timeout", "5"]))
+        sup.close()
+    assert sup.pcfg.checkpoint_every == 3
+    assert sup.monitor.step_timeout == 5.0
