@@ -19,9 +19,10 @@ Phases, each reported on its own line:
              Granite's (24 of 64 over 8 kv heads), Moonlight's (16 of
              128) and Zamba2's shared block's (32 of 80); times (CUDA
              events around 10 launches back to back, median of 21 such
-             windows; kernel 2, whose wrapper's host work is of the order
-             of its kernels, alone on inputs prepared once, the wrapper
-             beside it), bounds and the library yardstick.  Kernel 2
+             windows, the plain versions 2 launches and 5 windows
+             (PLAIN_TIMING); kernel 2, whose wrapper's host work is of the
+             order of its kernels, alone on inputs prepared once, the
+             wrapper beside it), bounds and the library yardstick.  Kernel 2
              runs every small case through both its variants (split-KV
              decode and tiled) and the wrapper, with decode rows of
              length 0, 1, a split size -1/+0/+1 and several splits; at
@@ -52,7 +53,8 @@ Phases, each reported on its own line:
              (``PinnedRoutes``); Zamba2-2.7B (hybrid, head_dim 80, 18 of
              54 layers; its f32 tokens kernels vs plain on a short
              stream, bf16's reported) and Mamba2-130M (SSM, no
-             attention: its prefill held against its recurrent decode).
+             attention, 8 of 24 layers: its prefill held against its
+             recurrent decode).
 4. train   — (a) full width, 4 layers, f32 weights: every parameter's
              gradient through the kernels against the plain versions,
              for the fused (kernels 1, 3, 4) and the per-step (2, 5, 6)
@@ -70,10 +72,10 @@ Phases, each reported on its own line:
              (b) at full depth, 3 fused steps, one profiled, one pallas
              step, the bf16 step-0 loss check and where an MoE layer's
              time goes; and Moonlight at 2 layers: 2 fused steps, one
-             pallas step, the loss check; and Zamba2 at full depth: 6-layer
-             f32 gradients (one shared-attention invocation), 3 fused
-             steps, one pallas step, the loss check and where a Mamba2
-             layer's time goes (``ssm_breakdown``).
+             pallas step, the loss check; and Zamba2: 6-layer f32
+             gradients (one shared-attention invocation), then 18 of 54
+             layers: 3 fused steps, one pallas step, the loss check and
+             where a Mamba2 layer's time goes (``ssm_breakdown``).
 5. the rest of the training path, StableLM at full width:
              (a) 4 layers, f32: the executor at StableLM's shapes with
              the double-buffered round loop on and off (fused and
@@ -100,13 +102,37 @@ Phases, each reported on its own line:
              full-depth bf16 steps with the counters read around them,
              and a checkpoint round trip of its 1.6 B bf16 parameters
              and AdamW state (save and restore seconds, bytes equal).
+6. pods    — StableLM at full width on pod meshes (P pods x D stacked
+             workers, every pod on the same D-worker plan, one launch of
+             each kernel for all pods): (a) the training CLI's plain loop
+             on ``--mesh 2x4x1`` (cell 2's geometry in each pod, 16,384
+             tokens a step): at 4 layers, f32, the loss and every
+             gradient through kernels 1, 3 and 4 against the plain
+             versions (TOL_TRAIN_F32, loss TOL_GRAD) and the 2-pod loss
+             against the mean of the two one-pod losses on the same
+             frames (POD_LAYOUT_TOL); at full depth, bf16, 3 fused steps
+             with the counters read around them and one profiled; one
+             ``--attn-impl pallas`` step at 4 layers (kernels 2, 5, 6)
+             with its counters; (b) the pod drill
+             (``launch/drills.pod_drill``: 4 layers, f32, 2 x 2 workers,
+             compression on, pod 1 lost at step 5 and back at step 9 of
+             12, checkpoints under build/pods/): at most 2 steps lost,
+             the replay within 1e-6, no plan miss and no step closure
+             after the rejoin; (c) serving on a 2x2x2 mesh: with f32
+             weights at 4 layers the FCP prefill warns and serves
+             densely, its tokens those of a 4x2 FCP loop, and
+             ``strict_prefill`` raises; at full depth, bf16, 16 requests
+             in phase 3's setting with kernel 2's counter (decode), the
+             prefill p50 beside phase 3's.  Then kernels 1 and 3-6 at the
+             pod step's shapes (8 frames), each against its plain
+             version, the ``stablelm pods`` rows of the kernels line.
 
 The line before the card's line is a JSON object with one entry per
 kernel, its StableLM main-path row at the top (kernel 2's at decode) and
 every main-path row under ``shapes``, each with the launches of its own
-model's runs; the last line is ``{"ok": true, "device": {...}}``.  Any
-failure exits non-zero before that line.  Without a CUDA device the
-script fails.
+model's runs (the ``stablelm pods`` rows: the pod phase's); the last
+line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
+before that line.  Without a CUDA device the script fails.
 """
 
 from __future__ import annotations
@@ -130,6 +156,10 @@ BF16_FLOORS = 2.0           # bf16 weights: at most this many noise floors
 LOSS_NULL_DRAWS = 8         # draws of the train loss's noise floor
 TOL_GRAD = 1e-4             # backward kernels vs plain, max err / max |plain|
 TOL_TRAIN_F32 = 1e-4        # per-leaf train gradients, kernels vs plain
+# the plain versions at main-path shapes (tens of ms a call) are timed
+# over 5 windows of 2 calls, not the kernels' 21 of 10: a yardstick,
+# and the run's time
+PLAIN_TIMING = {"n": 2, "windows": 5}
 # the plain loop: the phases held against earlier plain-loop numbers
 # (the CLI's default is the Supervisor, phase 5)
 TRAIN_ARGV = ["--arch", "stablelm_1_6b", "--mesh", "4x1", "--dist",
@@ -149,7 +179,14 @@ HYBRID_WHY = ("depth cut for the run's time (its host-bound decode loop "
               "took 207 s at 54 layers); the layers kept are at full "
               "width, every 6th followed by the shared block")
 HYBRID_GRAD_LAYERS = 6              # one shared-attention invocation
-SSM_ARCH = "mamba2_130m"            # the SSM, full size (no attention)
+HYBRID_TRAIN_LAYERS = 18            # of 54, as served
+HYBRID_TRAIN_WHY = ("depth cut for the run's time (78.3 s at 54 layers); "
+                    "the layers kept are at full width, every 6th followed "
+                    "by the shared block")
+SSM_ARCH = "mamba2_130m"            # the SSM, full width (no attention)
+SSM_SERVE_LAYERS = 8                # of 24
+SSM_WHY = ("depth cut for the run's time (its host-bound decode loop took "
+           "39.9 s at 24 layers); the layers kept are at full width")
 TOL_SSM_F32 = 1e-4                  # f32 prefill vs recurrent decode logits
 
 
@@ -385,9 +422,7 @@ def small_fused_cases(fa, masks, dev):
 def main_path_fused(fa, ex, servelib, cfg, pcfg, dev):
     """The fused kernel at the serving path's shapes: the widest run of
     the bucket-2048 prefill plan (8192 tokens, 4 workers, 512 blocks)."""
-    import torch
     from repro_torch.core import plan_cache as pc
-    from repro_torch.kernels import ref
     budget, n_cp, E = 8192, 4, 2048
     sched = servelib.build_schedule(
         cfg, pcfg, list(pc.prefill_composition(E, budget)), n_cp,
@@ -395,7 +430,15 @@ def main_path_fused(fa, ex, servelib, cfg, pcfg, dev):
     t = ex.schedule_tables(sched, dev)
     run = max((r for r in t["runs"] if r is not None),
               key=lambda r: r["step_q"].shape[1])
-    spec = sched.spec
+    return fused_fwd_row(fa, run, sched.spec, cfg, n_cp, dev, "serve")
+
+
+def fused_fwd_row(fa, run, spec, cfg, nf: int, dev, phase: str) -> dict:
+    """Kernel 1 on one run of a plan over ``nf`` stacked frames, bf16
+    inputs from a seed: against its plain version (and a second launch,
+    same bytes), timed, with its bound."""
+    import torch
+    from repro_torch.kernels import ref
     H, D, KH = cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
     SL, EX, bs = spec.slots + 1, spec.slots + spec.ext_slots + 1, \
         spec.block_size
@@ -403,10 +446,10 @@ def main_path_fused(fa, ex, servelib, cfg, pcfg, dev):
 
     def rnd(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
-    qs, kxt, vxt = rnd(n_cp, SL, H, bs, D), rnd(n_cp, EX, KH, bs, D), \
-        rnd(n_cp, EX, KH, bs, D)
-    acc_o0 = rnd(n_cp, SL, H, bs, D, dtype=torch.float32)
-    acc_l0 = rnd(n_cp, SL, H, bs, dtype=torch.float32) + 5
+    qs, kxt, vxt = rnd(nf, SL, H, bs, D), rnd(nf, EX, KH, bs, D), \
+        rnd(nf, EX, KH, bs, D)
+    acc_o0 = rnd(nf, SL, H, bs, D, dtype=torch.float32)
+    acc_l0 = rnd(nf, SL, H, bs, dtype=torch.float32) + 5
     ko, kl = acc_o0.clone(), acc_l0.clone()
     po, pl = acc_o0.clone(), acc_l0.clone()
 
@@ -442,10 +485,10 @@ def main_path_fused(fa, ex, servelib, cfg, pcfg, dev):
     # (they stay finite), the work does not, since it depends only on
     # the run's tables
     ms = time_ms(kernel)
-    plain_ms = time_ms(plain)
+    plain_ms = time_ms(plain, **PLAIN_TIMING)
     # the work this run's data needs: valid (q, k) pairs of real steps,
     # the q slots and kv rows the steps touch, accumulators in and out
-    wk = torch.arange(n_cp, device=dev)[:, None]
+    wk = torch.arange(nf, device=dev)[:, None]
     sq = run["step_q"].long()
     real = sq != spec.q_trash
     vm = ref.mask_matrix(run["q_seg"][wk, sq], run["q_pos"][wk, sq],
@@ -457,11 +500,11 @@ def main_path_fused(fa, ex, servelib, cfg, pcfg, dev):
                zip(run["step_kv"].long(), real))
     nbytes = (n_q * H * bs * D * 2 + 2 * n_kv * KH * bs * D * 2
               + 2 * n_q * H * bs * (D + 1) * 4)
-    return {"name": "fused_flash_fwd", "phase": "serve",
+    return {"name": "fused_flash_fwd", "phase": phase,
             "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
             **bound(flops, PEAK_BF16, nbytes),
-            "shape": f"N={n_cp} S={sq.shape[1]} SL={SL} EX={EX} H={H} "
+            "shape": f"N={nf} S={sq.shape[1]} SL={SL} EX={EX} H={H} "
                      f"bs={bs} D={D} bf16"}
 
 
@@ -499,19 +542,21 @@ def main_path_decode(fa, cfg, dev):
     ms = time_ms(lambda: fa._launch_fwd(prep, "decode"))
     wrapper_ms = time_ms(lambda: fa.flash_attention_fwd(*args, mask=False))
     plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(*args,
-                                                            mask=False))
+                                                            mask=False),
+                       **PLAIN_TIMING)
     # the other variant on the same inputs, for the record
     tiled_ms = time_ms(lambda: fa._launch_fwd(prep, "tiled"))
     # yardstick only (the port never calls it): one library call over
     # the same cache with a length mask, as the device time of its kernels
     amask = (pos[None] < lengths[:, None])[:, None, None, :]
-    lib_ms, lib_kernels = device_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2),
-        attn_mask=amask, enable_gqa=H != KH))
     n_keys = int(lengths.sum())
     flops = 4.0 * n_keys * H * D
     nbytes = 2 * n_keys * KH * D * 2 + B * n_sh * H * D * (2 + 4) \
         + B * n_sh * H * 4
+    lib_ms, lib_kernels = device_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2),
+        attn_mask=amask, enable_gqa=H != KH),
+        floor=bound(flops, PEAK_BF16, nbytes)["bound_ms"])
     return {"name": "flash_attention_fwd", "phase": "serve",
             "max_abs_err": err, "ms": ms,
             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
@@ -701,24 +746,30 @@ def small_bwd_flash_cases(fa, masks, dev):
                                              f"gave other bytes")
 
 
-def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev):
+def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev, pods: int = 1):
     """Kernels 3-6 at the training path's shapes: the widest run of the
     first training step's plan (the CLI's loader and schedule: 8192
-    tokens, 4 workers, 512 blocks), and one per-step block of that run
-    (the ``pallas`` executor's batched launch over the 4 workers)."""
+    tokens a pod, 4 workers, 512 blocks), and one per-step block of that
+    run (the ``pallas`` executor's batched launch over the stacked
+    workers).  With ``pods`` > 1, the pod step's shapes (``pods`` x 4
+    frames, the pod tables), and kernel 1 on the same run as well."""
     import torch
     import torch.nn.functional as F
     from repro_torch.data.loader import SyntheticLoader
     from repro_torch.kernels import ref
-    n_cp, tpw = 4, 2048
-    b = SyntheticLoader(dist="real_world", n_frames=n_cp,
+    n_plan, tpw = 4, 2048
+    n_cp = pods * n_plan                         # stacked frames
+    b = SyntheticLoader(dist="real_world", n_frames=n_plan,
                         tokens_per_worker=tpw, vocab_size=cfg.vocab_size,
-                        seed=0, bucket_min_len=pcfg.block_size).next()
-    sched = trainlib.build_schedule(cfg, pcfg, b.seqlens, n_cp, tpw)
-    t = ex.schedule_tables(sched, dev)
+                        pods=pods, seed=0,
+                        bucket_min_len=pcfg.block_size).next()
+    sched = trainlib.build_schedule(cfg, pcfg, b.seqlens, n_plan, tpw)
+    t = ex.schedule_tables(sched, dev, pods)
     run = max((r for r in t["runs"] if r is not None),
               key=lambda r: r["step_q"].shape[1])
     spec = sched.spec
+    fwd_row = ([fused_fwd_row(fa, run, spec, cfg, n_cp, dev, "train")]
+               if pods > 1 else [])
     H, D, KH = cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
     SL, EX, bs = spec.slots + 1, spec.slots + spec.ext_slots + 1, \
         spec.block_size
@@ -771,8 +822,8 @@ def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev):
         raise AssertionError("fused_flash_bwd main path: a second launch "
                              "gave other bytes")
     del dq, dk, dv, dk2, dv2
-    times = {n: time_ms(f) for n, f in (("k3", k3), ("p3", p3), ("k4", k4),
-                                        ("p4", p4))}
+    times = {n: time_ms(f, **(PLAIN_TIMING if n[0] == "p" else {}))
+             for n, f in (("k3", k3), ("p3", p3), ("k4", k4), ("p4", p4))}
     # the work this run's data needs (real steps' valid pairs, the slots
     # and rows they touch); flop per valid pair and head: dq 6 D (s, g_o.v,
     # ds.k), dk/dv 8 D (s, g_o.v, p.g_o, ds.q)
@@ -789,7 +840,7 @@ def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev):
     kv_in = 2 * n_kv * KH * bs * D * 2
     shape = (f"N={n_cp} S={sq.shape[1]} SL={SL} EX={EX} H={H} bs={bs} "
              f"D={D} bf16, {pairs} valid pairs")
-    rows = [{"name": "fused_flash_bwd_dq", "phase": "train",
+    rows = fwd_row + [{"name": "fused_flash_bwd_dq", "phase": "train",
              "max_abs_err": err3,
              "ms": times["k3"], "plain_ms": times["p3"], "library_ms": None,
              **bound(6.0 * pairs * H * D, PEAK_BF16,
@@ -854,8 +905,9 @@ def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev):
         raise AssertionError("flash_attention_bwd main path: a second "
                              "launch gave other bytes")
     del dq, dk, dv, dk_p, dv_p, dk2, dv2
-    times = {n: time_ms(f) for n, f in (("k5", k5), ("w5", w5), ("p5", p5),
-                                        ("k6", k6), ("w6", w6), ("p6", p6))}
+    times = {n: time_ms(f, **(PLAIN_TIMING if n[0] == "p" else {}))
+             for n, f in (("k5", k5), ("w5", w5), ("p5", p5), ("k6", k6),
+                          ("w6", w6), ("p6", p6))}
     # kernel 2 as at decode: alone on inputs prepared once, the wrapper
     # beside it
     prep2 = fa._flash_fwd_prep(*fwd_args, spec.mask, None)
@@ -863,30 +915,39 @@ def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev):
     times["w2"] = time_ms(lambda: fa.flash_attention_fwd(*fwd_args,
                                                          mask=spec.mask))
     times["p2"] = time_ms(lambda: fa.flash_attention_fwd_plain(
-        *fwd_args, mask=spec.mask))
+        *fwd_args, mask=spec.mask), **PLAIN_TIMING)
     times["d2"] = time_ms(lambda: fa._launch_fwd(prep2, "decode"))
     # yardstick only (the port never calls it): the library's attention
     # backward through autograd over the same block, boolean mask, dlse 0;
     # its device time is the sum of the kernels it launches
     vmask = ref.mask_matrix(q_seg, q_pos, k_seg, k_pos, spec.mask)[:, None]
-    # and its forward alone, without autograd, for kernel 2
-    with torch.no_grad():
-        lib2_ms, lib2_kernels = device_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vmask,
-                                                   enable_gqa=H != KH))
-    ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=vmask,
-                                        enable_gqa=H != KH)
-    dol = do.to(ol.dtype)
-    lib_ms, lib_kernels = device_ms(lambda: torch.autograd.grad(
-        ol, (ql, kl, vl), dol, retain_graph=True))
-    del ol
     pairs = int(vm[:, best].sum())
     # what both kernels read: q, k, v (bf16), do (f32), lse, delta and
     # dlse (f32 per q row), seg/pos (int32); then each one's outputs
     ins = (q.numel() + k.numel() + v.numel()) * 2 + do.numel() * 4 \
         + 3 * lse.numel() * 4 \
         + 4 * sum(x.numel() for x in (q_seg, q_pos, k_seg, k_pos))
+    b2 = bound(4.0 * pairs * H * D, PEAK_BF16,
+               (q.numel() + k.numel() + v.numel()) * 2
+               + 4 * sum(x.numel() for x in (q_seg, q_pos, k_seg, k_pos))
+               + q.numel() * 4 + lse.numel() * 4)
+    b5 = bound(6.0 * pairs * H * D, PEAK_BF16, ins + q.numel() * 2)
+    b6 = bound(8.0 * pairs * H * D, PEAK_BF16, ins + 2 * k.numel() * 2)
+    # and its forward alone, without autograd, for kernel 2 (each at
+    # least the work of the valid pairs: the rows' bounds are floors)
+    with torch.no_grad():
+        lib2_ms, lib2_kernels = device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vmask,
+                                                   enable_gqa=H != KH),
+            floor=b2["bound_ms"])
+    ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=vmask,
+                                        enable_gqa=H != KH)
+    dol = do.to(ol.dtype)
+    lib_ms, lib_kernels = device_ms(lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), dol, retain_graph=True),
+        floor=max(b5["bound_ms"], b6["bound_ms"]))
+    del ol
     shape = (f"B={n_cp} H={H} Sq=Sk={bs} D={D} bf16, step {best} of the "
              f"run, {pairs} valid pairs")
     lib = ("scaled_dot_product_attention backward (dq, dk, dv together), "
@@ -900,35 +961,30 @@ def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev):
               "ms": times["k2"], "wrapper_ms": times["w2"],
               "plain_ms": times["p2"],
               "library_ms": lib2_ms, "library": lib2,
-              "decode_variant_ms": times["d2"],
-              **bound(4.0 * pairs * H * D, PEAK_BF16,
-                      (q.numel() + k.numel() + v.numel()) * 2
-                      + 4 * sum(x.numel() for x in (q_seg, q_pos, k_seg,
-                                                    k_pos))
-                      + q.numel() * 4 + lse.numel() * 4),
-              "shape": shape}]
+              "decode_variant_ms": times["d2"], **b2, "shape": shape}]
     rows += [{"name": "flash_attention_bwd_dq", "phase": "pallas",
               "max_abs_err": err5,
               "ms": times["k5"], "wrapper_ms": times["w5"],
               "plain_ms": times["p5"], "library_ms": lib_ms, "library": lib,
-              **bound(6.0 * pairs * H * D, PEAK_BF16, ins + q.numel() * 2),
-              "shape": shape},
+              **b5, "shape": shape},
              {"name": "flash_attention_bwd_dkv", "phase": "pallas",
               "max_abs_err": err6,
               "ms": times["k6"], "wrapper_ms": times["w6"],
               "plain_ms": times["p6"], "library_ms": lib_ms, "library": lib,
-              **bound(8.0 * pairs * H * D, PEAK_BF16,
-                      ins + 2 * k.numel() * 2), "shape": shape}]
+              **b6, "shape": shape}]
     return rows
 
 
-def device_ms(fn, n: int = 20, tries: int = 3) -> tuple[float, dict]:
+def device_ms(fn, n: int = 20, tries: int = 3,
+              floor: float = 0.0) -> tuple[float, dict]:
     """Device ms per call of ``fn``: the sum of the device activity of
     ``n`` calls under ``torch.profiler`` over ``n``, after three untimed
     calls; and the same per kernel name.  The profiler now and then
-    records no device activity in a process that has profiled before, so
-    the window is tried up to ``tries`` times; raises if none records
-    any."""
+    records no device activity, or only part of it, in a process that
+    has profiled before, so a window whose sum falls short of ``floor``
+    (the least time the call's work can take) is tried again, up to
+    ``tries`` windows; then, with a floor, CUDA events time the call
+    (``time_ms``, launch gaps included), and without one it raises."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -944,9 +1000,13 @@ def device_ms(fn, n: int = 20, tries: int = 3) -> tuple[float, dict]:
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
-        if per:
-            per = {name[:90]: us / 1e3 / n for name, us in per.items()}
+        per = {name[:90]: us / 1e3 / n for name, us in per.items()}
+        if per and sum(per.values()) >= floor:
             return sum(per.values()), per
+    if floor > 0:
+        ms = time_ms(fn)
+        return ms, {"the call between CUDA events (the profiler recorded "
+                    "less than the bound)": ms}
     raise AssertionError("the profiler recorded no device activity")
 
 
@@ -1310,7 +1370,8 @@ def train_grad_check(trainlib, dev, argv, n_layers: int = 4) -> dict:
             res = {}
             pin = PinnedRoutes(moe)
             for impl in (plain, kern):
-                attn = trainlib.make_fcp_attn_fn(sched, dev, tr.pcfg, impl)
+                attn = trainlib.make_fcp_attn_fn(sched, dev, tr.pcfg, impl,
+                                                 tr.pods)
                 with pin:
                     pin.replay = impl == kern
                     loss, g = trainlib.value_and_grad(tr.model, tr.pcfg,
@@ -1352,6 +1413,7 @@ def train_steps(fa, trainlib, dev, argv, steps: int) -> dict:
         stats = tr.plan_cache.stats
         n_params = tr.model.param_count(tr.state.params)
         n_layers = tr.cfg.n_layers
+        tokens = tr.pods * tr.n_cp * tr.tpw
     finally:
         tr.close()
     del tr
@@ -1364,9 +1426,9 @@ def train_steps(fa, trainlib, dev, argv, steps: int) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the train path")
     steady = [r.ms for r in hist[1:]]
-    tokens = 4 * 2048
     return {"n_layers": n_layers, "params": n_params, "losses": losses,
             "gnorms": [r.gnorm for r in hist], "step_ms": [r.ms for r in hist],
+            "tokens_per_step": tokens,
             "tokens_per_s": tokens / (float(np.mean(steady)) / 1e3),
             "peak_mem_gib": peak, "launches_steps": launches,
             "launches_per_step": {n: launches[n] / steps for n in (
@@ -2054,6 +2116,266 @@ def supervisor_phase(fa, trainlib, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 6: pod meshes (the pod train step, the pod drill, pod-mesh serving)
+# --------------------------------------------------------------------------
+
+# 2 pods of cell 2's geometry: 16,384 tokens a step
+POD_ARGV = ["--arch", "stablelm_1_6b", "--mesh", "2x4x1", "--dist",
+            "real_world", "--block-size", "512", "--tokens-per-worker",
+            "2048", "--attn-impl", "fused", "--steps", "3",
+            "--no-supervised"]
+POD_LAYOUT_TOL = 1e-6       # 2-pod loss vs the mean of the one-pod losses
+POD_DRILL_TOTAL, POD_DRILL_EVERY = 12, 2
+POD_FAIL_STEP, POD_FAIL_ROUND, POD_REJOIN = 5, 1, 9
+
+
+def pod_checks(trainlib, dev) -> dict:
+    """The pod step at full width, 4 layers, f32, the CLI's first batch:
+    the loss and every parameter's gradient through the kernels (fused:
+    1, 3, 4) against the plain versions (fused_xla) to TOL_TRAIN_F32;
+    then the layout: the 2-pod loss against the mean of the two one-pod
+    losses on the same frames (each pod holds the same composition) to
+    POD_LAYOUT_TOL."""
+    import torch
+    from repro_torch.optimizer import adamw
+    tr = trainlib.trainer_from_args(trainlib.parse_args(
+        POD_ARGV + ["--override", "n_layers=4",
+                    "--override", "param_dtype=float32"]))
+    try:
+        b = tr.loader.next()
+        batch = trainlib.batch_arrays(b, tr.cfg, dev)
+        sched = trainlib.build_schedule(tr.cfg, tr.pcfg, b.seqlens, tr.n_cp,
+                                        tr.tpw, mask=tr.group_masks[0])
+        params = tr.state.params
+        res = {}
+        for impl in ("fused_xla", "fused"):
+            attn = trainlib.make_fcp_attn_fn(sched, dev, tr.pcfg, impl,
+                                             tr.pods)
+            loss, g = trainlib.value_and_grad(tr.model, tr.pcfg, attn)(
+                params, batch)
+            res[impl] = (float(loss), adamw.tree_leaves(g))
+        errs = [float((a - b_).abs().max()) / max(float(b_.abs().max()),
+                                                  1e-30)
+                for a, b_ in zip(res["fused"][1], res["fused_xla"][1])]
+        finite = all(bool(torch.isfinite(x).all()) for x in res["fused"][1])
+        out = {"loss": res["fused"][0], "loss_plain": res["fused_xla"][0],
+               "loss_rel_err": abs(res["fused"][0] / res["fused_xla"][0]
+                                   - 1),
+               "max_leaf_err": max(errs)}
+        del res
+        if not (out["max_leaf_err"] <= TOL_TRAIN_F32 and finite
+                and out["loss_rel_err"] <= TOL_GRAD):
+            raise AssertionError(f"pod step kernels vs plain (f32, 4 "
+                                 f"layers): {out}")
+        n = tr.n_cp
+        with torch.no_grad():
+            pod = float(tr.model.loss(params, batch, trainlib.make_fcp_attn_fn(
+                sched, dev, tr.pcfg, "fused", tr.pods)))
+            one = trainlib.make_fcp_attn_fn(sched, dev, tr.pcfg, "fused")
+            each = [float(tr.model.loss(
+                params, {k: v[p * n:(p + 1) * n] for k, v in batch.items()},
+                one)) for p in range(tr.pods)]
+        out.update(pod_loss=pod, one_pod_losses=each,
+                   layout_rel_err=abs(pod / float(np.mean(each)) - 1))
+        if not out["layout_rel_err"] <= POD_LAYOUT_TOL:
+            raise AssertionError(
+                f"2-pod loss {pod} vs the one-pod losses' mean "
+                f"{np.mean(each)}: {out['layout_rel_err']:.3e} > "
+                f"{POD_LAYOUT_TOL}")
+        return out
+    finally:
+        tr.close()
+
+
+def pod_train_phase(fa, trainlib, dev) -> dict:
+    """(a) the 4-layer f32 checks; the pod step at full depth, bf16 (3
+    fused steps with the counters read around them, one profiled); one
+    ``--attn-impl pallas`` pod step at 4 layers with its counters."""
+    out = {"checks_4_layers_f32": pod_checks(trainlib, dev)}
+    release()
+    log(f"  pod checks (4 layers, f32): {json.dumps(out)}")
+    out.update(train_steps(fa, trainlib, dev, POD_ARGV, 3))
+    out["pallas_step_4_layers"] = train_pallas(
+        fa, trainlib, dev, POD_ARGV + ["--override", "n_layers=4"], False)
+    return out
+
+
+def pod_drill_phase(fa, trainlib, dev) -> dict:
+    """(b) the pod drill (``launch/drills.pod_drill``): StableLM at full
+    width, 4 layers, f32, 2 pods x 2 workers of 2048 tokens, block 512,
+    error-feedback compression on; pod 1 dies at step 5 (round 1) and
+    rejoins at step 9 of 12, checkpoints every 2 steps under build/."""
+    import shutil
+    from repro_torch.configs.base import (ParallelConfig, TrainConfig,
+                                          get_config)
+    from repro_torch.launch import drills
+    root = os.path.join(BUILD, "pods")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = get_config("stablelm_1_6b").replace(n_layers=DRILL_LAYERS,
+                                              param_dtype="float32")
+    pcfg = ParallelConfig(block_size=512, in_dtype_bytes=4,
+                          checkpoint_every=POD_DRILL_EVERY)
+
+    def make(ckpt_dir, **kw):
+        tcfg = TrainConfig(lr=1e-3, warmup_steps=2,
+                           total_steps=POD_DRILL_TOTAL,
+                           grad_compression=True)
+        return trainlib.Supervisor(
+            cfg, pcfg, tcfg, n_workers=2, tokens_per_worker=2048, pods=2,
+            dist="real_world", checkpoint_dir=ckpt_dir, verbose=False,
+            device=dev, attn_impl="fused", **kw)
+    t0 = time.perf_counter()
+    reset_counters(fa)
+    try:
+        out = drills.pod_drill(make, root, total=POD_DRILL_TOTAL,
+                               fail_step=POD_FAIL_STEP,
+                               fail_round=POD_FAIL_ROUND,
+                               rejoin_step=POD_REJOIN, every=POD_DRILL_EVERY)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = read_counters(fa)
+    out["seconds"] = time.perf_counter() - t0
+    for name in PATH_KERNELS["fused"]:
+        if out["launches"][name] <= 0:
+            raise AssertionError(f"{name} never launched in the pod drill")
+    release()
+    return out
+
+
+def pod_serve_phase(fa, dev) -> dict:
+    """(c) StableLM at full width on a 2x2x2 pod mesh.  With f32 weights
+    at 4 layers, 8 requests: FCP prefill warns and serves densely, its
+    tokens those of a 4x2 FCP loop on the same prompts, and
+    ``strict_prefill`` raises.  Then full depth, bf16, 16 requests in
+    cell 1's setting: the prefill that served, prefill p50, the decode
+    step's wall and profile, with the counters read around the run."""
+    import warnings
+    import torch
+    from repro_torch.configs.base import (ParallelConfig, ServeConfig,
+                                          get_config)
+    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.models import Model
+    from repro_torch.runtime.serving import ServingLoop
+    scfg = ServeConfig(cache_len=4096, decode_slots=8, queue_depth=64,
+                       max_new_tokens=32, prefill_tokens_per_worker=2048,
+                       bucket_min=64)
+
+    def build(model, params, mesh, pcfg, sc):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loop = ServingLoop(model, params, mesh, pcfg, sc, device=dev)
+        return loop, any("pod meshes" in str(w.message) for w in caught)
+
+    def prompts(vocab, n):
+        rng = np.random.default_rng(0)
+        return [rng.integers(1, vocab, (int(L),)).astype(np.int32)
+                for L in rng.integers(64, 2049, n)]
+    out: dict = {}
+    cfg = get_config("stablelm_1_6b").replace(n_layers=4,
+                                              param_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    pcfg = ParallelConfig(block_size=512, in_dtype_bytes=4)
+    ps, toks = prompts(cfg.vocab_size, 8), {}
+    for tag, shape in (("fcp_4x2", (4, 2)), ("pod_2x2x2", (2, 2, 2))):
+        loop, warned = build(model, params, StackedMesh(shape), pcfg, scfg)
+        reset_counters(fa)
+        rep = loop.run(ps, max_new=scfg.max_new_tokens)
+        toks[tag] = {r.rid: r.tokens.tolist() for r in loop.stats.finished}
+        out[tag] = {"prefill_impl": rep["prefill_impl"], "warned": warned,
+                    "requests": rep["requests"],
+                    "launches": read_counters(fa)}
+        del loop
+    release()
+    if not (out["fcp_4x2"]["prefill_impl"] == "fcp"
+            and not out["fcp_4x2"]["warned"]
+            and out["pod_2x2x2"]["prefill_impl"] == "dense"
+            and out["pod_2x2x2"]["warned"]):
+        raise AssertionError(f"pod-mesh prefill dispatch: {out}")
+    if out["pod_2x2x2"]["launches"]["fused_flash_fwd"] != 0 or \
+            out["pod_2x2x2"]["launches"]["flash_attention_fwd"] <= 0:
+        raise AssertionError(f"pod-mesh serving launches: {out}")
+    if toks["pod_2x2x2"] != toks["fcp_4x2"] or len(toks["fcp_4x2"]) != 8:
+        raise AssertionError("pod-mesh dense tokens differ from the 4x2 FCP "
+                             "loop's")
+    out["tokens_equal"] = True
+    try:
+        build(model, params, StackedMesh((2, 2, 2)), pcfg,
+              scfg.replace(strict_prefill=True))
+        raise AssertionError("strict_prefill did not raise on a pod mesh")
+    except ValueError as e:
+        if "strict_prefill" not in str(e):
+            raise
+        out["strict_prefill_raised"] = str(e)
+    del model, params
+    release()
+
+    # full depth, bf16: cell 1's stream on the pod mesh
+    cfg = get_config("stablelm_1_6b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    loop, warned = build(model, params, StackedMesh((2, 2, 2)),
+                         ParallelConfig(block_size=512, in_dtype_bytes=2),
+                         scfg)
+    t0 = time.perf_counter()
+    loop.warmup()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(fa)
+    rep = loop.run(prompts(cfg.vocab_size, 16), max_new=scfg.max_new_tokens)
+    launches = read_counters(fa)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if rep["requests"] != 16 or launches["flash_attention_fwd"] <= 0 or \
+            launches["fused_flash_fwd"] != 0:
+        raise AssertionError(f"pod-mesh serving: {rep['requests']} "
+                             f"requests, launches {launches}")
+    if not bool(torch.isfinite(loop.last_logits.float()).all()):
+        raise AssertionError("pod-mesh decode logits not finite")
+    first = loop.stats.finished[0]
+    batch, last = loop.assemble(first.bucket, [first])
+    step = loop.prefill_fn(first.bucket)
+    out["full_depth_bf16"] = {
+        "prefill_impl": rep["prefill_impl"], "warned": warned,
+        "warmup_s": warm_s, "wall_s": rep["wall_s"],
+        "sustained_tok_s": rep["sustained_tok_s"],
+        "requests": rep["requests"], "prefill_batches": rep["prefill_batches"],
+        "prefill_ms_p50": rep["prefill_ms"]["p50"],
+        "prefill_ms_p99": rep["prefill_ms"]["p99"],
+        "decode_ms_p50": rep["decode_ms"]["p50"],
+        "decode_steps": rep["decode_steps"], "launches": launches,
+        "peak_mem_gib": peak,
+        "decode_step_ms": wall_ms(loop._loop_step, 10),
+        "prefill_batch_bucket": first.bucket,
+        "prefill_batch_ms": wall_ms(lambda: step(params, batch, last), 3),
+        "profile": {"decode_step": profile(loop._loop_step, 5),
+                    "prefill_batch": profile(
+                        lambda: step(params, batch, last), 1)}}
+    del loop, model, params, step, batch
+    release()
+    return out
+
+
+def pod_phase(fa, ex, trainlib, dev, cfg, pcfg) -> tuple[dict, list]:
+    """Phase 6: (a), (b), (c), then kernels 1-6 at the pod step's shapes
+    (the rows of the ``stablelm pods`` path)."""
+    out = {}
+    for tag, fn in (("train", lambda: pod_train_phase(fa, trainlib, dev)),
+                    ("drill", lambda: pod_drill_phase(fa, trainlib, dev)),
+                    ("serve", lambda: pod_serve_phase(fa, dev))):
+        t0 = time.perf_counter()
+        out[tag] = fn()
+        out[tag]["part_seconds"] = time.perf_counter() - t0
+        log(f"  pods {tag}: ok {out[tag]['part_seconds']:.2f}s "
+            f"{json.dumps(out[tag])}")
+    t0 = time.perf_counter()
+    rows = main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev, pods=2)
+    release()
+    out["kernel_rows_seconds"] = time.perf_counter() - t0
+    return out, rows
+
+
 def release() -> None:
     """Free what a phase left on the card before the next one measures its
     peak: reference cycles first (the serve phase's spied method, a
@@ -2259,7 +2581,7 @@ def main() -> int:
             ("stablelm", cfg, None, None), ("granite", cfg_moe, None, None),
             ("moonshot", cfg128, D128_SERVE_LAYERS, D128_WHY),
             ("zamba2", cfg_z, HYBRID_SERVE_LAYERS, HYBRID_WHY),
-            ("mamba2", get_config(SSM_ARCH), None, None)):
+            ("mamba2", get_config(SSM_ARCH), SSM_SERVE_LAYERS, SSM_WHY)):
         t0 = time.perf_counter()
         cut = c.replace(n_layers=depth or c.n_layers)
         served[tag] = serve(fa, cut, pcfg, scfg, dev)
@@ -2298,9 +2620,10 @@ def main() -> int:
             HYBRID_GRAD_LAYERS)}
     release()
     trained["zamba2"].update(train_model(
-        fa, trainlib, dev, HYBRID_ARCH, 3, None, "the full depth, no cut"))
+        fa, trainlib, dev, HYBRID_ARCH, 3, HYBRID_TRAIN_LAYERS,
+        HYBRID_TRAIN_WHY))
     trained["zamba2"]["ssm_breakdown"] = ssm_breakdown(
-        dev, HYBRID_ARCH, cfg_z.n_layers,
+        dev, HYBRID_ARCH, HYBRID_TRAIN_LAYERS,
         served["zamba2"]["first_batch_bucket"])
     log(f"phase train zamba2: ok {time.perf_counter() - t0:.2f}s "
         f"{json.dumps(trained['zamba2'])}")
@@ -2336,6 +2659,44 @@ def main() -> int:
     log(f"phase supervisor: ok {time.perf_counter() - t0:.2f}s "
         f"{json.dumps(sv)}")
 
+    # phase 6: pod meshes, beside the plain step of the train phase and
+    # the 4x2 serving of phase 3 (same call, same card)
+    t0 = time.perf_counter()
+    pods, pod_rows = pod_phase(fa, ex, trainlib, dev, cfg, pcfg)
+    pt, ps = pods["train"], pods["serve"]["full_depth_bf16"]
+    log(f"  pod step (2x4x1, 16384 tokens): step_ms {pt['step_ms']} "
+        f"tokens_per_s {pt['tokens_per_s']:.1f} device_ms "
+        f"{pt['profile_step']['device_ms']} window_ms "
+        f"{pt['profile_step']['wall_ms']} attention_kernels_ms "
+        f"{sum(pt['profile_step']['attention_kernels_ms'].values()):.1f} "
+        f"peak_mem_gib {pt['peak_mem_gib']:.2f} (plain 4x1 step: step_ms "
+        f"{tr['step_ms']} tokens_per_s {tr['tokens_per_s']:.1f} device_ms "
+        f"{plain['device_ms']} peak_mem_gib {tr['peak_mem_gib']:.2f})")
+    log(f"  pod serving (2x2x2, {ps['prefill_impl']} prefill): prefill p50 "
+        f"{ps['prefill_ms_p50']:.1f} ms decode_step_ms "
+        f"{ps['decode_step_ms']:.1f} tok/s {ps['sustained_tok_s']:.1f} "
+        f"(4x2 fcp prefill p50 {served['stablelm']['prefill_ms_p50']:.1f} "
+        f"ms decode_step_ms {served['stablelm']['decode_step_ms']:.1f} "
+        f"tok/s {served['stablelm']['sustained_tok_s']:.1f})")
+    log(f"phase pods: ok {time.perf_counter() - t0:.2f}s on {card}")
+    for r in pod_rows:
+        r["path"] = "stablelm pods"
+    # the pod mesh decodes at the 4x2 mesh's shapes (8 slots x 2 cache
+    # shards of 4096): the stablelm decode row, counted on the pod run
+    pod_rows.append({**next(r for r in rows if r["path"] == "stablelm"
+                            and r["name"] == "flash_attention_fwd"
+                            and r["phase"] == "serve"),
+                     "path": "stablelm pods"})
+    for r in pod_rows:
+        log(f"phase pods kernels {r['name']} [{r['shape']}]: ok "
+            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"library_ms={r['library_ms']} max_abs_err="
+            f"{r['max_abs_err']:.3e}")
+        if "library" in r:
+            log(f"  library: {r['library']}")
+    rows += pod_rows
+
     # launches: each kernel's count over the main path that runs it (the
     # row's phase) of the model whose shapes it was timed at (the row's
     # path): the serve run for the forward kernels at prefill and decode,
@@ -2346,6 +2707,10 @@ def main() -> int:
                    for p in trained})
     counts.update({(p, "pallas"): trained[p]["pallas_step"]["launches"]
                    for p in trained})
+    counts.update({("stablelm pods", "train"): pt["launches_steps"],
+                   ("stablelm pods", "pallas"):
+                       pt["pallas_step_4_layers"]["launches"],
+                   ("stablelm pods", "serve"): ps["launches"]})
     csrc = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/flash_attention.py:"
     sources = {"fused_flash_fwd": (csrc + "fused_flash_fwd.cu", ref + "463"),

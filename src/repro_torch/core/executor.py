@@ -58,14 +58,25 @@ layout="sched")`` takes q/k/v already in the schedule layout and returns
 o in it (no per-layer Q/K/V reshuffle or O restore), while
 :func:`fcp_reshuffle` moves any per-token tensor (the hidden state)
 between the layouts once per layer group.
+
+**Pod meshes.**  ``schedule_tables(sched, device, pods=P)`` folds P pods
+into the stacked worker axis: every per-worker table is tiled P times
+(frame ``p * n + w`` is worker ``w`` of pod ``p``) and every ship's
+permutation is offset by ``p * n`` (:func:`pod_perm`), so each pod runs
+the same n-worker schedule on its own frames, ships never cross a pod,
+and one launch of each kernel still covers every frame.  The replicated
+block metadata (``blk_seg``/``blk_pos``) is shared: every pod packs the
+same composition.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 
+import numpy as np
 import torch
 
 from ..kernels import ops
@@ -110,10 +121,24 @@ def plan_tables(arrays: PlanArrays, device) -> dict[str, torch.Tensor]:
             for f in dataclasses.fields(arrays)}
 
 
-def schedule_tables(sched: Schedule, device) -> dict:
+# PlanArrays' replicated tables (every other one is per worker)
+_SHARED = ("blk_seg", "blk_pos")
+
+
+@functools.lru_cache(maxsize=4096)
+def pod_perm(perm: tuple, n: int, pods: int) -> tuple:
+    """A ship's partial permutation over one pod's ``n`` workers, as
+    ``pods`` disjoint copies over the stacked pod-major frames."""
+    return tuple((s + p * n, d + p * n) for p in range(pods)
+                 for s, d in perm)
+
+
+def schedule_tables(sched: Schedule, device, pods: int = 1) -> dict:
     """Device tables for :func:`fcp_attention`, memoized on the schedule
-    (per device): plan-cache hits return the same ``Schedule``, so
-    repeated batches reuse the uploaded tables.
+    (per device and pod count): plan-cache hits return the same
+    ``Schedule``, so repeated batches reuse the uploaded tables.
+    ``pods`` > 1 tiles every per-worker table over the pods (module
+    docstring).
 
     Beyond the raw :class:`PlanArrays`, the memo holds what the kernels
     read per run, sliced contiguous once: the run's step tables and the
@@ -123,15 +148,23 @@ def schedule_tables(sched: Schedule, device) -> dict:
     trash steps get none, so they never touch a real slot), and the
     per-step-index tables of the ``pallas``/``xla`` impls."""
     device = torch.device(device)
+    pods = int(pods)
+    if pods < 1:
+        raise ValueError(f"pods must be >= 1, got {pods}")
     memo = sched._device_tables
     if memo is None:
         memo = sched._device_tables = {}
-    key = str(device)
+    key = (str(device), pods)
     if key in memo:
         return memo[key]
     spec, arr = sched.spec, sched.arrays
+    if pods > 1:
+        arr = dataclasses.replace(arr, **{
+            f.name: np.tile(getattr(arr, f.name),
+                            (pods,) + (1,) * (getattr(arr, f.name).ndim - 1))
+            for f in dataclasses.fields(arr) if f.name not in _SHARED})
     t = plan_tables(arr, device)
-    N = spec.n_workers
+    N = spec.n_workers * pods
     wk = torch.arange(N, device=device)
     t["q_seg"] = t["blk_seg"][t["sched_blk"].long()]      # [N, SL, bs]
     t["q_pos"] = t["blk_pos"][t["sched_blk"].long()]
@@ -170,8 +203,23 @@ def schedule_tables(sched: Schedule, device) -> dict:
         runs.append(run)
     t["runs"] = runs
     t["workers"] = wk[:, None]
+    t["pods"] = pods
     memo[key] = t
     return t
+
+
+def _check_frames(n_frames: int, tpw: int, spec: StaticSpec, tables: dict,
+                  what: str) -> int:
+    """The pod count of ``n_frames`` stacked frames against the plan's
+    workers and the tables' pods."""
+    pods = tables["pods"]
+    if (n_frames != spec.n_workers * pods
+            or tpw != spec.slots * spec.block_size):
+        raise ValueError(
+            f"{what} does not match the plan ({pods} pod(s) x "
+            f"{spec.n_workers} workers x {spec.slots * spec.block_size} "
+            f"tokens)")
+    return pods
 
 
 def _gather_rows(buf: torch.Tensor, idx: torch.Tensor,
@@ -200,7 +248,8 @@ def _put(buf: torch.Tensor, idx: tuple, val: torch.Tensor,
 def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
                   cfg: ExecConfig = ExecConfig(),
                   layout: str = "stream") -> torch.Tensor:
-    """FCP attention over N stacked workers.
+    """FCP attention over N stacked workers (``N = pods x n`` frames of
+    an n-worker plan, pod-major, with ``tables`` built for those pods).
 
     q: ``[N, tpw, HQ, D]``; k/v: ``[N, tpw, KH, D]`` in the stream
     layout (frame ``w`` is worker ``w``'s share of the packed stream).
@@ -215,9 +264,8 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
     bs, slots, ext = spec.block_size, spec.slots, spec.ext_slots
     N, tpw, hq, d = q.shape
     kh = k.shape[2]
-    if N != spec.n_workers or tpw != slots * bs:
-        raise ValueError(f"q {tuple(q.shape)} does not match the plan "
-                         f"({spec.n_workers} workers x {slots * bs} tokens)")
+    pods = _check_frames(N, tpw, spec, tables, f"q {tuple(q.shape)}")
+    n = spec.n_workers
     fmt = spec.wire
     t = tables
     wk = t["workers"]
@@ -227,7 +275,7 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
                         or v.requires_grad))
 
     def ship(payload, perm):
-        return wirelib.ship(payload, perm, fmt)
+        return wirelib.ship(payload, pod_perm(perm, n, pods), fmt)
 
     # stream layout -> [N, slots, heads, bs, d] (head-leading kernel layout)
     def frame(x, h):
@@ -386,8 +434,9 @@ def fcp_reshuffle(x: torch.Tensor, tables: dict, *, spec: StaticSpec,
                   reverse: bool = False) -> torch.Tensor:
     """Move a per-token tensor between the stream and schedule layouts.
 
-    x: ``[N, tpw, C]`` (any channel count: the hidden state, or the
-    hidden state with the rope positions as one extra f32 channel).
+    x: ``[N, tpw, C]``, N = pods x the plan's workers (any channel
+    count: the hidden state, or the hidden state with the rope
+    positions as one extra f32 channel).
     Uses the schedule's reshuffle plan (``reverse=False``: stream ->
     schedule) or its restore plan (``reverse=True``: schedule ->
     stream), the hidden state riding as one fat head, always on the f32
@@ -397,9 +446,7 @@ def fcp_reshuffle(x: torch.Tensor, tables: dict, *, spec: StaticSpec,
     Differentiable: the backward is the reversed move."""
     bs, slots = spec.block_size, spec.slots
     N, tpw, C = x.shape
-    if N != spec.n_workers or tpw != slots * bs:
-        raise ValueError(f"x {tuple(x.shape)} does not match the plan "
-                         f"({spec.n_workers} workers x {slots * bs} tokens)")
+    pods = _check_frames(N, tpw, spec, tables, f"x {tuple(x.shape)}")
     t, wk = tables, tables["workers"]
     inplace = not (torch.is_grad_enabled() and x.requires_grad)
     xf = x.reshape(N, slots, 1, bs, C)
@@ -418,7 +465,9 @@ def fcp_reshuffle(x: torch.Tensor, tables: dict, *, spec: StaticSpec,
             perm = (tuple((d_, s_) for s_, d_ in g.perm) if reverse
                     else g.perm)
             recv = wirelib.ship(_gather_rows(xt, snd[:, off:off + g.rows],
-                                             wk), perm, wirelib.WIRE_F32)
+                                             wk),
+                                pod_perm(perm, spec.n_workers, pods),
+                                wirelib.WIRE_F32)
             ys = _put(ys, (wk, dst[:, off:off + g.rows].long()), recv,
                       inplace)
             off += g.rows

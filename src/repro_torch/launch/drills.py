@@ -13,6 +13,19 @@ stacked workers: the kill and straggler drills of the reference's
   cooldown, the latched speeds reach the block distributor (the slow
   worker's modeled compute drops below what uniform placement hands
   it), and the demoted plan key misses once, then hits.
+* **pod drill** — pod 1 of a multi-pod fleet dies mid-step
+  (pod-scoped ``InjectedFailure``).  The supervisor shrinks the pod
+  dimension, resets the error-feedback residuals, restores and replays
+  (at most ``checkpoint_every`` steps lost) while the prewarm thread
+  verifies the survivor schedules, re-warms the full-fleet plans and
+  stages the restored checkpoint; the rejoin re-hits the pre-shrink
+  plan keys with no plan miss and no step closure built after it, and
+  the survivor and post-rejoin losses and gradient norms match an
+  uninterrupted run restored from the same checkpoint to
+  ``REPLAY_TOL`` normalized.
+
+The kill drill also covers a worker loss on a multi-pod fleet (the
+worker's slot leaves every pod) when ``make_sup`` builds one.
 
 Each drill takes ``make_sup(checkpoint_dir, **kw) -> Supervisor`` (the
 caller fixes model, widths, device and loader), raises
@@ -21,11 +34,14 @@ caller fixes model, widths, device and loader), raises
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import pathlib
 import shutil
 
 import numpy as np
 
+from ..checkpoint import checkpointer
 from ..core import cost_model as cm
 from ..runtime import elastic
 
@@ -63,23 +79,18 @@ def kill_drill(make_sup, tmp: pathlib.Path, *, total: int, fail_step: int,
            and by_fleet[n0 - 1][-1] == total - 1, f"steps {by_fleet}")
 
     # reference: an UNINTERRUPTED survivor run restored from the same
-    # checkpoint the recovery used (the only one copied)
+    # checkpoint the recovery used (hard-linked: restores only read it)
     d2 = pathlib.Path(tmp) / "reference"
     d2.mkdir(parents=True)
     src = d / f"step_{rec['resume_step'] - 1}"
     if src.exists():
-        shutil.copytree(src, d2 / src.name)
-    ref = make_sup(d2, start_fleet=n0 - 1)
+        shutil.copytree(src, d2 / src.name, copy_function=os.link)
+    ref = _replay_only(make_sup(d2, start_fleet=n0 - 1))
     ref.run(total)
     want = {r.step: r for r in ref.history}
     got = {r.step: r for r in sup.history if r.n_workers == n0 - 1}
     _check(sorted(got) == sorted(want), f"{sorted(got)} vs {sorted(want)}")
-    diffs = []
-    for s in got:
-        diffs.append(abs(got[s].loss - want[s].loss)
-                     / max(abs(want[s].loss), 1e-9))
-        diffs.append(abs(got[s].gnorm - want[s].gnorm)
-                     / max(abs(want[s].gnorm), 1e-9))
+    diffs = _replay_diffs(got, want)
     _check(max(diffs) <= REPLAY_TOL,
            f"replay diff {max(diffs):.3e} > {REPLAY_TOL}")
     return {"steps_lost": rec["steps_lost"],
@@ -147,4 +158,105 @@ def straggler_drill(make_sup, *, total: int, window: int, cooldown: int,
             "slow_worker_load_vs_uniform": loads[worker] / loads_uni[worker],
             "modeled_step_ratio": t_dem / t_uni,
             "plan_cache": s.to_dict(),
+            "step_ms": [r.ms for r in sup.history]}
+
+
+def _replay_only(sup):
+    """A reference run only replays: no file would read its saves."""
+    sup.pcfg = dataclasses.replace(sup.pcfg, checkpoint_every=0)
+    return sup
+
+
+def _replay_diffs(got: dict, want: dict) -> list[float]:
+    diffs = []
+    for k in got:
+        diffs.append(abs(got[k].loss - want[k].loss)
+                     / max(abs(want[k].loss), 1e-9))
+        diffs.append(abs(got[k].gnorm - want[k].gnorm)
+                     / max(abs(want[k].gnorm), 1e-9))
+    return diffs
+
+
+def pod_drill(make_sup, tmp: pathlib.Path, *, total: int, fail_step: int,
+              fail_round: int, rejoin_step: int, every: int) -> dict:
+    """Pod 1 dies at ``fail_step`` and rejoins at ``rejoin_step``, held
+    to the limits of the reference runner's pod drill.  The reference run
+    restores from the checkpoint the prewarm thread staged, so the
+    primary's checkpoints may be pruned as usual."""
+    d = pathlib.Path(tmp) / "pod_primary"
+    sup = make_sup(d)
+    p0, n = sup.p0, sup.n0
+    fail = elastic.InjectedFailure(pod=1, step=fail_step, round=fail_round)
+    sup.run(total, fail=fail, rejoin_step=rejoin_step)
+
+    # shrink: a pod-scoped recovery within the checkpoint budget
+    _check(len(sup.recoveries) == 1, f"recoveries {sup.recoveries}")
+    rec = sup.recoveries[0]
+    _check(rec["failed_step"] == fail_step and rec.get("pod") == 1
+           and "worker" not in rec, f"recovery {rec}")
+    _check(rec["pods"] == max(q for q in range(1, p0) if p0 % q == 0)
+           and rec["n_workers"] == n, f"recovery {rec}")
+    _check(0 <= rec["steps_lost"] <= every,
+           f"lost {rec['steps_lost']} steps > {every}")
+    # EF residuals reset over the survivors, never reused
+    _check(bool(rec.get("ef_reset")), f"no EF reset in {rec}")
+    fails = [e for e in sup.monitor.events if e.kind == "fail"]
+    _check(bool(fails) and fails[0].pod == 1
+           and set(fails[0].workers) == set(range(n, 2 * n)),
+           f"fail events {fails} (pod 1's flat slots)")
+
+    # overlapping recovery: the prewarm thread did its three jobs
+    _check(len(sup.rejoins) == 1, f"rejoins {sup.rejoins}")
+    rj = sup.rejoins[0]
+    _check(rj["step"] == rejoin_step and rj["pods"] == p0, f"rejoin {rj}")
+    pw = rj["prewarm"]
+    _check("error" not in pw and pw["survivor_schedules_verified"] >= 1
+           and pw["violations"] == 0 and pw["plans_prefetched"] >= 1,
+           f"prewarm {pw}")
+    _check(pw["staged_step"] == rec["resume_step"] - 1,
+           f"staged {pw['staged_step']} != {rec['resume_step'] - 1}")
+
+    # rejoin: the pre-shrink plans re-hit; no plan miss and no step
+    # closure built after it
+    s = sup.plan_cache.stats
+    _check(rj["plan_keys_cached"] is True
+           and s.misses == rj["plan_misses_before"]
+           and len(sup.compiled_at) == rj["compiles_before"],
+           f"after rejoin: {s.to_dict()} {sup.compiled_at} {rj}")
+    # the key contract: at full strength replan_key is the pre-shrink key
+    key = elastic.replan_key(
+        sup.loader.composition(rejoin_step)[1], n, sup.pcfg.block_size,
+        mask=sup.group_masks[0], pcfg=sup.pcfg, pods=p0, base_pods=p0)
+    _check(key in sup.plan_cache, "regrow key missing from the plan cache")
+
+    # equivalence: the survivor and post-rejoin steps against an
+    # uninterrupted run restored from the same checkpoint: the staged
+    # copy, written once the primary's directory has freed its disk (a
+    # staged copy that differed from the checkpoint would show here)
+    staged = sup._staged
+    _check(staged is not None and staged["step"] == pw["staged_step"],
+           "no staged checkpoint")
+    shutil.rmtree(d, ignore_errors=True)
+    d2 = pathlib.Path(tmp) / "pod_reference"
+    checkpointer.save(d2 / f"step_{staged['step']}", staged["tree"],
+                      staged["extra"])
+    sup._staged = None
+    ref = _replay_only(make_sup(d2, start_fleet=(1, n)))
+    ref.run(total, rejoin_step=rejoin_step)
+    want = {(r.step, r.pods): r for r in ref.history}
+    got = {(r.step, r.pods): r for r in sup.history
+           if (r.step, r.pods) in want}
+    _check(sorted(got) == sorted(want), f"{sorted(got)} vs {sorted(want)}")
+    _check(any(p == p0 for _, p in got), "no post-rejoin step compared")
+    diffs = _replay_diffs(got, want)
+    _check(max(diffs) <= REPLAY_TOL,
+           f"replay diff {max(diffs):.3e} > {REPLAY_TOL}")
+    return {"steps_lost": rec["steps_lost"],
+            "resume_step": rec["resume_step"],
+            "recovery_wall_s": rec["wall_s"], "rejoin_ms": rj["rejoin_ms"],
+            "prewarm": pw, "replay_max_diff": max(diffs),
+            "steps_compared": len(got),
+            "post_rejoin_steps": sum(p == p0 for _, p in got),
+            "fleet_steps": [(r.step, r.pods, r.n_workers)
+                            for r in sup.history],
             "step_ms": [r.ms for r in sup.history]}

@@ -5,19 +5,30 @@ card the port keeps only the axis sizes: the ``data`` axis is the
 number of context-parallel workers stacked on the leading tensor dim of
 the prefill executor, and the ``model`` axis is the number of sequence
 shards the decode cache is split into.
+
+A pod mesh ``(P, D, M)`` over ``("pod", "data", "model")`` stacks P·D
+frames, pod-major (frame ``p * D + w`` is worker ``w`` of pod ``p``, as
+:class:`~repro_torch.runtime.health.FleetTopology` numbers them), and
+every pod runs the same D-worker FCP plan on its own D frames: the
+reference's frames shard over ``("pod", "data")`` with the schedule
+tables replicated over ``pod``.
 """
 
 from __future__ import annotations
 
 
-
 class StackedMesh:
     """``StackedMesh((4, 2), ("data", "model"))``: axis sizes only, all
     on one device.  ``shape`` maps axis name to size, as
-    ``jax.sharding.Mesh.shape`` does."""
+    ``jax.sharding.Mesh.shape`` does.  Without ``axes``, two sizes name
+    ``("data", "model")`` and three ``("pod", "data", "model")``."""
 
-    def __init__(self, shape, axes=("data", "model")):
-        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    def __init__(self, shape, axes=None):
+        shape = tuple(int(s) for s in shape)
+        if axes is None:
+            axes = (("data", "model") if len(shape) == 2
+                    else ("pod", "data", "model"))
+        axes = tuple(axes)
         if len(shape) != len(axes) or min(shape, default=1) < 1:
             raise ValueError(f"bad stacked mesh {shape} x {axes}")
         if len(set(axes)) != len(axes):
@@ -25,5 +36,23 @@ class StackedMesh:
         self.axis_names = axes
         self.shape = dict(zip(axes, shape))
 
+    @property
+    def pods(self) -> int:
+        return self.shape.get("pod", 1)
+
     def __repr__(self) -> str:
         return f"StackedMesh({self.shape})"
+
+
+def stacked_frames(mesh) -> int:
+    """The stacked CP frames of a mesh: pods x data workers (the
+    reference shards prefill and training frames over both)."""
+    return mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
+
+
+def parse_mesh(spec: str) -> StackedMesh:
+    """``"DxM"`` or ``"PxDxM"`` (the CLIs' ``--mesh``)."""
+    dims = [int(x) for x in spec.split("x")]
+    if len(dims) not in (2, 3):
+        raise SystemExit("--mesh must be DxM or PxDxM")
+    return StackedMesh(tuple(dims))

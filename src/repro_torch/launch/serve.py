@@ -2,8 +2,9 @@
 (port of ``repro.launch.serve``; the dense, MoE, SSM and hybrid
 families).
 
-* ``build_prefill_step`` — packed-stream forward through FCP attention
-  (the fused run kernel), emitting each prompt's last-token logits and
+* ``build_prefill_step`` — packed-stream forward through the attention
+  it is given (FCP: the fused run kernel; or the dense escape hatch,
+  ``runtime/serving.py``), emitting each prompt's last-token logits and
   the KV cache re-laid-out as ``[L, B, S, KH, D]`` (stream order is
   sequence-major for uniform shapes, so this is a reshape).  Recurrent
   families (SSM, hybrid) also emit each sequence's final SSM state and
@@ -146,7 +147,10 @@ def main(argv=None):
                         "(granite_moe_3b_a800m, moonshot_v1_16b_a3b), SSM "
                         "(mamba2_130m) or hybrid (zamba2_2_7b)")
     p.add_argument("--smoke", action="store_true")
-    p.add_argument("--mesh", default="1x1")
+    p.add_argument("--mesh", default="1x1",
+                   help="DxM (data x model) or PxDxM (pod x data x model)"
+                        " stacked mesh: prefill frames over pod x data,"
+                        " decode slots over data, cache shards over model")
     p.add_argument("--cache-len", type=int, default=512)
     p.add_argument("--kind", default="decode", choices=["decode", "long"])
     p.add_argument("--override", action="append", default=[])
@@ -160,13 +164,14 @@ def main(argv=None):
     p.add_argument("--queue-depth", type=int, default=64)
     p.add_argument("--prefill-impl", default="fcp",
                    choices=["fcp", "dense"],
-                   help="bucketed FCP prefill; 'dense' (the reference's "
-                        "escape hatch) is not ported and raises")
+                   help="bucketed FCP prefill (CUDA kernel 1), or the "
+                        "dense escape hatch (plain PyTorch; also the "
+                        "1-worker path and the pod-mesh fallback)")
     p.add_argument("--prefill-tokens-per-worker", type=int, default=256)
     p.add_argument("--strict-prefill", action="store_true",
-                   help="accepted only for parity with the reference "
-                        "CLI and ignored: pod meshes are rejected "
-                        "outright, so prefill never degrades")
+                   help="fail instead of falling back to dense prefill "
+                        "when prefill_impl='fcp' is unsupported on the "
+                        "mesh (pod axis)")
     p.add_argument("--bucket-min", type=int, default=32,
                    help="smallest prefill bucket edge")
     p.add_argument("--block-size", type=int, default=0,
@@ -180,12 +185,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
 
-    dims = [int(x) for x in args.mesh.split("x")]
-    if len(dims) != 2:
-        raise SystemExit("--mesh takes DATAxMODEL (pod meshes are not "
-                         "ported yet)")
-    from .mesh import StackedMesh
-    mesh = StackedMesh(tuple(dims), ("data", "model"))
+    from .mesh import parse_mesh
+    mesh = parse_mesh(args.mesh)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = apply_overrides(cfg, args.override)
@@ -203,7 +204,8 @@ def main(argv=None):
         cache_len=args.cache_len, decode_slots=args.slots,
         queue_depth=args.queue_depth, max_new_tokens=args.tokens,
         prefill_tokens_per_worker=tpw, bucket_min=args.bucket_min,
-        prefill_impl=args.prefill_impl, kind=args.kind)
+        prefill_impl=args.prefill_impl, kind=args.kind,
+        strict_prefill=args.strict_prefill)
     loop = ServingLoop(model, params, mesh, pcfg, scfg, device=dev)
 
     rng = np.random.default_rng(args.seed)
@@ -221,7 +223,7 @@ def main(argv=None):
     report = loop.run(stream, max_new=args.tokens)
 
     print(f"warmup {warm_s:.2f}s over buckets {loop.edges} "
-          f"({args.prefill_impl} prefill, device {dev})")
+          f"({loop.prefill_impl} prefill, device {dev})")
     print(f"served {report['requests']} requests / "
           f"{report['generated_tokens']} tokens in "
           f"{report['wall_s']:.2f}s "

@@ -13,12 +13,17 @@ step function per plan key instead.
 Two loops, routed as the reference routes them: FCP runs with more than
 one CP worker and no model axis go through the fault-tolerant
 :class:`Supervisor` (``--supervised``, on by default: health telemetry,
-straggler demotion, worker-loss recovery from checkpoints), everything
-else through the plain :class:`Trainer`.  Both take ``--overlap`` (the
-double-buffered round loop), ``--layer-pipeline`` (the hidden state
-moves once per layer group: :class:`PipelinedAttn`) and
-``--checkpoint-dir`` (periodic saves, resume from the newest committed
-step).  Pod meshes (PxDxM) are not ported (ROADMAP Queue A item 7).
+straggler demotion, worker- and pod-loss recovery from checkpoints,
+overlapping recovery and rejoin), everything else through the plain
+:class:`Trainer`.  Both take ``--overlap`` (the double-buffered round
+loop), ``--layer-pipeline`` (the hidden state moves once per layer
+group: :class:`PipelinedAttn`), ``--checkpoint-dir`` (periodic saves,
+resume from the newest committed step) and pod meshes (``--mesh
+PxDxM``: P pods of D stacked workers, every pod running the same
+D-worker plan on its own frames, ``core.executor``).  The cross-pod
+gradient reduction is the loss over all P·D frames; with
+``TrainConfig.grad_compression`` its gradient tree takes the
+error-feedback bf16 compression, as the reference's does.
 
 ``--attn-impl`` takes the reference's four names (``core.executor``):
 ``fused`` (the default here: CUDA kernels 1, 3 and 4), ``pallas``
@@ -37,6 +42,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import threading
 import time
 import warnings
 from typing import Callable
@@ -58,20 +64,18 @@ from ..optimizer import adamw, schedules
 from ..runtime import compression
 from ..runtime import elastic
 from ..runtime import health as health_mod
-from .mesh import StackedMesh
-
-POD_MESHES = ("pod meshes (PxDxM), the pod drill, overlapping recovery "
-              "and rejoin are not ported yet (ROADMAP Queue A item 7)")
+from .mesh import StackedMesh, parse_mesh
 
 
 def make_fcp_attn_fn(sched: Schedule, device, pcfg: ParallelConfig,
-                     impl: str = "fused") -> Callable:
+                     impl: str = "fused", pods: int = 1) -> Callable:
     """``attn(q, k, v)`` over ``[F, T, H, D]`` frames through the FCP
-    executor on stacked workers (frame = worker), with the executor impl
-    ``impl``.  ``pcfg.attention_impl`` is not read: the copied
-    ``ParallelConfig`` defaults it to the reference's ``"xla"``, and the
-    port's default is the kernels."""
-    tables = ex.schedule_tables(sched, device)
+    executor on stacked workers (frame = worker; ``F = pods x`` the
+    plan's workers, pod-major), with the executor impl ``impl``.
+    ``pcfg.attention_impl`` is not read: the copied ``ParallelConfig``
+    defaults it to the reference's ``"xla"``, and the port's default is
+    the kernels."""
+    tables = ex.schedule_tables(sched, device, pods)
     cfg_exec = ex.ExecConfig(
         impl=impl,
         out_dtype="bfloat16" if pcfg.attn_out_bf16 else None)
@@ -99,7 +103,7 @@ class PipelinedAttn:
 
 def make_pipelined_attn_fns(cfg: ModelConfig, pcfg: ParallelConfig,
                             layer_masks, scheds, device,
-                            impl: str = "fused") -> tuple:
+                            impl: str = "fused", pods: int = 1) -> tuple:
     """Per-layer :class:`PipelinedAttn` entries: the hidden state stays
     resident in the schedule layout across each run of consecutive
     same-mask layers and moves once per group boundary, so N layers pay
@@ -116,7 +120,7 @@ def make_pipelined_attn_fns(cfg: ModelConfig, pcfg: ParallelConfig,
 
     def group_fns(m):
         sched = scheds[m]
-        tables, spec = ex.schedule_tables(sched, device), sched.spec
+        tables, spec = ex.schedule_tables(sched, device, pods), sched.spec
 
         def attn(q, k, v):
             return ex.fcp_attention(q, k, v, tables, spec=spec,
@@ -315,19 +319,19 @@ def route_layers(cfg: ModelConfig, layer_masks, group_masks, fn_of_mask):
 
 def attention_closures(cfg: ModelConfig, pcfg: ParallelConfig,
                        layer_masks, group_masks, scheds, device,
-                       impl: str):
-    """The attention argument of the model for a batch's plans: the
-    layer-pipelined entries under ``pcfg.layer_pipeline``, else one FCP
-    closure per mask group routed to its layers; None for an
-    attention-free model."""
+                       impl: str, pods: int = 1):
+    """The attention argument of the model for a batch's plans (over
+    ``pods`` pods of the plans' workers): the layer-pipelined entries
+    under ``pcfg.layer_pipeline``, else one FCP closure per mask group
+    routed to its layers; None for an attention-free model."""
     if not cfg.uses_attention:
         return None
     if pcfg.layer_pipeline:
         return make_pipelined_attn_fns(cfg, pcfg, layer_masks, scheds,
-                                       device, impl)
+                                       device, impl, pods)
     return route_layers(
         cfg, layer_masks, group_masks,
-        lambda m: make_fcp_attn_fn(scheds[m], device, pcfg, impl))
+        lambda m: make_fcp_attn_fn(scheds[m], device, pcfg, impl, pods))
 
 
 @dataclasses.dataclass
@@ -337,7 +341,8 @@ class StepRecord:
     loss: float
     gnorm: float
     ms: float                       # wall, the device synchronized
-    n_workers: int = 1
+    n_workers: int = 1              # CP workers per pod
+    pods: int = 1
 
 
 class Trainer:
@@ -345,7 +350,9 @@ class Trainer:
     without the ``Supervisor``): a plan cache with plan-ahead (batch
     t+1 is planned on a host thread while t runs), one attention
     closure and step function per plan key, random weights from a
-    seeded ``torch.Generator``.  ``attn_impl`` is the executor impl
+    seeded ``torch.Generator``.  On a pod mesh (``"pod"`` axis P) the
+    loader emits P same-composition sub-streams and every pod runs the
+    data axis's plan on its own frames.  ``attn_impl`` is the executor impl
     (default ``"fused"``: the kernels on the card).  With
     ``checkpoint_dir`` it saves ``{"params", "opt"}`` and the loader
     state every ``pcfg.checkpoint_every`` steps, and a new trainer on
@@ -360,12 +367,13 @@ class Trainer:
         self.attn_impl = ex.ExecConfig(impl=attn_impl).impl
         self.cfg, self.pcfg, self.tcfg, self.mesh = cfg, pcfg, tcfg, mesh
         self.n_cp = mesh.shape.get("data", 1)
+        self.pods = mesh.shape.get("pod", 1)
         self.tpw = tokens_per_worker
         self.log_every = max(int(log_every), 1)
         self.model = Model(cfg, tp=mesh.shape.get("model", 1))
         self.loader = SyntheticLoader(
             dist=dist, n_frames=self.n_cp, tokens_per_worker=tokens_per_worker,
-            vocab_size=cfg.vocab_size, seed=tcfg.seed,
+            vocab_size=cfg.vocab_size, pods=self.pods, seed=tcfg.seed,
             plan_buckets=pcfg.plan_buckets, bucket_min_len=pcfg.block_size,
             fresh=fresh)
         self.state = init_state(self.model, tcfg, self.device)
@@ -415,7 +423,7 @@ class Trainer:
         if key not in self.step_cache:
             attn = attention_closures(self.cfg, self.pcfg, self.layer_masks,
                                       self.group_masks, scheds, self.device,
-                                      self.attn_impl)
+                                      self.attn_impl, self.pods)
             self.step_cache[key] = build_train_step(
                 self.model, self.mesh, self.pcfg, self.tcfg, attn)
             while len(self.step_cache) > max(self.pcfg.plan_cache_size, 1):
@@ -434,7 +442,8 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         rec = StepRecord(t, float(loss), float(gnorm),
-                         (time.perf_counter() - t0) * 1e3, self.n_cp)
+                         (time.perf_counter() - t0) * 1e3, self.n_cp,
+                         self.pods)
         self.history.append(rec)
         if t % self.log_every == 0:
             print(f"step {t:5d}  loss {rec.loss:.4f}  gnorm "
@@ -464,8 +473,9 @@ class Trainer:
 # --------------------------------------------------------------------------
 
 class Supervisor:
-    """Fault-tolerant elastic FCP training loop for one pod (port of
-    the reference's ``Supervisor``).
+    """Fault-tolerant elastic FCP training loop (port of the reference's
+    ``Supervisor``), on stacked workers: ``pods`` pods of ``n_workers``
+    CP workers, frames pod-major on the leading tensor dim.
 
     Owns the train state, a *geometry-pinned* data loader, a
     :class:`~repro_torch.runtime.health.HealthMonitor`, a shared plan
@@ -482,21 +492,29 @@ class Supervisor:
       its latched quantized speeds flow into cache-backed
       ``elastic.replan(speeds=...)``; demote/promote events are
       rate-limited (``demote_cooldown``).
-    * **loss path** — on :class:`~repro_torch.runtime.health.WorkerLoss`
-      or :class:`~repro_torch.runtime.elastic.InjectedFailure` the
-      stacked worker count shrinks to the survivors (``elastic.replan``
-      on the survivor set), error-feedback residuals reset, the newest
-      *intact* committed checkpoint restores, and the deterministic data
-      stream replays — losing at most ``checkpoint_every`` steps.
+    * **loss path** — on :class:`~repro_torch.runtime.health.WorkerLoss`,
+      :class:`~repro_torch.runtime.health.PodLoss` or
+      :class:`~repro_torch.runtime.elastic.InjectedFailure` the fleet
+      shrinks to the survivors (``elastic.replan`` on the survivor set),
+      error-feedback residuals reset, the newest *intact* committed
+      checkpoint restores, and the deterministic data stream replays —
+      losing at most ``checkpoint_every`` steps.  A worker loss on a
+      multi-pod fleet takes that worker's slot from every pod (the pods
+      run one schedule).  A *pod* loss shrinks the pod dimension to the
+      largest divisor of the pinned pod count (a non-divisor remainder
+      idles) and starts **overlapping recovery**: survivors train on
+      while a host thread pre-warms the regrow path (survivor plans
+      built and statically verified, the full-fleet plan keys re-warmed,
+      the newest committed checkpoint staged in host memory), so a
+      returning pod rejoins at a step boundary (``run(rejoin_step=)``).
 
-    The loader is pinned to the original ``n_workers x
+    The loader is pinned to the original ``pods x n_workers x
     tokens_per_worker`` geometry: the global token stream is a pure
     function of ``(seed, step)``, and survivor fleets view it through
-    ``elastic.reshape_pod_frames``.  Without a checkpoint, recovery
-    replays from step 0 with the initial weights drawn again from the
-    seed (the reference holds a host copy of them).  Pods (``pods >
-    1``, :class:`~repro_torch.runtime.health.PodLoss`, the regrow
-    prewarm and rejoin) are not ported and raise."""
+    ``elastic.reshape_pod_frames`` (each surviving pod adopts whole
+    pinned-pod sub-streams).  Without a checkpoint, recovery replays
+    from step 0 with the initial weights drawn again from the seed (the
+    reference holds a host copy of them)."""
 
     def __init__(self, cfg: ModelConfig, pcfg: ParallelConfig,
                  tcfg: TrainConfig, *, n_workers: int,
@@ -507,32 +525,38 @@ class Supervisor:
                  monitor: health_mod.HealthMonitor | None = None,
                  start_fleet=None, verbose: bool = True, device="cuda",
                  attn_impl: str = "fused"):
-        if int(pods) != 1 or isinstance(start_fleet, tuple):
-            raise NotImplementedError(POD_MESHES)
         self.device = resolve_device(device)
         self.attn_impl = ex.ExecConfig(impl=attn_impl).impl
         self.cfg, self.pcfg, self.tcfg = cfg, pcfg, tcfg
+        self.p0 = int(pods)
         self.n0 = int(n_workers)
         self.tpw0 = int(tokens_per_worker)
-        # start_fleet: None = full strength, or a worker count
-        self.n = self.n0 if start_fleet is None else int(start_fleet)
+        # start_fleet: None = full strength, a (pods, workers) tuple, or a
+        # bare worker count (single-pod callers)
+        if start_fleet is None:
+            self.pods, self.n = self.p0, self.n0
+        elif isinstance(start_fleet, tuple):
+            self.pods, self.n = int(start_fleet[0]), int(start_fleet[1])
+        else:
+            self.pods, self.n = self.p0, int(start_fleet)
         self.verbose = verbose
         if not (cfg.uses_attention and cfg.n_layers):
             raise ValueError("Supervisor drives FCP attention models")
         self.model = Model(cfg, tp=1)
         self.loader = SyntheticLoader(
             dist=dist, n_frames=self.n0, tokens_per_worker=self.tpw0,
-            vocab_size=cfg.vocab_size, seed=tcfg.seed,
+            vocab_size=cfg.vocab_size, pods=self.p0, seed=tcfg.seed,
             uniform_len=uniform_len, plan_buckets=pcfg.plan_buckets,
             bucket_min_len=pcfg.block_size, fresh=fresh)
         self.monitor = monitor or health_mod.HealthMonitor.from_pcfg(
-            self.n, pcfg, topology=health_mod.FleetTopology(1, self.n))
+            self.pods * self.n, pcfg,
+            topology=health_mod.FleetTopology(self.pods, self.n))
         self.plan_cache = pc.PlanCache(pcfg.plan_cache_size)
         self.planner = pc.PlanAheadPlanner(self.plan_cache,
                                            enabled=pcfg.plan_ahead)
         # checkpoint_keep: GC window.  Drills that replay a recovery
-        # against a pruned copy of the directory widen it so the
-        # resume-step checkpoint survives to the end of the run.
+        # against a copy of the checkpoint it restored widen it so that
+        # checkpoint survives to the end of the run.
         self.manager = (CheckpointManager(checkpoint_dir,
                                           keep_n=checkpoint_keep)
                         if checkpoint_dir else None)
@@ -545,65 +569,81 @@ class Supervisor:
         self.compiled_at: list[int] = []     # steps that built a closure
         self.history: list[StepRecord] = []
         self.recoveries: list[dict] = []
+        self.rejoins: list[dict] = []
         self.last_scheds: dict = {}
+        self._prewarm = None                 # regrow-prewarm thread
+        self._prewarm_info: dict | None = None
+        self._staged: dict | None = None     # host-staged checkpoint
 
     # -- geometry ----------------------------------------------------------
 
-    def _fleet_batch(self, b: Batch, n: int, tpw: int) -> Batch:
-        """Re-view the pinned-geometry batch on ``n`` stacked workers:
-        the same token stream, padding re-derived (segment ids pad with
+    def _mesh(self, pods: int, n: int) -> StackedMesh:
+        if self.p0 == 1 and pods == 1:
+            return StackedMesh((n, 1))
+        # the pod axis stays even at pods == 1 for a multi-pod fleet, as
+        # the reference keeps one mesh family across a shrink
+        return StackedMesh((pods, n, 1))
+
+    def _fleet_batch(self, b: Batch, pods: int, n: int, tpw: int) -> Batch:
+        """Re-view the pinned-geometry batch on the current fleet: the
+        same token stream, each surviving pod adopting ``p0 // pods``
+        pinned-pod sub-streams, padding re-derived (segment ids pad with
         -1 so padding never aliases a document)."""
         n_valid = int(sum(b.seqlens))
 
         def rs(a, fill=0):
-            return elastic.reshape_pod_frames(a, 1, 1, n, tpw,
+            return elastic.reshape_pod_frames(a, self.p0, pods, n, tpw,
                                               n_valid=n_valid, fill=fill)
         return Batch(tokens=rs(b.tokens), labels=rs(b.labels),
                      positions=rs(b.positions),
                      seg_ids=rs(b.seg_ids, fill=-1),
                      loss_mask=rs(b.loss_mask),
-                     seqlens=list(b.seqlens),
+                     seqlens=elastic.pod_survivor_seqlens(
+                         b.seqlens, self.p0, pods),
                      composition_id=b.composition_id)
 
     # -- planning ----------------------------------------------------------
 
-    def _group_key(self, seqlens, n: int, m, speeds) -> tuple:
+    def _group_key(self, seqlens, pods: int, n: int, m, speeds) -> tuple:
         return elastic.replan_key(seqlens, n, self.pcfg.block_size,
-                                  mask=m, speeds=speeds, pcfg=self.pcfg)
+                                  mask=m, speeds=speeds, pcfg=self.pcfg,
+                                  pods=pods, base_pods=self.p0)
 
-    def _group_build(self, seqlens, n: int, m, speeds):
+    def _group_build(self, seqlens, pods: int, n: int, m, speeds):
         nh, nkv, hd = self._heads
         return functools.partial(
             elastic.replan, seqlens, n, self.pcfg.block_size,
             n_q_heads=nh, n_kv_heads=nkv, head_dim=hd, mask=m,
             speeds=None if speeds is None else np.asarray(speeds),
-            pcfg=self.pcfg, verify=None)
+            pcfg=self.pcfg, verify=None, pods=pods, base_pods=self.p0)
 
-    def _plan(self, seqlens, n: int, speeds):
+    def _plan(self, seqlens, pods: int, n: int, speeds):
         """One cache-backed survivor replan per distinct mask group,
-        under the exact keys ``elastic.replan`` uses."""
+        under the exact keys ``elastic.replan`` uses — a regrown fleet
+        re-hits its pre-shrink plans."""
         scheds: dict[MaskSpec, Schedule] = {}
         keys = []
         for m in self.group_masks:
-            key = self._group_key(seqlens, n, m, speeds)
+            key = self._group_key(seqlens, pods, n, m, speeds)
             scheds[m] = self.planner.get(
-                key, self._group_build(seqlens, n, m, speeds))
+                key, self._group_build(seqlens, pods, n, m, speeds))
             keys.append(key)
         return scheds, tuple(keys)
 
-    def _prefetch(self, seqlens, n: int, speeds) -> None:
+    def _prefetch(self, seqlens, pods: int, n: int, speeds) -> None:
         for m in self.group_masks:
-            self.planner.prefetch(self._group_key(seqlens, n, m, speeds),
-                                  self._group_build(seqlens, n, m, speeds))
+            self.planner.prefetch(
+                self._group_key(seqlens, pods, n, m, speeds),
+                self._group_build(seqlens, pods, n, m, speeds))
 
-    def _step_fn(self, step: int, n: int, keys: tuple, scheds):
-        ck = (n, keys)
+    def _step_fn(self, step: int, pods: int, n: int, keys: tuple, scheds):
+        ck = (pods, n, keys)
         if ck not in self._step_cache:
             attn = attention_closures(self.cfg, self.pcfg, self.layer_masks,
                                       self.group_masks, scheds, self.device,
-                                      self.attn_impl)
+                                      self.attn_impl, pods)
             self._step_cache[ck] = build_train_step(
-                self.model, StackedMesh((n, 1)), self.pcfg, self.tcfg, attn)
+                self.model, self._mesh(pods, n), self.pcfg, self.tcfg, attn)
             self.compiled_at.append(step)
             while len(self._step_cache) > max(self.pcfg.plan_cache_size, 1):
                 self._step_cache.pop(next(iter(self._step_cache)))
@@ -612,12 +652,17 @@ class Supervisor:
     # -- checkpointing -----------------------------------------------------
 
     def _save(self, step: int) -> None:
+        """A non-blocking save, after the previous one has landed: each
+        save in flight holds a host copy of the state and its own disk
+        space (7.4 GB at StableLM's full width, 4 layers, f32), so at
+        most one runs at a time."""
         if self.manager is None:
             return
+        self.manager.wait()
         self.manager.save(
             step, {"params": self.state.params, "opt": self.state.opt},
             extra={"loader": self.loader.state.to_dict(),
-                   "n_workers": self.n, "pods": 1},
+                   "n_workers": self.n, "pods": self.pods},
             blocking=False)
 
     def _restore(self) -> int:
@@ -640,87 +685,137 @@ class Supervisor:
 
     def run(self, total_steps: int, *, fail=None, skew=None,
             rejoin_step: int | None = None) -> dict:
-        """Train to ``total_steps``, surviving worker loss.
+        """Train to ``total_steps``, surviving worker and pod loss.
 
         ``fail`` (an :class:`~repro_torch.runtime.elastic.InjectedFailure`
-        with ``worker=`` plus ``step``/``round`` set) kills that worker
-        mid-step once; ``skew`` maps worker id -> slowdown factor for the
-        telemetry (a stand-in for a degraded chip).  Auto-resumes from the
-        newest intact committed checkpoint when one exists."""
-        if rejoin_step is not None or (fail is not None
-                                       and fail.pod is not None):
-            raise NotImplementedError(POD_MESHES)
+        with ``worker=`` or ``pod=`` plus ``step``/``round`` set) kills
+        that worker, or that whole pod, mid-step once; ``skew`` maps flat
+        worker id -> slowdown factor for the telemetry (a stand-in for a
+        degraded chip); ``rejoin_step`` regrows a shrunken fleet to full
+        strength at that step boundary (the lost pod returning).
+        Auto-resumes from the newest intact committed checkpoint when one
+        exists."""
         step = 0
         if self.manager is not None and self.manager.latest_step() is not None:
             step = self._restore()
         while step < total_steps:
             try:
-                step = self._run_steps(step, total_steps, fail, skew)
-            except health_mod.PodLoss:
-                raise NotImplementedError(POD_MESHES) from None
-            except (health_mod.WorkerLoss, elastic.InjectedFailure) as e:
-                t0 = time.perf_counter()
-                at = int(getattr(e, "step", None) or step)
-                lost = int(getattr(e, "worker", None) or 0) % self.n
-                if isinstance(e, elastic.InjectedFailure):
-                    self.monitor.note_failure(
-                        at, lost, detail=f"injected at round {e.round}")
-                survivors = [i for i in range(self.n) if i != lost]
-                if not survivors:
-                    raise
-                self.monitor.resize(survivors)
-                self.n = len(survivors)
-                rec: dict = {"failed_step": at, "worker": lost}
-                if self.state.residual is not None:
-                    # EF residuals accumulate per-topology quantization
-                    # error — never reuse them across a resize
-                    self.state.residual = compression.init_residuals(
-                        self.state.params)
-                    rec["ef_reset"] = True
-                resume = self._restore()
-                rec.update(resume_step=resume, steps_lost=at - resume,
-                           n_workers=self.n,
-                           wall_s=time.perf_counter() - t0)
-                self.recoveries.append(rec)
-                if self.verbose:
-                    print(f"[supervisor] lost worker {lost} ({e}); "
-                          f"replanning on {self.n} survivors, resuming "
-                          f"at step {resume}", flush=True)
-                step = resume
+                step = self._run_steps(step, total_steps, fail, skew,
+                                       rejoin_step)
+            except (health_mod.WorkerLoss, health_mod.PodLoss,
+                    elastic.InjectedFailure) as e:
+                step = self._recover(e, step)
                 fail = None                  # consumed
         self.close()
         return self.summary()
 
-    def _run_steps(self, start: int, total: int, fail, skew) -> int:
+    def _recover(self, e: Exception, step: int) -> int:
+        """Shrink the fleet past the loss ``e``, restore, and return the
+        step to resume at."""
+        t0 = time.perf_counter()
+        at = int(getattr(e, "step", None) or step)
+        pod = getattr(e, "pod", None)
+        rec: dict = {"failed_step": at}
+        if pod is not None:
+            if self.pods <= 1:
+                raise e
+            lost = int(pod) % self.pods
+            # every surviving pod runs the same schedule over the same
+            # pinned compositions: demote to the largest divisor fleet
+            # and idle the remainder
+            new_pods = max(d for d in range(1, self.pods)
+                           if self.p0 % d == 0)
+            if isinstance(e, elastic.InjectedFailure):
+                self.monitor.note_failure(
+                    at, pod=lost, detail=f"injected at round {e.round}")
+            self.monitor.resize(
+                topology=health_mod.FleetTopology(new_pods, self.n))
+            rec["pod"] = lost
+            rec["idle_pods"] = (self.pods - 1) - new_pods
+            self.pods = new_pods
+            what = f"pod {lost}"
+        else:
+            lost = (int(getattr(e, "worker", None) or 0)
+                    % (self.pods * self.n))
+            if isinstance(e, elastic.InjectedFailure):
+                self.monitor.note_failure(
+                    at, lost, detail=f"injected at round {e.round}")
+            if self.pods == 1:
+                survivors = [i for i in range(self.n) if i != lost]
+                if not survivors:
+                    raise e
+                self.monitor.resize(survivors)
+                self.n = len(survivors)
+            else:
+                # multi-pod worker loss: the pods run one schedule, so
+                # the lost worker's slot goes in every pod
+                if self.n <= 1:
+                    raise e
+                self.monitor.resize(topology=health_mod.FleetTopology(
+                    self.pods, self.n - 1))
+                self.n -= 1
+            rec["worker"] = lost
+            what = f"worker {lost}"
+        if self.state.residual is not None:
+            # EF residuals accumulate per-topology quantization error —
+            # never reuse them across a resize
+            self.state.residual = compression.init_residuals(
+                self.state.params)
+            rec["ef_reset"] = True
+        resume = self._restore()
+        rec.update(resume_step=resume, steps_lost=at - resume,
+                   pods=self.pods, n_workers=self.n,
+                   wall_s=time.perf_counter() - t0)
+        self.recoveries.append(rec)
+        if pod is not None:
+            # overlapping recovery: survivors train on while the regrow
+            # path warms on a host thread
+            self._start_prewarm(resume)
+        if self.verbose:
+            print(f"[supervisor] lost {what} ({e}); replanning on "
+                  f"{self.pods}x{self.n} survivors, resuming at step "
+                  f"{resume}", flush=True)
+        return resume
+
+    def _run_steps(self, start: int, total: int, fail, skew,
+                   rejoin_step=None) -> int:
         for step in range(start, total):
-            n = self.n
+            if (rejoin_step is not None and step >= int(rejoin_step)
+                    and (self.pods, self.n) != (self.p0, self.n0)):
+                self._rejoin(step)
+            pods, n = self.pods, self.n
+            nt = pods * n
             skew_vec = None
             if skew:
-                skew_vec = np.ones(n)
+                skew_vec = np.ones(nt)
                 for w, f in dict(skew).items():
-                    if 0 <= int(w) < n:
+                    if 0 <= int(w) < nt:
                         skew_vec[int(w)] = float(f)
             b = self.loader.next()
-            if (fail is not None and step == int(fail.step)
-                    and int(fail.worker) < n):
-                # mid-step: the batch was fetched and the round loop
-                # "started" — the step never commits, and the loader
-                # state is left advanced; recovery must rewind it from
-                # the checkpoint (replay proof)
-                raise fail
+            if fail is not None and step == int(fail.step):
+                hit = (int(fail.pod) < pods if fail.pod is not None
+                       else int(fail.worker) < nt)
+                if hit:
+                    # mid-step: the batch was fetched and the round loop
+                    # "started" — the step never commits, and the loader
+                    # state is left advanced; recovery must rewind it
+                    # from the checkpoint (replay proof)
+                    raise fail
             speeds = self.monitor.planning_speeds()
-            scheds, keys = self._plan(b.seqlens, n, speeds)
-            tpw = elastic.replan_tpw(b.seqlens, n, self.pcfg.block_size)
-            batch = batch_arrays(self._fleet_batch(b, n, tpw), self.cfg,
-                                 self.device)
-            fn = self._step_fn(step, n, keys, scheds)
+            scheds, keys = self._plan(b.seqlens, pods, n, speeds)
+            tpw = elastic.replan_tpw(
+                elastic.pod_survivor_seqlens(b.seqlens, self.p0, pods),
+                n, self.pcfg.block_size)
+            batch = batch_arrays(self._fleet_batch(b, pods, n, tpw),
+                                 self.cfg, self.device)
+            fn = self._step_fn(step, pods, n, keys, scheds)
             if step + 1 < total:
-                self._prefetch(self.loader.peek_seqlens(), n, speeds)
+                self._prefetch(self.loader.peek_seqlens(), pods, n, speeds)
             s = self.state
             out, dt = ex.timed_call(fn, s.params, s.opt, s.residual, batch)
             s.params, s.opt, s.residual, loss, gnorm = out
             self.monitor.observe(
-                step, health_mod.per_worker_times(dt, n, skew_vec))
+                step, health_mod.per_worker_times(dt, nt, skew_vec))
             ev = self.monitor.maybe_replan(step)
             if ev is not None and self.verbose:
                 print(f"[supervisor] {ev.kind} workers {ev.workers} "
@@ -728,7 +823,7 @@ class Supervisor:
                       f"{ev.detail}", flush=True)
             self.monitor.check(step)
             self.history.append(StepRecord(step, float(loss), float(gnorm),
-                                           dt * 1e3, n))
+                                           dt * 1e3, n, pods))
             self.last_scheds = scheds
             every = max(int(self.pcfg.checkpoint_every), 0)
             if every and (step + 1) % every == 0:
@@ -736,10 +831,121 @@ class Supervisor:
             if self.verbose:
                 print(f"step {step:5d}  loss {float(loss):.4f}  "
                       f"gnorm {float(gnorm):.3f}  "
-                      f"[{n}w {dt * 1e3:.0f}ms]", flush=True)
+                      f"[{pods}x{n}w {dt * 1e3:.0f}ms]", flush=True)
         return total
 
+    # -- overlapping recovery ----------------------------------------------
+
+    def _start_prewarm(self, resume: int) -> None:
+        """Start the regrow-prewarm thread after a pod loss (host work
+        only: planning, verification and file reads, nothing on the
+        card while the survivors' steps run)."""
+        self._prewarm_info = {
+            "plans_prefetched": 0, "survivor_schedules_verified": 0,
+            "violations": 0, "staged_step": None}
+        # pin the checkpoint to stage now (the newest committed step, the
+        # one the recovery restored): survivor saves landing while the
+        # thread runs must not move it
+        stage = (self.manager.latest_step()
+                 if self.manager is not None else None)
+        self._prewarm = threading.Thread(
+            target=self._prewarm_regrow,
+            args=(resume, stage, self._prewarm_info), daemon=True)
+        self._prewarm.start()
+
+    def _prewarm_regrow(self, resume: int, stage: int | None,
+                        info: dict) -> None:
+        from ..analysis import verifier
+        from ..checkpoint import checkpointer
+        try:
+            # the pinned stream's distinct upcoming compositions (pure in
+            # (seed, step): safe to read from a thread)
+            horizon = (max(2 * self.monitor.window, 4) if self.loader.fresh
+                       else len(self.loader.compositions))
+            seen: set = set()
+            comps = []
+            for k in range(horizon):
+                cid, seqlens = self.loader.composition(resume + k)
+                if cid not in seen:
+                    seen.add(cid)
+                    comps.append(seqlens)
+            nh, nkv, hd = self._heads
+            for seqlens in comps:
+                for m in self.group_masks:
+                    # the survivor plan: built (shared with the live loop
+                    # through the cache) and statically verified
+                    skey = self._group_key(seqlens, self.pods, self.n, m,
+                                           None)
+                    sched = self.plan_cache.get_or_build(
+                        skey, self._group_build(seqlens, self.pods, self.n,
+                                                m, None))
+                    bad = verifier.verify_schedule(
+                        sched, n_q_heads=nh, n_kv_heads=nkv, head_dim=hd,
+                        in_dtype_bytes=float(self.pcfg.in_dtype_bytes))
+                    info["survivor_schedules_verified"] += 1
+                    info["violations"] += len(bad)
+                    # the full-fleet plan the regrown fleet will ask for:
+                    # at full strength replan_key is the pre-shrink key
+                    fkey = self._group_key(seqlens, self.p0, self.n0, m,
+                                           None)
+                    if fkey not in self.plan_cache:
+                        self.plan_cache.get_or_build(
+                            fkey, self._group_build(seqlens, self.p0,
+                                                    self.n0, m, None))
+                    info["plans_prefetched"] += 1
+            if self.manager is not None and stage is not None:
+                # only the structure of ``like`` is read; leaves come
+                # back as host tensors
+                like = {"params": self.state.params, "opt": self.state.opt}
+                path = self.manager.path(stage)
+                self._staged = {"step": int(stage),
+                                "tree": checkpointer.restore(path, like),
+                                "extra": checkpointer.read_extra(path)}
+                info["staged_step"] = int(stage)
+        except Exception as exc:    # best effort: the rejoin goes cold
+            info["error"] = repr(exc)
+
+    def _rejoin(self, step: int) -> None:
+        """Regrow the fleet to full strength at a step boundary: join the
+        prewarm thread, reset the monitor's topology and the EF
+        residuals, and record the rejoin's cost and whether the
+        full-fleet plan keys were already cached.  The reference pulls
+        the survivors' state to the host and re-shards it onto the big
+        mesh; stacked workers read the same tensors at any fleet size,
+        so the state stays on the card and ``rejoin_ms`` measures the
+        rest of the same span."""
+        t0 = time.perf_counter()
+        if self._prewarm is not None:
+            self._prewarm.join()
+            self._prewarm = None
+        m0 = self.plan_cache.stats.misses
+        c0 = len(self.compiled_at)
+        self.pods, self.n = self.p0, self.n0
+        self.monitor.resize(
+            topology=health_mod.FleetTopology(self.p0, self.n0))
+        if self.state.residual is not None:
+            self.state.residual = compression.init_residuals(
+                self.state.params)
+        keys_cached = all(
+            self._group_key(self.loader.peek_seqlens(), self.p0, self.n0,
+                            m, None) in self.plan_cache
+            for m in self.group_masks)
+        self.rejoins.append({
+            "step": step, "pods": self.pods, "n_workers": self.n,
+            "rejoin_ms": (time.perf_counter() - t0) * 1e3,
+            "plan_keys_cached": keys_cached,
+            "plan_misses_before": m0, "compiles_before": c0,
+            "prewarm": self._prewarm_info})
+        if self.verbose:
+            print(f"[supervisor] pod rejoin at step {step}: fleet back to "
+                  f"{self.p0}x{self.n0} "
+                  f"({'warm' if keys_cached else 'cold'} plans)",
+                  flush=True)
+
     def close(self) -> None:
+        if self._prewarm is not None:
+            self._prewarm.join()
+            self._prewarm = None
         self.planner.shutdown()
         if self.manager is not None:
             self.manager.wait()
@@ -748,8 +954,10 @@ class Supervisor:
         s = self.plan_cache.stats
         return {
             "steps": len(self.history),
+            "pods": self.pods,
             "n_workers": self.n,
             "recoveries": self.recoveries,
+            "rejoins": self.rejoins,
             "events": [dataclasses.asdict(e)
                        for e in self.monitor.events],
             "compiles": len(self.compiled_at),
@@ -779,9 +987,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use the reduced smoke config")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--mesh", default="1x1",
-                   help="DxM (data x model) stacked mesh; a pod mesh PxDxM"
-                        " is not ported and raises (ROADMAP Queue A item"
-                        " 7)")
+                   help="DxM (data x model) or PxDxM (pod x data x model)"
+                        " stacked mesh: P pods of D CP workers, every pod"
+                        " running the same D-worker plan")
     p.add_argument("--dist", default="uniform",
                    choices=["uniform", "real_world", "less_long_tailed",
                             "bimodal"])
@@ -846,10 +1054,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--supervised", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="fault-tolerant supervised loop for FCP runs with"
-                        " several CP workers and no model axis: health"
-                        " telemetry, closed-loop straggler demotion,"
-                        " checkpoint/replay recovery (--no-supervised"
-                        " forces the plain loop)")
+                        " several CP workers and no model axis (single- or"
+                        " multi-pod): health telemetry, closed-loop"
+                        " straggler demotion, pod-level failure domains"
+                        " with overlapping recovery, checkpoint/replay"
+                        " recovery (--no-supervised forces the plain"
+                        " loop)")
     p.add_argument("--health-window", type=int, default=8,
                    help="consecutive straggler observations before a"
                         " demotion replan fires (hysteresis)")
@@ -875,22 +1085,16 @@ def parse_args(argv=None) -> argparse.Namespace:
 def trainer_from_args(args: argparse.Namespace) -> Trainer | Supervisor:
     """The CLI's loop, routed as the reference routes it: the
     :class:`Supervisor` for ``--supervised`` FCP runs with more than one
-    CP worker and no model axis, else the plain :class:`Trainer`
-    (raises for what is not ported, warns for a parity-only flag set to
-    anything but its default)."""
+    CP worker and no model axis, else the plain :class:`Trainer` (warns
+    for a parity-only flag set to anything but its default)."""
     parser = build_parser()
     for name in PARITY_ONLY_FLAGS:
         if getattr(args, name) != parser.get_default(name):
             warnings.warn(f"--{name.replace('_', '-')} is accepted for the "
                           f"reference CLI's parity and has no effect here",
                           stacklevel=2)
-    dims = [int(x) for x in args.mesh.split("x")]
-    if len(dims) == 3:
-        raise NotImplementedError(POD_MESHES)
-    if len(dims) != 2:
-        raise SystemExit("--mesh must be DxM")
+    mesh = parse_mesh(args.mesh)
     device = resolve_device(args.device)
-    mesh = StackedMesh(tuple(dims), ("data", "model"))
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = apply_overrides(cfg, args.override)
     pcfg = ParallelConfig(block_size=args.block_size,
@@ -917,7 +1121,8 @@ def trainer_from_args(args: argparse.Namespace) -> Trainer | Supervisor:
     if args.supervised and cfg.uses_attention and n_cp > 1 and tp == 1:
         return Supervisor(cfg, pcfg, tcfg, n_workers=n_cp,
                           tokens_per_worker=args.tokens_per_worker,
-                          dist=args.dist, fresh=args.fresh_stream,
+                          pods=mesh.pods, dist=args.dist,
+                          fresh=args.fresh_stream,
                           checkpoint_dir=args.checkpoint_dir, device=device,
                           attn_impl=args.attn_impl)
     return Trainer(cfg, pcfg, tcfg, mesh,

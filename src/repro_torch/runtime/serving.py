@@ -7,9 +7,14 @@
 * **Bucketed FCP prefill** — prompts prefill in uniform batches of
   ``budget / E`` sequences padded to one bucket edge ``E``; every batch
   of a bucket re-hits the same plan-cache key, so a mixed-length stream
-  plans once per bucket.  Unlike the reference, the port runs FCP
-  prefill on a one-worker mesh too: on the card, prefill always goes
-  through the fused run kernel.
+  plans once per bucket.  As in the reference, FCP prefills only when
+  ``prefill_impl="fcp"``, the model has attention and the prefill
+  frames (``pod x data``) are more than one; otherwise the **dense
+  escape hatch** prefills: ``models.registry.dense_attn_fn`` over the
+  bucket's packed segment ids and positions (plain PyTorch, as the
+  reference's runs no Pallas kernel).  On a pod mesh FCP prefill falls
+  back to dense with a ``RuntimeWarning``, or raises under
+  ``ServeConfig.strict_prefill``.
 * **Exactness per family** — attention families pad *up* to the edge:
   the ragged last-index gather is exact under the causal mask, and a
   prompt longer than the budget chunks down.  Recurrent families (SSM,
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from collections import deque
 from typing import Sequence
 
@@ -40,8 +46,9 @@ from .. import resolve_device
 from ..configs.base import ParallelConfig, ServeConfig
 from ..core import plan_cache as pc
 from ..launch import serve as servelib
+from ..launch.mesh import stacked_frames
 from ..models import Model
-from ..models.registry import RECURRENT
+from ..models.registry import RECURRENT, dense_attn_fn
 
 
 class QueueFull(RuntimeError):
@@ -204,12 +211,13 @@ class ServingLoop:
     """Continuous-batching serving driver (see module docstring).
 
     ``device`` defaults to ``"cuda"`` and raises when no card is
-    present; prefill and decode run the CUDA kernels (their plain
-    versions on the CPU).  ``attn_impl`` is the executor impl of both
-    (``"fused_xla"`` runs the plain versions on the card, to hold the
-    kernels against them).  ``run(prompts)`` drives an offline stream end
-    to end; ``submit``/``_refill``/``_dispatch_step`` are the building
-    blocks an online server would call.
+    present; FCP prefill and decode run the CUDA kernels (their plain
+    versions on the CPU), the dense prefill plain PyTorch.
+    ``attn_impl`` is the executor impl of both (``"fused_xla"`` runs the
+    plain versions on the card, to hold the kernels against them).
+    ``run(prompts)`` drives an offline stream end to end;
+    ``submit``/``_refill``/``_dispatch_step`` are the building blocks an
+    online server would call.
     """
 
     def __init__(self, model: Model, params, mesh,
@@ -222,23 +230,32 @@ class ServingLoop:
         self.pcfg, self.scfg = pcfg, scfg
         cfg = model.cfg
         axis_sizes = dict(mesh.shape)
-        if axis_sizes.get("pod", 1) > 1:
-            raise ValueError("pod meshes are not ported yet (ROADMAP Queue A "
-                             "item 7)")
-        self.n_cp = axis_sizes.get("data", 1)
+        # prefill frames stack over the same axes as training batches
+        self.n_cp = stacked_frames(mesh)
         self.tpw = int(scfg.prefill_tokens_per_worker)
         self.budget = self.n_cp * self.tpw
-        if scfg.prefill_impl != "fcp":
-            # the reference's dense escape hatch is not ported: on the
-            # card, prefill always goes through the fused run kernel
-            raise NotImplementedError(
-                f"prefill_impl {scfg.prefill_impl!r} is not ported; "
-                f"only 'fcp' is (ROADMAP Queue A item 5)")
-        if self.tpw % pcfg.block_size:
+        self._uses_fcp = (scfg.prefill_impl == "fcp"
+                          and cfg.uses_attention and self.n_cp > 1)
+        if self._uses_fcp and axis_sizes.get("pod", 1) > 1:
+            if scfg.strict_prefill:
+                raise ValueError(
+                    "FCP prefill runs on 2-axis (data, model) meshes "
+                    "and ServeConfig.strict_prefill is set; pass "
+                    "prefill_impl='dense' on pod meshes")
+            warnings.warn(
+                "FCP prefill does not support pod meshes yet; falling "
+                "back to prefill_impl='dense' (set "
+                "ServeConfig.strict_prefill=True to fail instead)",
+                RuntimeWarning, stacklevel=2)
+            self._uses_fcp = False
+        if self._uses_fcp and self.tpw % pcfg.block_size:
             raise ValueError(
                 f"prefill_tokens_per_worker {self.tpw} must be a "
                 f"multiple of block_size {pcfg.block_size} for FCP "
                 f"prefill")
+        if scfg.prefill_impl not in ("fcp", "dense"):
+            raise ValueError(f"unknown prefill_impl "
+                             f"{scfg.prefill_impl!r}")
         self.edges = pc.prefill_bucket_edges(scfg.bucket_min, self.budget)
         self.queue = RequestQueue(scfg)
         self.plan_cache = plan_cache or pc.PlanCache(pcfg.plan_cache_size)
@@ -380,24 +397,42 @@ class ServingLoop:
                 self.model.cfg, pcfg, comp, self.n_cp, self.tpw,
                 mask=True))
 
+    @property
+    def prefill_impl(self) -> str:
+        """``"fcp"`` or ``"dense"``: the prefill this loop runs."""
+        return "fcp" if self._uses_fcp else "dense"
+
     def prefill_fn(self, E: int, impl: str | None = None):
         """The prefill step of bucket ``E`` (built once per bucket and
-        impl): ``fn(params, batch, last_idx)``.  ``impl`` is the
+        impl): ``fn(params, batch, last_idx)``.  ``impl`` is the FCP
         executor's (default the loop's ``attn_impl``; ``"fused_xla"``
-        holds the kernels against their plain versions).  Recurrent
-        families prefill chunks, whose last token is the row's last, so
-        their step does not read ``last_idx``; the SSM family plans no
-        attention."""
+        holds the kernels against their plain versions; the dense
+        prefill reads none).  Recurrent families prefill chunks, whose
+        last token is the row's last, so their step does not read
+        ``last_idx``; the SSM family plans no attention."""
         impl = impl or self.attn_impl
         cfg = self.model.cfg
-        sched = self._schedule_for(E) if cfg.uses_attention else None
+        Pn = self.budget // E
+        sched = self._schedule_for(E) if self._uses_fcp else None
         if (E, impl) in self._prefill_fns:
             return self._prefill_fns[(E, impl)]
-        attn = servelib.make_fcp_attn_fn(
-            sched, self.device, self.pcfg, impl) if sched else None
+        if sched is not None:
+            attn = servelib.make_fcp_attn_fn(sched, self.device, self.pcfg,
+                                             impl)
+        elif cfg.uses_attention:
+            # the dense escape hatch: one segment per packed sequence
+            shape = (self.n_cp, self.tpw)
+            seq = torch.arange(Pn, dtype=torch.int32,
+                               device=self.device).repeat_interleave(E)
+            posf = torch.arange(E, dtype=torch.int32,
+                                device=self.device).repeat(Pn)
+            attn = dense_attn_fn(seq.reshape(shape), posf.reshape(shape),
+                                 mask=True)
+        else:
+            attn = None
         ragged = cfg.family not in RECURRENT
         step = servelib.build_prefill_step(self.model, attn,
-                                           batch_size=self.budget // E,
+                                           batch_size=Pn,
                                            seq_len=E, ragged=ragged)
         fn = step if ragged else (
             lambda params, batch, last_idx=None: step(params, batch))
@@ -576,7 +611,7 @@ class ServingLoop:
             "prefill_fill": (self.prefill_rows_real
                              / max(self.prefill_rows, 1)),
             "bucket_edges": list(self.edges),
-            "prefill_impl": "fcp",
+            "prefill_impl": self.prefill_impl,
             **s,
             "plan_cache": self.plan_cache.stats.to_dict(),
         }

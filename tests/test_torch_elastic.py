@@ -2,7 +2,8 @@
 the checkpointer's format against the reference's (either package
 restores the other's files), CRC corruption and uncommitted directories,
 the kill and straggler drills of ``tests/multidevice/run_fault_drill.py``
-on stacked CPU workers held to that runner's limits, a resumed plain
+on stacked CPU workers held to that runner's limits, a pod mesh through
+the CLI's Supervisor, a resumed plain
 loop against an uninterrupted one, and ``grad_accum.accumulate`` against
 the reference's.
 
@@ -32,6 +33,8 @@ from repro_torch.launch import drills
 from repro_torch.launch import train as T
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.optimizer import adamw, grad_accum
+from test_torch_threads import intra_op_share  # noqa: F401
+
 
 # the fault drill's geometry (N0 4 workers, smoke widths)
 N0, TPW0, BS = 4, 512, 128
@@ -174,9 +177,12 @@ def test_kill_drill(tmp_path):
 
 def test_kill_drill_waits_for_inflight_saves(tmp_path, monkeypatch):
     """Checkpoint file IO slower than the steps between a save and the
-    failure: every async save stays uncommitted until someone waits on
-    its manager.  Recovery must wait for them and resume from the newest
-    (a card's steps outrun its disk writes the same way)."""
+    failure: a save stays uncommitted until someone waits on its manager
+    with it in flight.  The Supervisor runs one save at a time, so with
+    the failure before the second save none has committed when it
+    strikes; recovery must wait for the one in flight and resume after
+    it, not from the seed (a card's steps outrun its disk writes the
+    same way)."""
     released = threading.Event()
     save, wait = checkpointer.save, CheckpointManager.wait
 
@@ -185,15 +191,17 @@ def test_kill_drill_waits_for_inflight_saves(tmp_path, monkeypatch):
         save(*a, **kw)
 
     def releasing_wait(self):
-        released.set()
+        if self._pending:
+            released.set()
         wait(self)
 
     monkeypatch.setattr(checkpointer, "save", slow_save)
     monkeypatch.setattr(CheckpointManager, "wait", releasing_wait)
+    fail_step = CKPT_EVERY + 1
     out = drills.kill_drill(_sup_factory(_pcfg()), tmp_path, total=TOTAL,
-                            fail_step=FAIL_STEP, fail_worker=FAIL_WORKER,
+                            fail_step=fail_step, fail_worker=FAIL_WORKER,
                             fail_round=FAIL_ROUND, every=CKPT_EVERY)
-    assert out["steps_lost"] == 1 and out["resume_step"] == FAIL_STEP - 1
+    assert out["steps_lost"] == 1 and out["resume_step"] == fail_step - 1
 
 
 def test_straggler_drill():
@@ -249,11 +257,22 @@ def test_grad_accum_matches_reference():
                                atol=1e-6, rtol=1e-6)
 
 
-def test_supervised_pod_mesh_raises():
+def test_supervised_pod_mesh_runs():
+    """The CLI sends a pod mesh to the Supervisor, which runs P pods of
+    the data axis's workers (the pod drill: ``tests/test_torch_pods.py``)."""
     argv = ["--arch", "stablelm_1_6b", "--smoke", "--mesh", "2x4x1",
-            "--device", "cpu", "--supervised"]
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        T.main(argv)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        T.Supervisor(_cfg(), _pcfg(), TrainConfig(), n_workers=2,
-                     tokens_per_worker=TPW0, pods=2, device="cpu")
+            "--dist", "real_world", "--block-size", "32",
+            "--tokens-per-worker", "64", "--steps", "2", "--device", "cpu",
+            "--supervised", "--attn-impl", "fused_xla"]
+    sup = T.main(argv)
+    assert isinstance(sup, T.Supervisor) and (sup.p0, sup.n0) == (2, 4)
+    out = sup.summary()
+    assert (out["pods"], out["n_workers"], out["steps"]) == (2, 4, 2)
+    assert sup.monitor.topology.n_total == 8
+    assert all(r.pods == 2 and np.isfinite(r.loss) for r in sup.history)
+    direct = T.Supervisor(_cfg(), _pcfg(), TrainConfig(), n_workers=2,
+                          tokens_per_worker=TPW0, pods=2, device="cpu",
+                          start_fleet=(1, 2))
+    assert (direct.p0, direct.pods, direct.n) == (2, 1, 2)
+    assert direct._mesh(1, 2).shape == {"pod": 1, "data": 2, "model": 1}
+    direct.close()

@@ -20,6 +20,8 @@ from repro_torch.core import executor as ex
 from repro_torch.core.schedule import make_schedule
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.runtime import wire as twire
+from test_torch_threads import intra_op_share  # noqa: F401
+
 
 N, TPW, BS, H, KH, D = 4, 64, 16, 4, 2, 32
 SEQLENS = [90, 50, 40, 30, 26, 20]           # mixed docs over 256 tokens

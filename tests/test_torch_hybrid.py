@@ -33,6 +33,8 @@ from repro_torch.launch import train as T
 from repro_torch.models import (Model, dense_attn_fn, dense_cache_update,
                                 dense_decode_attn)
 from repro_torch.models.convert import params_from_numpy
+from test_torch_threads import intra_op_share  # noqa: F401
+
 
 ARCH = "zamba2_2_7b"
 TOL = 1e-5

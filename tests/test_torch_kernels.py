@@ -28,6 +28,8 @@ from repro_torch import masks as tmasks
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from test_torch_threads import intra_op_share  # noqa: F401
+
 
 # tile-boundary window / chunk (W % 64 != 0) on purpose
 MASKS = ["causal", "swa:96", "chunked:96", "full"]

@@ -17,6 +17,8 @@ from repro.configs.base import smoke_config as j_smoke
 from repro.models import moe as jmoe
 from repro_torch.configs.base import smoke_config
 from repro_torch.models import moe
+from test_torch_threads import intra_op_share  # noqa: F401
+
 
 ARCHS = ["granite_moe_3b_a800m", "moonshot_v1_16b_a3b"]
 T = 48                              # tokens of a frame

@@ -38,6 +38,8 @@ from repro_torch.models import Model
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.optimizer import adamw
 from repro_torch.runtime.serving import ServingLoop
+from test_torch_threads import intra_op_share  # noqa: F401
+
 
 N, TPW, BS, H, KH, D = 4, 64, 16, 4, 2, 32
 SEQLENS = [90, 50, 40, 30, 26, 20]           # mixed docs over 256 tokens

@@ -1,19 +1,28 @@
-"""The port's serving loop (FCP prefill + CP decode on a stacked mesh,
-plain kernel versions on the CPU) against the reference: token for token
-equal to the JAX ``ServingLoop`` on a 1x1 mesh, and prefill last-token
-logits within 1e-5 normalized of the JAX dense-attention prefill, on the
-same f32 smoke weights of a dense (StableLM), an MoE (Granite), an SSM
-(Mamba2) and a hybrid (Zamba2) model.
+"""The port's serving loop (FCP or dense prefill + CP decode on a stacked
+mesh, plain kernel versions on the CPU) against the reference: token for
+token equal to the JAX ``ServingLoop`` on a 1x1 mesh, and prefill
+last-token logits within 1e-5 normalized of the JAX dense-attention
+prefill, on the same f32 smoke weights of a dense (StableLM), an MoE
+(Granite), an SSM (Mamba2) and a hybrid (Zamba2) model.
 
+As in the reference, FCP prefills only with more than one prefill frame
+(``pod x data``) and attention; otherwise the dense escape hatch does.
 MoE capacity is per frame, and a prefill batch's frames are its CP
-workers (``[n_cp, tokens_per_worker]`` in both packages), so the MoE
-model serves on one CP worker, as the reference's 1x1 mesh does (2
-cache shards); a dense model's tokens do not depend on the split and
-serve on 2 workers.  The recurrent models chunk their prompts down to a
-bucket edge (or skip prefill below the smallest edge), so they serve
-with the reference's prefill budget of 128 tokens: the same edges, the
-same chunks and tails; the hybrid's shared attention prefills through
-FCP on 2 workers of 64 tokens."""
+workers (``[n_cp, tokens_per_worker]`` in both packages): the MoE model
+serves on 2 workers of 128 tokens, and since every prefill batch here
+holds one request, its first frame is the reference's one frame, token
+for token (the second holds padding rows only).  A dense model's tokens
+do not depend on the split and serve on 2 workers.  The recurrent models
+chunk their prompts down to a bucket edge (or skip prefill below the
+smallest edge), so they serve with the reference's prefill budget of 128
+tokens: the same edges, the same chunks and tails; the hybrid's shared
+attention prefills through FCP on 2 workers of 64 tokens.
+
+The dense prefill on a 1x1 mesh gives the JAX loop's and the FCP loop's
+tokens; a pod mesh (2x2x2) serves densely with the reference's
+``RuntimeWarning`` and the 4x2 FCP loop's tokens, and raises under
+``strict_prefill`` (``tests/test_torch_pods.py`` holds the prefill each
+mesh dispatches to against the reference's)."""
 
 import dataclasses
 
@@ -36,6 +45,8 @@ from repro_torch.launch.mesh import StackedMesh
 from repro_torch.models import Model
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime.serving import ServingLoop
+from test_torch_threads import intra_op_share  # noqa: F401
+
 
 SERVE = dict(cache_len=160, decode_slots=2, queue_depth=8,
              max_new_tokens=8, prefill_tokens_per_worker=128,
@@ -44,7 +55,7 @@ LENS = [5, 23, 64, 128]          # below the smallest edge .. largest
 # recurrent: below the smallest edge (fresh), at an edge, between edges
 # (a tail), beyond the budget (chunk 128 and a tail)
 LENS_RECURRENT = [5, 16, 23, 64, 150]
-MESH = {"stablelm_1_6b": (2, 2), "granite_moe_3b_a800m": (1, 2),
+MESH = {"stablelm_1_6b": (2, 2), "granite_moe_3b_a800m": (2, 1),
         "mamba2_130m": (1, 2), "zamba2_2_7b": (2, 2)}
 ATTENTION = ["stablelm_1_6b", "granite_moe_3b_a800m"]
 TPW = {"zamba2_2_7b": 64}         # prefill tokens per worker (default 128)
@@ -67,33 +78,55 @@ def attn_weights(request):
     return _weights(request.param)
 
 
-def _port_loop(tparams, arch="stablelm_1_6b"):
+def _port_loop(tparams, arch="stablelm_1_6b", mesh=None, **serve_kw):
     cfg = dataclasses.replace(smoke_config(arch), param_dtype="float32")
     serve = dict(SERVE, prefill_tokens_per_worker=TPW.get(arch, 128))
-    return ServingLoop(Model(cfg), tparams,
-                       StackedMesh(MESH[arch], ("data", "model")),
+    serve.update(serve_kw)
+    return ServingLoop(Model(cfg), tparams, StackedMesh(mesh or MESH[arch]),
                        ParallelConfig(block_size=16), ServeConfig(**serve),
                        device="cpu")
 
 
-def test_tokens_match_jax_serving_loop(weights):
+def _prompts(cfg, lens, seed=3):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab_size, (L,)).astype(np.int32)
+            for L in lens]
+
+
+def _tokens(loop) -> dict:
+    return {r.rid: list(map(int, r.tokens)) for r in loop.stats.finished}
+
+
+@pytest.fixture(scope="module")
+def jax_tokens():
+    """The JAX 1x1 loop's tokens per model (LENS / LENS_RECURRENT
+    prompts, 6 new tokens each)."""
+    return {}
+
+
+def _jax_tokens(jax_tokens, arch, cfg, jparams, prompts) -> dict:
+    if arch not in jax_tokens:
+        jloop = JLoop(JModel(cfg), jparams,
+                      make_mesh((1, 1), ("data", "model")),
+                      JParallel(block_size=16), JServe(**SERVE))
+        jloop.run(prompts, max_new=6)
+        jax_tokens[arch] = _tokens(jloop)
+    return jax_tokens[arch]
+
+
+def test_tokens_match_jax_serving_loop(weights, jax_tokens):
     arch, cfg, jparams, tparams = weights
     recurrent = arch not in ATTENTION
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(1, cfg.vocab_size, (L,)).astype(np.int32)
-               for L in (LENS_RECURRENT if recurrent else LENS)]
-    jloop = JLoop(JModel(cfg), jparams, make_mesh((1, 1), ("data", "model")),
-                  JParallel(block_size=16), JServe(**SERVE))
-    jloop.run(prompts, max_new=6)
+    prompts = _prompts(cfg, LENS_RECURRENT if recurrent else LENS)
+    want = _jax_tokens(jax_tokens, arch, cfg, jparams, prompts)
     loop = _port_loop(tparams, arch)
     rep = loop.run(prompts, max_new=6)
-    want = {r.rid: list(map(int, r.tokens)) for r in jloop.stats.finished}
-    got = {r.rid: list(map(int, r.tokens)) for r in loop.stats.finished}
-    assert got == want
-    # every prompt rode one FCP prefill call and its bucket plan was
-    # cached; decode ran over 2 cache shards
-    assert rep["prefill_impl"] == "fcp" and loop.n_cp == loop.mesh.shape[
-        "data"]
+    assert _tokens(loop) == want
+    # every prompt of an attention model rode one FCP prefill call (2
+    # prefill frames) and its bucket plan was cached
+    assert rep["prefill_impl"] == ("fcp" if cfg.uses_attention
+                                   else "dense")
+    assert loop.n_cp == loop.mesh.shape["data"]
     modes = [r.mode for r in sorted(loop.stats.finished,
                                     key=lambda r: r.rid)]
     if not recurrent:
@@ -137,7 +170,7 @@ def test_prefill_logits_match_jax_dense_prefill(attn_weights):
 
 
 def test_admission_and_unported_families():
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
         Model(smoke_config("internvl2_1b"))
     loop = _port_loop(None)
     with pytest.raises(ValueError, match=r"cache_len >= \d+"):
@@ -145,7 +178,43 @@ def test_admission_and_unported_families():
                     max_new=8)
     with pytest.raises(ValueError, match="max_new"):
         loop.submit(np.ones((4,), np.int32), max_new=9)
-    with pytest.raises(NotImplementedError, match="'dense' is not ported"):
-        ServingLoop(loop.model, None, loop.mesh, loop.pcfg,
-                    ServeConfig(**SERVE, prefill_impl="dense"),
-                    device="cpu")
+    with pytest.raises(ValueError, match="unknown prefill_impl"):
+        _port_loop(None, prefill_impl="ring")
+
+
+def test_dense_prefill_matches_fcp_and_jax(attn_weights, jax_tokens):
+    """``prefill_impl="dense"`` on a 1x1 mesh: the JAX loop's tokens and
+    the port's FCP loop's."""
+    arch, cfg, jparams, tparams = attn_weights
+    prompts = _prompts(cfg, LENS)
+    want = _jax_tokens(jax_tokens, arch, cfg, jparams, prompts)
+    loop = _port_loop(tparams, arch, mesh=(1, 1), prefill_impl="dense")
+    rep = loop.run(prompts, max_new=6)
+    assert rep["prefill_impl"] == "dense" and loop.n_cp == 1
+    assert rep["plan_cache"]["misses"] == 0       # dense plans nothing
+    assert _tokens(loop) == want
+    fcp = _port_loop(tparams, arch)
+    assert fcp.run(prompts, max_new=6)["prefill_impl"] == "fcp"
+    assert _tokens(fcp) == want
+
+
+def test_pod_mesh_serves_dense_with_a_warning(attn_weights):
+    """The reference's pod-mesh fallback (tests/multidevice/run_serve.py):
+    FCP prefill on a 2x2x2 mesh warns, serves densely with the tokens of
+    a 4x2 FCP loop of the same prefill budget, and ``strict_prefill``
+    keeps the hard error."""
+    arch, cfg, _, tparams = attn_weights
+    prompts = _prompts(cfg, LENS)
+    fcp = _port_loop(tparams, arch, mesh=(4, 2), decode_slots=4,
+                     prefill_tokens_per_worker=64)
+    assert fcp.run(prompts, max_new=6)["prefill_impl"] == "fcp"
+    with pytest.warns(RuntimeWarning, match="pod meshes"):
+        pod = _port_loop(tparams, arch, mesh=(2, 2, 2), decode_slots=4,
+                         prefill_tokens_per_worker=64)
+    assert pod.n_cp == 4 and pod.budget == fcp.budget
+    rep = pod.run(prompts, max_new=6)
+    assert rep["prefill_impl"] == "dense" and rep["requests"] == len(LENS)
+    assert _tokens(pod) == _tokens(fcp)
+    with pytest.raises(ValueError, match="strict_prefill"):
+        _port_loop(tparams, arch, mesh=(2, 2, 2),
+                   prefill_tokens_per_worker=64, strict_prefill=True)

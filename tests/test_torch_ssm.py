@@ -26,6 +26,8 @@ from repro_torch.configs.base import smoke_config
 from repro_torch.models import Model
 from repro_torch.models import ssm
 from repro_torch.models.convert import params_from_numpy
+from test_torch_threads import intra_op_share  # noqa: F401
+
 
 TOL = 1e-5
 

@@ -47,6 +47,8 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.optimizer import adamw, schedules
 from repro_torch.runtime import compression
 from repro_torch.runtime import wire as twire
+from test_torch_threads import intra_op_share  # noqa: F401
+
 
 N, TPW, BS, H, KH, D = 4, 64, 16, 4, 2, 32
 SEQLENS = [90, 50, 40, 30, 26, 20]           # mixed docs over 256 tokens
@@ -338,7 +340,8 @@ def test_cli_rehearsal_on_cpu(tmp_path):
     """The reference's routing: a 4x1 FCP run goes through the
     Supervisor by default, ``--no-supervised`` through the plain loop;
     ``--supervised``, ``--layer-pipeline``, ``--overlap`` and
-    ``--checkpoint-dir`` run; pod meshes raise."""
+    ``--checkpoint-dir`` run; a pod mesh goes to the Supervisor with its
+    pods."""
     argv = ["--arch", "stablelm_1_6b", "--smoke", "--mesh", "4x1",
             "--dist", "real_world", "--block-size", "32",
             "--tokens-per-worker", "128", "--steps", "2", "--device", "cpu"]
@@ -357,8 +360,11 @@ def test_cli_rehearsal_on_cpu(tmp_path):
         np.testing.assert_allclose([r.loss for r in trainer.history],
                                    losses, rtol=1e-5)
     assert (tmp_path / "ck" / "step_1" / "COMMIT").exists()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        T.main(argv[:4] + ["2x4x1", "--device", "cpu"])
+    pod = T.trainer_from_args(T.parse_args(argv[:4] + ["2x4x1", "--device",
+                                                       "cpu"]))
+    assert isinstance(pod, T.Supervisor) and (pod.p0, pod.n0) == (2, 4)
+    assert pod.loader.pods == 2
+    pod.close()
 
 
 def test_default_training_attention_is_the_kernels(monkeypatch):
