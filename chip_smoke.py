@@ -7,17 +7,18 @@ Phases, each reported on its own line:
 
 1. build   — compile the CUDA kernels from ``kernels/csrc`` (nvcc), print
              ``ptxas -v`` per entry and the HMMA/HGMMA/FFMA counts of
-             every kernel (``cuobjdump -sass``); the bf16 D=64, D=80 and
-             D=128 builds of kernel 1, kernel 2's tiled variant and
-             kernels 3-6 must hold tensor-core instructions, and kernels
-             3 and 4 no FFMA dot-product loop.
+             every kernel (``cuobjdump -sass``); the bf16 D=16, D=64,
+             D=80 and D=128 builds of kernel 1, kernel 2's tiled variant
+             and kernels 3-6 must hold tensor-core instructions, and
+             kernels 3 and 4 no FFMA dot-product loop.
 2. kernels — each kernel against its plain PyTorch version on the card,
-             first at small shapes (all four mask kinds, GQA groups 1-4
-             and 8, D 32, 64, 80 and 128, a fully masked row, ragged
+             first at small shapes (all four mask kinds, GQA groups 1-4,
+             7 and 8, D 16, 32, 64, 80 and 128, a fully masked row, ragged
              tiles, a trash step; f32 and bf16), then at the shapes the
              main paths give it, with StableLM's heads (32 of 64),
              Granite's (24 of 64 over 8 kv heads), Moonlight's (16 of
-             128) and Zamba2's shared block's (32 of 80); times (CUDA
+             128), Zamba2's shared block's (32 of 80) and InternVL2's (14
+             of 64 over 2 kv heads: group 7); times (CUDA
              events around 10 launches back to back, median of 21 such
              windows, the plain versions 2 launches and 5 windows
              (PLAIN_TIMING); kernel 2, whose wrapper's host work is of the
@@ -47,13 +48,14 @@ Phases, each reported on its own line:
              batch is replayed through the plain versions and compared
              (f32 weights to TOL_SERVE_F32; bf16 weights to a multiple
              of bf16's own noise floor on that batch).  Then the same for
-             Granite-3.0-3B-A800M (MoE, 40 experts top-8, full depth) and
+             Granite-3.0-3B-A800M (MoE, 40 experts top-8, 4 of 32 layers)
+             and
              Moonlight-16B-A3B (MoE, head_dim 128, 4 of 48 layers), whose
              kernel runs take the experts the plain runs chose
              (``PinnedRoutes``); Zamba2-2.7B (hybrid, head_dim 80, 18 of
              54 layers; its f32 tokens kernels vs plain on a short
              stream, bf16's reported) and Mamba2-130M (SSM, no
-             attention, 8 of 24 layers: its prefill held against its
+             attention, 4 of 24 layers: its prefill held against its
              recurrent decode).
 4. train   — (a) full width, 4 layers, f32 weights: every parameter's
              gradient through the kernels against the plain versions,
@@ -69,7 +71,7 @@ Phases, each reported on its own line:
              its noise floor: the loss moved by the kernel's deviation
              from the plain attention output under random signs.  Then
              Granite at full width: (a) at 4 layers with pinned experts,
-             (b) at full depth, 3 fused steps, one profiled, one pallas
+             (b) at 4 of 32 layers, 3 fused steps, one profiled, one pallas
              step, the bf16 step-0 loss check and where an MoE layer's
              time goes; and Moonlight at 2 layers: 2 fused steps, one
              pallas step, the loss check; and Zamba2: 6-layer f32
@@ -126,6 +128,24 @@ Phases, each reported on its own line:
              prefill p50 beside phase 3's.  Then kernels 1 and 3-6 at the
              pod step's shapes (8 frames), each against its plain
              version, the ``stablelm pods`` rows of the kernels line.
+7. multimodal — InternVL2-1B (vision-language: 24 layers, d 896, 14 / 2
+             heads of 64, ``qkv_bias``, vocab 151655, the front-end stub of
+             1024-d patches) and MusicGen-large (audio: d 2048, 32 heads
+             of 64, 12 of 48 layers) at full width: served in
+             phase 3's setting (text-only, as the reference serves them),
+             then trained through the CLI's plain loop (3 fused steps,
+             one profiled, a pallas step, the bf16 step-0 loss check;
+             InternVL2 first at 4 layers with f32 weights, every leaf's
+             gradient against plain) with the device time of the front
+             end's product and of the head; then InternVL2's smoke config
+             (7 / 1 heads of 16: the path that needs head dim 16) with f32
+             weights, every leaf's gradient through kernels 1, 3, 4 and
+             2, 5, 6 against plain, a fused and a pallas step; then the
+             baseline CP policies (ring, ByteScale, Magi, WLB) on
+             StableLM's first training batch through the fused executor
+             (one layer's attention, bf16): forward against the dense
+             oracle, gradients against plain, each schedule's attention
+             device time beside FCP's.
 
 The line before the card's line is a JSON object with one entry per
 kernel, its StableLM main-path row at the top (kernel 2's at decode) and
@@ -166,7 +186,11 @@ TRAIN_ARGV = ["--arch", "stablelm_1_6b", "--mesh", "4x1", "--dist",
               "real_world", "--block-size", "512", "--tokens-per-worker",
               "2048", "--attn-impl", "fused", "--steps", "3",
               "--no-supervised"]
-MOE_ARCH = "granite_moe_3b_a800m"   # the MoE model at full width and depth
+MOE_ARCH = "granite_moe_3b_a800m"   # the MoE model at full width
+MOE_LAYERS = 4                      # of 32, serving and training
+MOE_WHY = ("depth cut for the run's time (phase 7's models took its "
+           "place); the layers kept are at full width (d 1536, 24 / 8 "
+           "heads of 64, 40 experts top-8)")
 D128_ARCH = "moonshot_v1_16b_a3b"   # the MoE model at head_dim 128
 D128_SERVE_LAYERS = 4               # of 48: ~0.57 B parameters a layer
 D128_TRAIN_LAYERS = 2
@@ -184,7 +208,7 @@ HYBRID_TRAIN_WHY = ("depth cut for the run's time (78.3 s at 54 layers); "
                     "the layers kept are at full width, every 6th followed "
                     "by the shared block")
 SSM_ARCH = "mamba2_130m"            # the SSM, full width (no attention)
-SSM_SERVE_LAYERS = 8                # of 24
+SSM_SERVE_LAYERS = 4                # of 24
 SSM_WHY = ("depth cut for the run's time (its host-bound decode loop took "
            "39.9 s at 24 layers); the layers kept are at full width")
 TOL_SSM_F32 = 1e-4                  # f32 prefill vs recurrent decode logits
@@ -286,8 +310,9 @@ def flash_variants(fa, name, args, mask):
 
 def small_flash_cases(fa, masks, dev):
     """Kernel 2 against its plain version, both variants on every case:
-    all four masks, f32 and bf16; D 64, 32 and 128; groups 2, 8, 4, 1
-    and 3 (granite's); a fully masked row; a ragged Sq = 72, Sk = 200;
+    all four masks, f32 and bf16; D 64, 32, 128, 80 and 16; groups 2, 8,
+    4, 1, 3 (granite's) and 7 (internvl2's, at D 16 and 64); a fully
+    masked row; a ragged Sq = 72, Sk = 200;
     Sq on both sides of the variant threshold; one document without
     padding (full tiles).
     Then decode rows over a strided cache view: lengths 0, 1, a split
@@ -312,7 +337,11 @@ def small_flash_cases(fa, masks, dev):
                     ((2, 6, 2, t_sq, 300, 128), 2, 0.0),
                     ((1, 4, 4, 136, 200, 80), 3, 0.1),
                     ((1, 4, 4, 128, 192, 80), 1, 0.0),
-                    ((2, 4, 4, t_sq, 300, 80), 2, 0.0)):
+                    ((2, 4, 4, t_sq, 300, 80), 2, 0.0),
+                    ((1, 7, 1, 136, 200, 16), 3, 0.1),
+                    ((2, 4, 4, 128, 192, 16), 1, 0.0),
+                    ((2, 7, 1, t_sq, 300, 16), 2, 0.0),
+                    ((1, 14, 2, 136, 200, 64), 3, 0.1)):
                 q = torch.tensor(rng.normal(size=(B, H, Sq, D)),
                                  dtype=dtype, device=dev)
                 k = torch.tensor(rng.normal(size=(B, KH, Sk, D)),
@@ -335,7 +364,7 @@ def small_flash_cases(fa, masks, dev):
     for dtype in (torch.float32, torch.bfloat16):
         for KH, H, D in ((2, 4, 64), (1, 8, 32), (4, 4, 64), (2, 8, 128),
                          (4, 4, 128), (2, 6, 64), (4, 12, 128), (8, 24, 64),
-                         (4, 4, 80)):
+                         (4, 4, 80), (1, 7, 16), (4, 4, 16), (2, 14, 64)):
             B, S = len(lengths), 3 * n + 100
             cache_k = torch.tensor(rng.normal(size=(B, S, KH, D)),
                                    dtype=dtype, device=dev)
@@ -355,7 +384,8 @@ def small_flash_cases(fa, masks, dev):
 
 def small_fused_cases(fa, masks, dev):
     """Kernel 1 against its plain version: all four masks, f32 and bf16,
-    D 64, 32 and 128, groups 2, 8, 4, 4 and 3 (twice), ragged q and kv
+    D 64, 32, 128, 80 and 16, groups 2, 8, 4, 4, 3 (twice), 1 and 7 (at
+    D 16 and 64), ragged q and kv
     tiles (bs 80 and 72), one document stream (so full tiles occur), a
     fully masked row, a trash step, slots a worker never visits."""
     import torch
@@ -366,7 +396,9 @@ def small_fused_cases(fa, masks, dev):
             for D, bs, H, KH in ((64, 128, 4, 2), (32, 80, 8, 1),
                                  (128, 128, 8, 2), (64, 72, 4, 1),
                                  (64, 128, 6, 2), (128, 80, 12, 4),
-                                 (80, 128, 4, 4), (80, 72, 4, 4)):
+                                 (80, 128, 4, 4), (80, 72, 4, 4),
+                                 (16, 128, 7, 1), (16, 72, 4, 4),
+                                 (64, 128, 14, 2)):
                 qs = torch.tensor(rng.normal(size=(N, SL, H, bs, D)),
                                   dtype=dtype, device=dev)
                 kxt = torch.tensor(rng.normal(size=(N, EX, KH, bs, D)),
@@ -600,9 +632,9 @@ def bwd_tables(sq, skv, kv_seg, kv_pos):
 def small_bwd_fused_cases(fa, masks, dev):
     """Kernels 3 and 4 against their plain versions: shared kv rows, an
     incoming accumulator, a q slot over three steps, trash steps (skipped
-    by the segment tables), a fully masked row, GQA groups 2, 8, 1, 4 and
-    3,
-    ragged tiles (bs 80), D 64, 32 and 128, f32 and bf16 inputs.  Each
+    by the segment tables), a fully masked row, GQA groups 2, 8, 1, 4, 3
+    and 7 (at D 16 and 64), ragged tiles (bs 80), D 64, 32, 128, 80 and
+    16, f32 and bf16 inputs.  Each
     kernel runs twice on the same inputs and must give the same bytes."""
     import torch
     rng = np.random.default_rng(6)
@@ -613,7 +645,9 @@ def small_bwd_fused_cases(fa, masks, dev):
                                  (64, 80, 4, 4), (32, 128, 8, 2),
                                  (128, 128, 4, 2), (128, 80, 8, 1),
                                  (64, 128, 6, 2), (128, 80, 12, 4),
-                                 (80, 128, 4, 4), (80, 80, 4, 4)):
+                                 (80, 128, 4, 4), (80, 80, 4, 4),
+                                 (16, 128, 7, 1), (16, 80, 4, 4),
+                                 (64, 80, 14, 2)):
                 def rnd(*shape, dt=dtype):
                     return torch.tensor(rng.normal(size=shape), dtype=dt,
                                         device=dev)
@@ -691,8 +725,9 @@ def small_bwd_fused_cases(fa, masks, dev):
 
 def small_bwd_flash_cases(fa, masks, dev):
     """Kernels 5 and 6 against their plain versions, with a non-zero
-    dlse, GQA (groups 2, 8, 4 and 3), a fully masked row, ragged tiles (Sq
-    and Sk not multiples of 16 or 64), D 64, 32 and 128, f32 and bf16;
+    dlse, GQA (groups 2, 8, 4, 3 and 7, the last at D 16 and 64), a fully
+    masked row, ragged tiles (Sq and Sk not multiples of 16 or 64), D 64,
+    32, 128, 80 and 16, f32 and bf16;
     one document without padding in the group-4 and a D = 128 case, so
     their tiles include ones where every pair is valid.  Each kernel runs
     twice on the same inputs and must give the same bytes."""
@@ -710,7 +745,10 @@ def small_bwd_flash_cases(fa, masks, dev):
                     ((1, 6, 2, 128, 200, 64), 3, 0.1),
                     ((1, 12, 4, 72, 192, 128), 1, 0.0),
                     ((1, 4, 4, 72, 200, 80), 3, 0.1),
-                    ((2, 4, 4, 128, 192, 80), 1, 0.0)):
+                    ((2, 4, 4, 128, 192, 80), 1, 0.0),
+                    ((1, 7, 1, 72, 200, 16), 3, 0.1),
+                    ((2, 4, 4, 128, 192, 16), 1, 0.0),
+                    ((1, 14, 2, 72, 200, 64), 3, 0.1)):
                 def rnd(*shape, dt=dtype):
                     return torch.tensor(rng.normal(size=shape), dtype=dt,
                                         device=dev)
@@ -2376,6 +2414,217 @@ def pod_phase(fa, ex, trainlib, dev, cfg, pcfg) -> tuple[dict, list]:
     return out, rows
 
 
+# --------------------------------------------------------------------------
+# phase 7: the vision-language and audio families, head dim 16, the
+# baseline CP policies
+# --------------------------------------------------------------------------
+
+VLM_ARCH = "internvl2_1b"       # full width and depth: 24 layers, d 896,
+                                # 14 / 2 heads of 64, qkv_bias, vocab 151655
+AUDIO_ARCH = "musicgen_large"   # full width: d 2048, 32 heads of 64
+AUDIO_LAYERS = 12               # of 48: ~0.8 B parameters
+AUDIO_WHY = ("depth cut for the run's time (at 48 layers it served in "
+             "44.4 s and trained in 108.1 s); the layers kept are at full "
+             "width (d 2048, 32 heads of 64, d_ff 8192, vocab 2048)")
+POLICIES = ("ring", "bytescale", "magi", "wlb")
+
+
+def multimodal_breakdown(dev, arch: str) -> dict:
+    """Two pieces of a multimodal train step that no other model has, at
+    its shapes (4 frames of 2048 tokens, the stub's 256 patches a frame,
+    bf16, full width), as device time under the profiler
+    (``device_ms``): the front end's product (``frontend_proj``, forward
+    and its weight gradient; the patches take none) and the head (final
+    norm, the untied ``lm_head`` product over the padded vocabulary, the
+    f32 cross entropy, forward and backward)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.loader import SyntheticLoader
+    from repro_torch.launch import train as trainlib
+    from repro_torch.models import layers, transformer
+    cfg = get_config(arch).replace(n_layers=1)
+    g = torch.Generator(device=dev).manual_seed(11)
+    params = transformer.init_params(cfg, g, dev)
+    b = SyntheticLoader(dist="real_world", n_frames=4, tokens_per_worker=2048,
+                        vocab_size=cfg.vocab_size, seed=0).next()
+    batch = trainlib.batch_arrays(b, cfg, dev)
+    fe = batch["frontend_embeds"]
+    proj = params["frontend_proj"].detach().requires_grad_(True)
+    gp = torch.randn((*fe.shape[:2], cfg.d_model), generator=g,
+                     device=dev).bfloat16()
+
+    def front():
+        y = torch.matmul(fe.to(proj.dtype), proj)
+        return torch.autograd.grad(y, proj, gp)
+    head_w = {k: params[k].detach().requires_grad_(True)
+              for k in ("final_norm", "embed" if cfg.tie_embeddings
+                        else "lm_head")}
+    x = torch.randn((*batch["tokens"].shape, cfg.d_model), generator=g,
+                    device=dev).bfloat16().requires_grad_(True)
+
+    def head():
+        loss = layers.cross_entropy(transformer.unembed(head_w, cfg, x),
+                                    batch["labels"], batch["loss_mask"],
+                                    cfg.vocab_size)
+        return torch.autograd.grad(loss, [x, *head_w.values()])
+    n_fe, n_tok = fe.shape[0] * fe.shape[1], x.shape[0] * x.shape[1]
+    f_flop = 2 * 2.0 * n_fe * cfg.frontend_dim * cfg.d_model
+    h_flop = 3 * 2.0 * n_tok * cfg.d_model * cfg.padded_vocab(1)
+    out = {"frontend_proj_ms": device_ms(front, n=5)[0],
+           "frontend_proj_flop": f_flop,
+           "head_ms": device_ms(head, n=3)[0], "head_flop": h_flop,
+           "padded_vocab": cfg.padded_vocab(1)}
+    out["head_tflops"] = h_flop / out["head_ms"] / 1e9
+    del params, head_w, x, batch
+    release()
+    return out
+
+
+def d16_phase(fa, trainlib, dev) -> dict:
+    """The path that needs head dim 16: internvl2's smoke config (2
+    layers, 7 query heads over 1 kv head of 16, ``qkv_bias``, the front
+    end) on the training CLI's shapes (4 workers of 2048 tokens, 512
+    blocks): every leaf's gradient through kernels 1, 3, 4 and through
+    2, 5, 6 against the plain versions with f32 weights
+    (TOL_TRAIN_F32), one fused step with the counters read around it and
+    one pallas step."""
+    argv = model_argv(VLM_ARCH, None, 1) + ["--smoke"]
+    out = {"grad_check_f32": train_grad_check(trainlib, dev, argv, 2)}
+    release()
+    steps = train_steps(fa, trainlib, dev, argv, 1)
+    out["fused_step"] = {k: steps[k] for k in (
+        "losses", "step_ms", "launches_steps")}
+    out["pallas_step"] = train_pallas(fa, trainlib, dev, argv, False)
+    return out
+
+
+def policies_phase(fa, ex, trainlib, dev, cfg, pcfg) -> dict:
+    """The paper's baseline CP policies (ring, ByteScale, Magi, WLB) and
+    FCP's own plan through the port's fused executor (kernels 1, 3, 4),
+    on the first fused training batch of ``cfg`` (the train CLI's loader:
+    4 workers of 2048 tokens, 512 blocks), one layer's attention at full
+    width, bf16: the forward against the plain dense oracle (f32 products
+    over the same bf16 values) to TOL_O and each schedule's attention
+    device time (forward and backward), FCP's beside them; with f32
+    q/k/v, the q/k/v gradients against the plain executor on the same
+    schedule to TOL_GRAD.
+    The assignments are built as ``benchmarks/common.py`` builds them.
+    Information only: no time is gated."""
+    import torch
+    from repro_torch.core import blocks as bl
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core import policies
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.data.loader import SyntheticLoader
+    from repro_torch.models import dense_attn_fn
+    n, tpw = 4, 2048
+    b = SyntheticLoader(dist="real_world", n_frames=n, tokens_per_worker=tpw,
+                        vocab_size=cfg.vocab_size, seed=0,
+                        bucket_min_len=pcfg.block_size).next()
+    fcp = trainlib.build_schedule(cfg, pcfg, b.seqlens, n, tpw)
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    batch = fcp.batch
+    deps = bl.kv_dependencies(batch, mask=True)
+    owners = {
+        "ring": policies.assign_ring(batch, n),
+        "bytescale": policies.assign_bytescale(batch, n, tpw),
+        "magi": policies.assign_magi(batch, deps, n, H, D),
+        "wlb": policies.assign_wlb(batch, deps, n, tpw, cm.GPU_X, H, KH, D)}
+    scheds = {"fcp": fcp}
+    for name, a in owners.items():
+        scheds[name] = make_schedule(
+            b.seqlens, n, tpw, pcfg.block_size, n_q_heads=H, n_kv_heads=KH,
+            head_dim=D, coalesce=pcfg.coalesce, wire=pcfg.comm_dtype,
+            in_dtype_bytes=pcfg.in_dtype_bytes, assignment=a, verify=True)
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    q32, k32, v32 = rnd(n, tpw, H, D), rnd(n, tpw, KH, D), rnd(n, tpw, KH, D)
+    cot = rnd(n, tpw, H, D)
+    seg = torch.from_numpy(batch.seg_ids).to(dev).reshape(n, tpw)
+    pos = torch.from_numpy(batch.positions).to(dev).reshape(n, tpw)
+    qkv16 = [x.bfloat16() for x in (q32, k32, v32)]
+    with torch.no_grad():
+        want = dense_attn_fn(seg, pos)(*(x.float() for x in qkv16))
+    out = {"seqlens": [int(x) for x in b.seqlens]}
+    for name, s in scheds.items():
+        tabs = ex.schedule_tables(s, dev)
+
+        def run(impl, qkv, tabs=tabs, s=s):
+            xs = [x.clone().requires_grad_(True) for x in qkv]
+            o = ex.fcp_attention(*xs, tabs, spec=s.spec,
+                                 cfg=ex.ExecConfig(impl=impl))
+            return o.detach(), torch.autograd.grad(o, xs, cot)
+        reset_counters(fa)
+        o, _ = run("fused", qkv16)
+        launches = read_counters(fa)
+        for kname in ("fused_flash_fwd", "fused_flash_bwd_dq",
+                      "fused_flash_bwd_dkv"):
+            if launches[kname] <= 0:
+                raise AssertionError(f"policy {name}: {kname} not launched")
+        torch.cuda.synchronize()
+        err_o = float((o - want).abs().max()) / max(
+            float(want.abs().max()), 1.0)
+        if not (err_o <= TOL_O and bool(torch.isfinite(o).all())):
+            raise AssertionError(f"policy {name}: forward err {err_o:.3e} "
+                                 f"against the dense oracle (tol {TOL_O})")
+        # the gradients with f32 q/k/v (the kernels' f32 path), so the
+        # comparison is the kernels' and not bf16's rounding of partial
+        # sums the executor adds across runs
+        _, gk = run("fused", (q32, k32, v32))
+        _, gp = run("fused_xla", (q32, k32, v32))
+        err_g = max(compare_grad(f"policy {name} d{x} (f32)", a, b_)
+                    for x, a, b_ in zip("qkv", gk, gp))
+        ms, _ = device_ms(lambda run=run: run("fused", qkv16), n=5)
+        out[name] = {"assignment": [int(x) for x in s.assignment],
+                     "n_rounds": s.spec.n_rounds, "n_steps": s.spec.n_steps,
+                     "fwd_err": err_o, "grad_max_abs_err_f32": err_g,
+                     "attention_fwd_bwd_device_ms": ms,
+                     "launches": launches}
+        del o, gk, gp
+    release()
+    return out
+
+
+def multimodal_phase(fa, trainlib, dev, pcfg, scfg) -> tuple[dict, dict]:
+    """internvl2-1b and musicgen-large at full width: served in phase 3's
+    setting (16 requests, f32 prefill logits against plain; text-only, as
+    the reference serves them), then trained through the CLI's plain loop
+    (internvl2 first at 4 layers with f32 weights, every leaf's gradient
+    against plain; then 3 fused steps, one profiled, a pallas step and
+    the bf16 step-0 loss check; the front end's and the head's device
+    time).  Returns (served, trained), keyed by model."""
+    from repro_torch.configs.base import get_config
+    served, trained = {}, {}
+    for tag, arch, depth, why in (
+            ("internvl2", VLM_ARCH, None, "the full depth, no cut"),
+            ("musicgen", AUDIO_ARCH, AUDIO_LAYERS, AUDIO_WHY)):
+        c = get_config(arch)
+        t0 = time.perf_counter()
+        served[tag] = serve(fa, c.replace(n_layers=depth or c.n_layers),
+                            pcfg, scfg, dev)
+        served[tag]["depth"] = f"{depth or c.n_layers} of {c.n_layers} " \
+            f"layers: {why}"
+        log(f"phase multimodal serve {tag}: ok "
+            f"{time.perf_counter() - t0:.2f}s {json.dumps(served[tag])}")
+        release()
+        t0 = time.perf_counter()
+        trained[tag] = {}
+        if tag == "internvl2":
+            trained[tag]["grad_check_4_layers_f32"] = train_grad_check(
+                trainlib, dev, model_argv(arch, None, 3))
+            release()
+        depth_arg = depth if depth != c.n_layers else None
+        trained[tag].update(train_model(fa, trainlib, dev, arch, 3,
+                                        depth_arg, why))
+        trained[tag]["breakdown"] = multimodal_breakdown(dev, arch)
+        log(f"phase multimodal train {tag}: ok "
+            f"{time.perf_counter() - t0:.2f}s {json.dumps(trained[tag])}")
+        release()
+    return served, trained
+
+
 def release() -> None:
     """Free what a phase left on the card before the next one measures its
     peak: reference cycles first (the serve phase's spied method, a
@@ -2475,14 +2724,14 @@ MAX_FFMA_NO_DOT_LOOP = 4 * 64
 
 
 def check_tensor_cores(counts: dict) -> None:
-    """The bf16 D = 64 and D = 128 builds of kernel 1, kernel 2's tiled
+    """The bf16 D = 16, 64, 80 and 128 builds of kernel 1, kernel 2's tiled
     variant and kernels 3-6 must hold HMMA or HGMMA instructions; those of
     kernels 3 and 4 fewer than MAX_FFMA_NO_DOT_LOOP FFMA (no dot-product
     loop on the CUDA cores: the exponent's FFMA per score element a lane
     holds do not grow with D)."""
     for prefix in ("tiled_kernel", "fused_fwd_kernel", "fused_dq_kernel",
                    "fused_dkv_kernel", "bwd_dq_kernel", "bwd_dkv_kernel"):
-        for d in (64, 80, 128):
+        for d in (16, 64, 80, 128):
             hits = [c for fn, c in counts.items() if prefix in fn
                     and "__nv_bfloat16" in fn and f"Li{d}E" in fn]
             if not hits or not all(c["HMMA"] + c["HGMMA"] > 0 for c in hits):
@@ -2538,13 +2787,15 @@ def main() -> int:
     cfg_moe = get_config(MOE_ARCH)
     cfg128 = get_config(D128_ARCH)
     cfg_z = get_config(HYBRID_ARCH)
+    cfg_vl = get_config(VLM_ARCH)
     pcfg = ParallelConfig(block_size=512, in_dtype_bytes=2)
     # every kernel at the main paths' shapes of each model: StableLM (32
     # heads of 64), Granite (24 of 64 over 8 kv heads: GQA group 3),
-    # Moonlight (16 of 128) and Zamba2's shared block (32 of 80)
+    # Moonlight (16 of 128), Zamba2's shared block (32 of 80) and
+    # InternVL2 (14 of 64 over 2 kv heads: GQA group 7)
     rows = []
     paths = (("stablelm", cfg), ("granite", cfg_moe), ("moonshot", cfg128),
-             ("zamba2", cfg_z))
+             ("zamba2", cfg_z), ("internvl2", cfg_vl))
     for path, c in paths:
         new = [main_path_fused(fa, ex, servelib, c, pcfg, dev),
                main_path_decode(fa, c, dev),
@@ -2578,7 +2829,8 @@ def main() -> int:
                        bucket_min=64)
     served = {}
     for tag, c, depth, why in (
-            ("stablelm", cfg, None, None), ("granite", cfg_moe, None, None),
+            ("stablelm", cfg, None, None),
+            ("granite", cfg_moe, MOE_LAYERS, MOE_WHY),
             ("moonshot", cfg128, D128_SERVE_LAYERS, D128_WHY),
             ("zamba2", cfg_z, HYBRID_SERVE_LAYERS, HYBRID_WHY),
             ("mamba2", get_config(SSM_ARCH), SSM_SERVE_LAYERS, SSM_WHY)):
@@ -2603,7 +2855,7 @@ def main() -> int:
         trainlib, dev, model_argv(MOE_ARCH, None, 3))}
     release()
     trained["granite"].update(train_model(
-        fa, trainlib, dev, MOE_ARCH, 3, None, "the full depth, no cut"))
+        fa, trainlib, dev, MOE_ARCH, 3, MOE_LAYERS, MOE_WHY))
     trained["granite"]["moe_breakdown"] = moe_breakdown(
         dev, MOE_ARCH, trained["granite"]["n_layers"])
     log(f"phase train granite: ok {time.perf_counter() - t0:.2f}s "
@@ -2696,6 +2948,38 @@ def main() -> int:
         if "library" in r:
             log(f"  library: {r['library']}")
     rows += pod_rows
+
+    # phase 7: the vision-language and audio families at full width, head
+    # dim 16 (internvl2's smoke config), the baseline CP policies
+    t0 = time.perf_counter()
+    mm_served, mm_trained = multimodal_phase(fa, trainlib, dev, pcfg, scfg)
+    served.update(mm_served)
+    trained.update(mm_trained)
+    for tag in mm_trained:
+        t_, s_ = mm_trained[tag], mm_served[tag]
+        log(f"  {tag}: serve tok/s {s_['sustained_tok_s']:.1f} prefill p50 "
+            f"{s_['prefill_ms_p50']:.1f} ms decode_step_ms "
+            f"{s_['decode_step_ms']:.1f} f32 logits err "
+            f"{s_['prefill_logits_err']['f32']:.3e}; train step_ms "
+            f"{t_['step_ms']} tokens_per_s {t_['tokens_per_s']:.1f} "
+            f"device_ms {t_['profile_step']['device_ms']} peak_mem_gib "
+            f"{t_['peak_mem_gib']:.2f} breakdown "
+            f"{json.dumps(t_['breakdown'])}")
+    t1 = time.perf_counter()
+    d16 = d16_phase(fa, trainlib, dev)
+    log(f"phase d16 ({VLM_ARCH} smoke, head dim 16): ok "
+        f"{time.perf_counter() - t1:.2f}s {json.dumps(d16)}")
+    t1 = time.perf_counter()
+    pol = policies_phase(fa, ex, trainlib, dev, cfg, pcfg)
+    for name in ("fcp",) + POLICIES:
+        log(f"  policy {name}: attention fwd+bwd device ms "
+            f"{pol[name]['attention_fwd_bwd_device_ms']:.3f} (fcp "
+            f"{pol['fcp']['attention_fwd_bwd_device_ms']:.3f}) rounds "
+            f"{pol[name]['n_rounds']} steps {pol[name]['n_steps']} fwd err "
+            f"{pol[name]['fwd_err']:.3e}")
+    log(f"phase policies: ok {time.perf_counter() - t1:.2f}s "
+        f"{json.dumps(pol)}")
+    log(f"phase multimodal: ok {time.perf_counter() - t0:.2f}s on {card}")
 
     # launches: each kernel's count over the main path that runs it (the
     # row's phase) of the model whose shapes it was timed at (the row's

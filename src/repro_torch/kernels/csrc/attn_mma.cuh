@@ -197,7 +197,7 @@ __device__ __forceinline__ int b_cols_off(int row0, int col0, int ld,
 //
 // Warpgroup products with A from registers (each warp's 16 rows, in the
 // mma.sync A layout above) and B from a shared-memory tile of bf16 rows
-// of D elements (128 B for D = 64, 64 B for D = 32), swizzled as the
+// of D elements (128 B for D = 64, 64 B for D = 32 and 16), swizzled as the
 // descriptor says (128B or 64B: the 16-byte chunk c of row r sits at
 // chunk c ^ swz(r)); the tile is 1024-byte aligned.  The accumulator of
 // m64nN is, per warp, N / 8 mma.sync C tiles in order.  The same tile
@@ -221,10 +221,18 @@ __device__ __forceinline__ int b_cols_off(int row0, int col0, int ld,
 // 127, which read only never-written tile columns, are never stored.
 // That costs 1.6x the dV / dK products of a 5-step tile: a simple layout
 // first (a narrower second swizzle would cut it).
+//
+// A D = 16 row (32 B) is narrower than the narrowest swizzle atom (64B),
+// so it lies in a D = 32 tile the same way: columns [0, 16) of each
+// 64-byte row.  Its one k16 step is the D = 32 tile's first; the dV / dK
+// products run N = 32 (wgmma m64n32k16), twice the work of the real
+// columns.  In both padded widths the columns past D are zeroed once per
+// block (zero_pad_cols) and never written again, so their accumulators
+// hold 0 and are not stored.
 
 // the width of the swizzled tile that holds a row of D elements
 template <int D>
-constexpr int kTileD = D == 80 ? 128 : D;
+constexpr int kTileD = D == 80 ? 128 : D == 16 ? 32 : D;
 
 // columns of one swizzled part of a tile of width W: W, or 64 for W = 128
 template <int W>
@@ -383,6 +391,23 @@ __device__ __forceinline__ void stage_swz(unsigned char* dst, const bf16* src,
     const bool in = r0 + r < n;
     cp_async16(dst + swz_off<kTileD<D>>(r, c * 8),
                in ? src + (size_t)(r0 + r) * D + c * 8 : src, in ? 16 : 0);
+  }
+}
+
+// zero the columns [D, kTileD<D>) of n swizzled tiles laid end to end at
+// `tiles` (a padded width only; the copies and stores move D columns)
+template <int D>
+__device__ __forceinline__ void zero_pad_cols(unsigned char* tiles, int n,
+                                              int tid) {
+  constexpr int W = kTileD<D>;
+  if constexpr (W != D) {
+    constexpr int kChunks = (W - D) / 8;      // 16-byte chunks a row
+    for (int i = tid; i < n * kRows * kChunks; i += kThreads) {
+      const int tile = i / (kRows * kChunks), r = (i / kChunks) % kRows;
+      const int c = D + (i % kChunks) * 8;
+      *reinterpret_cast<uint4*>(tiles + tile * (kRows * W * 2) +
+                                swz_off<W>(r, c)) = make_uint4(0u, 0u, 0u, 0u);
+    }
   }
 }
 
@@ -1113,15 +1138,60 @@ __device__ __forceinline__ void dkv_issue(
   wgmma_commit();
 }
 
+// One product of the f32 path's dkv_finish, from zero into t and waited
+// for: a_hi.b_hi + a_lo.b_hi + a_hi.b_lo over the tile's four k16 steps
+// (dV: P^T and dO, dK: dS^T and Q; A fragments as dkv_finish packs
+// them), of the m64nW accumulator its first W / 2 (W <= 64) or column
+// half `half` (W = 128).
+template <int W>
+__device__ __forceinline__ void dkv_tile_product(
+    float (&t)[32], int half, const uint32_t (&ah)[4][4],
+    const uint32_t (&al)[4][4], const unsigned char* bh,
+    const unsigned char* bl) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) t[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    // 16 query rows further, in the column half's tile
+    const int off = rows_off<W>(kk) + (W == 128 ? half * kRows * 128 : 0);
+    if constexpr (W == 32) {
+      auto& t16 = *reinterpret_cast<float(*)[16]>(&t[0]);
+      wgmma_n32<1>(t16, ah[kk], gmma_desc<W>(bh + off), 1);
+      wgmma_n32<1>(t16, al[kk], gmma_desc<W>(bh + off), 1);
+      wgmma_n32<1>(t16, ah[kk], gmma_desc<W>(bl + off), 1);
+    } else {
+      wgmma_n64<1>(t, ah[kk], gmma_desc<W>(bh + off), 1);
+      wgmma_n64<1>(t, al[kk], gmma_desc<W>(bh + off), 1);
+      wgmma_n64<1>(t, ah[kk], gmma_desc<W>(bl + off), 1);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait0();
+  pin(t);
+}
+
 // dkv_finish: waits for dkv_issue's products, forms P^T and dS^T in
 // registers (columns are queries: their stats from `meta`, lse at [0,
 // 64), delta at [64, 128), dlse at [128, 192) when kDlse), packs them as
 // the A fragments of the four k16 steps over the tile's queries, and
 // runs dV += P^T.dO and dK += dS^T.Q (wgmma m64nWk16, W = kTileD<D>, A in
-// registers, B
-// the same Q and dO tiles read transposed); the products of the first
-// two steps run while the last two are computed.  Returns with every
-// product done.  `bits` as elem_bits<false> lays them out.
+// registers, B the same Q and dO tiles read transposed); the products of
+// the first two steps run while the last two are computed.  Returns with
+// every product done.  `bits` as elem_bits<false> lays them out.
+//
+// The f32 path (kF32) sums each tile's products apart.  The tensor cores
+// add into an f32 accumulator with truncation, not rounding, so a long
+// chain of products into one accumulator drifts towards zero by about
+// 2e-7 of its value a tile (H100, measured: kernel 4's dk against plain
+// at 256 steps on one kv row, GQA group 7, 3,584 tiles: 7.0e-4 low on
+// average, in f32 and bf16 alike; kernel 3's dq chain, 8 tiles a step,
+// 1.0e-4 at 256 steps).  With kF32 each product of a tile starts from
+// zero in the S^T registers (free once P^T and dS^T are packed) and is
+// added into ak / av with FADD, which rounds to nearest: dk at 256 steps
+// 7.0e-6.  The bf16 path keeps the chain: its drift lies far under
+// bf16's own rounding of the inputs (2^-9), and the promoted tile costs
+// it 40% at D = 64 (1 KB of spills at 168 registers, measured).
 template <bool kFull, bool kF32, bool kDlse, int D>
 __device__ __forceinline__ void dkv_finish(
     float (&ak)[kTileD<D> / 2], float (&av)[kTileD<D> / 2], float (&s)[32],
@@ -1134,6 +1204,7 @@ __device__ __forceinline__ void dkv_finish(
   pin(s);
   pin(dp);
   uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+  constexpr int W = kTileD<D>;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
 #pragma unroll
@@ -1165,21 +1236,35 @@ __device__ __forceinline__ void dkv_finish(
       split2(ds[0], ds[1], dh[kk][r], dl[kk][r]);
       split2(ds[2], ds[3], dh[kk][r + 1], dl[kk][r + 1]);
     }
-    wgmma_fence();
+    if constexpr (!kF32) {            // (the f32 path's products below)
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 2 * half; kk < 2 * half + 2; ++kk) {
-      constexpr int W = kTileD<D>;
-      const int off = rows_off<W>(kk);          // 16 query rows further
-      wgmma_nd<W, 1>(av, ph[kk], do_hi + off);
-      wgmma_nd<W, 1>(av, ph[kk], do_lo + off);
-      wgmma_nd<W, 1>(av, pl[kk], do_hi + off);
-      wgmma_nd<W, 1>(ak, dh[kk], qh + off);
-      wgmma_nd<W, 1>(ak, dl[kk], qh + off);
-      if constexpr (kF32) wgmma_nd<W, 1>(ak, dh[kk], ql + off);
+      for (int kk = 2 * half; kk < 2 * half + 2; ++kk) {
+        const int off = rows_off<W>(kk);        // 16 query rows further
+        wgmma_nd<W, 1>(av, ph[kk], do_hi + off);
+        wgmma_nd<W, 1>(av, ph[kk], do_lo + off);
+        wgmma_nd<W, 1>(av, pl[kk], do_hi + off);
+        wgmma_nd<W, 1>(ak, dh[kk], qh + off);
+        wgmma_nd<W, 1>(ak, dl[kk], qh + off);
+      }
     }
   }
-  wgmma_commit();
-  wgmma_wait0();
+  if constexpr (kF32) {
+    // each product of the tile (both column halves at W = 128) from zero
+    // in s, then into ak / av
+#pragma unroll
+    for (int h = 0; h < (W == 128 ? 2 : 1); ++h) {
+      dkv_tile_product<W>(s, h, ph, pl, do_hi, do_lo);
+#pragma unroll
+      for (int i = 0; i < (W < 64 ? W / 2 : 32); ++i) av[32 * h + i] += s[i];
+      dkv_tile_product<W>(s, h, dh, dl, qh, ql);
+#pragma unroll
+      for (int i = 0; i < (W < 64 ? W / 2 : 32); ++i) ak[32 * h + i] += s[i];
+    }
+  } else {
+    wgmma_commit();
+    wgmma_wait0();
+  }
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     pin(ph[kk]);

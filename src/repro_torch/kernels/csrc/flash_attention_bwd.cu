@@ -52,7 +52,8 @@
 //
 // dk/dv (kernel 6): one warpgroup per block.  The block's K and V are
 // 128B- (D = 64; D = 128 as two such tiles, one per 64-column half; D =
-// 80 in a D = 128 tile, attn_mma.cuh kTileD) or 64B-swizzled (D = 32) bf16
+// 80 in a D = 128 tile, attn_mma.cuh kTileD) or 64B-swizzled (D = 32; D
+// = 16 in a D = 32 tile) bf16
 // tiles in shared memory,
 // read by wgmma through descriptors; each q tile's Q comes through a
 // two-slot cp.async ring in the same layout, and its f32 dO in one bulk
@@ -91,7 +92,7 @@
 // Layouts (row-major, contiguous, 16-byte aligned): q/do [B, H, Sq, D]
 // (do f32), k/v [B, KH, Sk, D]; seg_q/pos_q [B, Sq], seg_k/pos_k [B, Sk];
 // lse/delta/dlse [B, H, Sq] f32; dq [B, H, Sq, D], dk/dv [B, KH, Sk, D]
-// in the dtype of q/k/v.  D is 32, 64, 80 or 128.
+// in the dtype of q/k/v.  D is 16, 32, 64, 80 or 128.
 
 #include <cstdint>
 
@@ -134,11 +135,12 @@ constexpr int kDkvSmem = 1024 + (kIsF32<T> ? 8 : 6) * kSwzTileBytes<D> +
 // registers a thread); at D = 128, two for dq (255: its Q, dO and dq
 // fragments take 160 in bf16) and one for dk/dv (255: the dk and dv
 // accumulators take 128 beside S^T and dP^T, and its tiles 131 KB of
-// shared memory in bf16)
+// shared memory in bf16); two for f32 dk/dv at D <= 64, whose tile
+// products are summed apart (attn_mma.cuh, dkv_finish)
 template <int D>
 constexpr int kDqMinBlocks = D > 64 ? 2 : 3;
-template <int D>
-constexpr int kDkvMinBlocks = D > 64 ? 1 : 3;
+template <typename T, int D>
+constexpr int kDkvMinBlocks = D > 64 ? 1 : kIsF32<T> ? 2 : 3;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, kDqMinBlocks<D>) bwd_dq_kernel(
@@ -269,7 +271,8 @@ __global__ void __launch_bounds__(kThreads, kDqMinBlocks<D>) bwd_dq_kernel(
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, kDkvMinBlocks<D>) bwd_dkv_kernel(
+__global__ void __launch_bounds__(kThreads, kDkvMinBlocks<T, D>)
+    bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ seg_q,
     const int* __restrict__ pos_q, const int* __restrict__ seg_k,
@@ -315,6 +318,7 @@ __global__ void __launch_bounds__(kThreads, kDkvMinBlocks<D>) bwd_dkv_kernel(
   const int pa = ra < Sk ? kps[ra] : 0, pb = rb < Sk ? kps[rb] : 0;
 
   if (tid == 0) mbar_init(bar);
+  zero_pad_cols<D>(tiles, kTiles, tid);   // D = 16 and 80: padded widths
   __syncthreads();
   // m64nW accumulators of the warpgroup, W = kTileD<D>
   float ak[kTileD<D> / 2], av[kTileD<D> / 2];
@@ -500,8 +504,8 @@ Args make_args(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and the outputs share it);
-// D is 32, 64, 80 or 128; q, k, v and dout 16-byte aligned (cp.async).  Each
-// returns cudaGetLastError() after its launch.
+// D is 16, 32, 64, 80 or 128; q, k, v and dout 16-byte aligned
+// (cp.async).  Each returns cudaGetLastError() after its launch.
 extern "C" int fcp_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* seg_q,
     const void* pos_q, const void* seg_k, const void* pos_k,
@@ -514,6 +518,8 @@ extern "C" int fcp_flash_attention_bwd_dq(
   const Args a = make_args(q, k, v, seg_q, pos_q, seg_k, pos_k, lse, dout,
                            delta, dlse, B, H, KH, Sq, Sk, scale, kind,
                            window, chunk, stream);
+  if (dtype == 0 && D == 16) return launch_dq<float, 16>(a, dq);
+  if (dtype == 1 && D == 16) return launch_dq<__nv_bfloat16, 16>(a, dq);
   if (dtype == 0 && D == 32) return launch_dq<float, 32>(a, dq);
   if (dtype == 0 && D == 64) return launch_dq<float, 64>(a, dq);
   if (dtype == 1 && D == 32) return launch_dq<__nv_bfloat16, 32>(a, dq);
@@ -537,6 +543,8 @@ extern "C" int fcp_flash_attention_bwd_dkv(
   const Args a = make_args(q, k, v, seg_q, pos_q, seg_k, pos_k, lse, dout,
                            delta, dlse, B, H, KH, Sq, Sk, scale, kind,
                            window, chunk, stream);
+  if (dtype == 0 && D == 16) return launch_dkv<float, 16>(a, dk, dv);
+  if (dtype == 1 && D == 16) return launch_dkv<__nv_bfloat16, 16>(a, dk, dv);
   if (dtype == 0 && D == 32) return launch_dkv<float, 32>(a, dk, dv);
   if (dtype == 0 && D == 64) return launch_dkv<float, 64>(a, dk, dv);
   if (dtype == 1 && D == 32) return launch_dkv<__nv_bfloat16, 32>(a, dk, dv);

@@ -640,8 +640,8 @@ Args make_args(const void* q, const void* k, const void* v,
 }  // namespace
 
 // (a) tiled.  dtype: 0 = float32, 1 = bfloat16 (q, k and v share it); D is
-// 32, 64, 80 or 128.  Strides are in elements.  Returns cudaGetLastError() after
-// the launch (0 on success).
+// 16, 32, 64, 80 or 128.  Strides are in elements.  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int fcp_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* seg_q,
     const void* pos_q, const void* seg_k, const void* pos_k, void* o,
@@ -655,6 +655,8 @@ extern "C" int fcp_flash_attention_fwd(
                            segq_sb, segk_sb, scale, kind, window, chunk,
                            stream);
   if (!rows_aligned(a, dtype == 0 ? 4 : 2)) return cudaErrorMisalignedAddress;
+  if (dtype == 0 && D == 16) return launch_tiled<float, 16>(a);
+  if (dtype == 1 && D == 16) return launch_tiled<__nv_bfloat16, 16>(a);
   if (dtype == 0 && D == 32) return launch_tiled<float, 32>(a);
   if (dtype == 0 && D == 64) return launch_tiled<float, 64>(a);
   if (dtype == 1 && D == 32) return launch_tiled<__nv_bfloat16, 32>(a);
@@ -687,6 +689,9 @@ extern "C" int fcp_flash_attention_fwd_decode(
   if (!rows_aligned(a, dtype == 0 ? 4 : 2)) return cudaErrorMisalignedAddress;
   auto* wo = static_cast<float*>(ws_o);
   auto* wm = static_cast<float*>(ws_ml);
+  if (dtype == 0 && D == 16) return decode_rc<float, 16>(a, wo, wm, n_split);
+  if (dtype == 1 && D == 16)
+    return decode_rc<__nv_bfloat16, 16>(a, wo, wm, n_split);
   if (dtype == 0 && D == 32) return decode_rc<float, 32>(a, wo, wm, n_split);
   if (dtype == 0 && D == 64) return decode_rc<float, 64>(a, wo, wm, n_split);
   if (dtype == 1 && D == 32)

@@ -48,7 +48,9 @@
 // wgmma), and the dk and dv accumulators take 128 registers a thread, so
 // the block runs alone on its SM (kMinBlocks).  A D = 80 row lies in such
 // a tile (kTileD): loads and stores move its 80 columns, S^T and dP^T
-// take its 5 k16 steps, dV and dK the tile's whole N = 128.
+// take its 5 k16 steps, dV and dK the tile's whole N = 128.  A D = 16 row
+// lies in a D = 32 tile alike (one k16 step, N = 32); the pad columns of
+// both are zeroed once per block.
 //
 // ptxas -v (sm_90a; __launch_bounds__(128, 3) caps D <= 64 at 168, (128,
 // 1) D = 128 at 255), registers a thread and spill stores / loads in
@@ -91,12 +93,14 @@ constexpr int kSmem = 1024 + (kIsF32<T> ? 8 : 6) * kSwzTileBytes<D> +
 // a thread); one at D = 128, whose dk and dv accumulators (64 x 128 f32
 // each over the warpgroup) take 128 registers a thread beside S^T and
 // dP^T (64), up to 255, and whose tiles take 131 KB (bf16) of the SM's
-// shared memory anyway
-template <int D>
-constexpr int kMinBlocks = D > 64 ? 1 : 3;
+// shared memory anyway; two for f32 at D <= 64, whose tile products are
+// summed apart (attn_mma.cuh, dkv_finish) with all of P^T and dS^T packed
+template <typename T, int D>
+constexpr int kMinBlocks = D > 64 ? 1 : kIsF32<T> ? 2 : 3;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<D>) fused_dkv_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T, D>)
+    fused_dkv_kernel(
     const T* __restrict__ qs, const T* __restrict__ kxt,
     const T* __restrict__ vxt, const int* __restrict__ bwd_q,
     const int* __restrict__ bwd_kv, const int* __restrict__ q_seg,
@@ -151,6 +155,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<D>) fused_dkv_kernel(
   const int pa = ra < bs ? kps[ra] : 0, pb = rb < bs ? kps[rb] : 0;
 
   if (tid == 0) mbar_init(bar);
+  zero_pad_cols<D>(tiles, kTiles, tid);   // D = 16 and 80: padded widths
   // m64nW accumulators of the warpgroup, W = kTileD<D>
   float ak[kTileD<D> / 2], av[kTileD<D> / 2];
 #pragma unroll
@@ -311,6 +316,7 @@ cudaError_t dispatch_d(int D, const void* qs, const void* kxt,
                          SL, EX, S, G, H, KH, bs, scale, kind, window,     \
                          chunk, stream);
   switch (D) {
+    FCP_CASE(16)
     FCP_CASE(32)
     FCP_CASE(64)
     FCP_CASE(80)

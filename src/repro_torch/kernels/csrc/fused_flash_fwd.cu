@@ -257,6 +257,7 @@ cudaError_t dispatch_d(int D, const void* qs, const void* kxt,
                          SL, EX, S, G, H, KH, bs, scale, kind, window,     \
                          chunk, stream);
   switch (D) {
+    FCP_CASE(16)
     FCP_CASE(32)
     FCP_CASE(64)
     FCP_CASE(80)

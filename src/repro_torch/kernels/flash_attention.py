@@ -41,7 +41,7 @@ from .ref import NEG_INF, mask_matrix, reference_attention
 _MASK_KINDS = {"causal": 0, "sliding_window": 1, "chunked": 2, "full": 3}
 # the head dims every CUDA kernel is built for (the reference's kernels
 # take any D whose blocks divide)
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -211,8 +211,8 @@ def flash_attention_fwd(q, k, v, seg_q, pos_q, seg_k, pos_k, *,
     ``cache.transpose(1, 2)`` without a copy; seg/pos: ``[Sq]``/``[Sk]``
     (shared by the batch) or ``[B, Sq]``/``[B, Sk]``, int32.  A fully
     masked row gives ``o = 0``, ``lse = NEG_INF``.  On the CUDA kernel
-    ``D`` is 32, 64, 80 or 128, and the variant is :func:`fwd_variant` of
-    ``Sq``.
+    ``D`` is 16, 32, 64, 80 or 128, and the variant is
+    :func:`fwd_variant` of ``Sq``.
     """
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, seg_q, pos_q, seg_k,
@@ -313,7 +313,7 @@ def fused_flash_fwd(step_q, step_kv, qs, kxt, vxt, q_seg, q_pos,
     ``step_q`` change — and returns them.  ``segments`` is the run's
     ``(seg_lo, seg_hi)`` table on the device (:func:`run_segments`);
     when omitted it is derived from ``step_q`` on the host.  On the CUDA
-    kernel ``D`` is 32, 64, 80 or 128.
+    kernel ``D`` is 16, 32, 64, 80 or 128.
     """
     if qs.device.type == "cpu":
         return fused_flash_fwd_plain(
@@ -450,7 +450,7 @@ def fused_flash_bwd_dq(step_q, step_kv, qs, kxt, vxt, q_seg, q_pos, k_seg,
     ``[SL, H, bs, D]``; ``delta``: ``g_o . o_out - g_lse`` ``[SL, H,
     bs]``, all f32.  ``segments`` as for :func:`fused_flash_fwd`.  Slots
     no segment names come back zero (the reference's visited mask).  On
-    the CUDA kernel ``D`` is 32, 64, 80 or 128.
+    the CUDA kernel ``D`` is 16, 32, 64, 80 or 128.
     """
     if qs.device.type == "cpu":
         return fused_flash_bwd_dq_plain(
@@ -533,7 +533,7 @@ def fused_flash_bwd_dkv(bwd_q, bwd_kv, qs, kxt, vxt, q_seg, q_pos, k_seg,
     the ``(lo, hi)`` table over ``bwd_kv`` (:func:`run_segments`; the
     executor skips the kv trash row), derived on the host when omitted.
     Rows no segment names come back zero.  On the CUDA kernel ``D`` is
-    32, 64, 80 or 128.
+    16, 32, 64, 80 or 128.
     """
     if qs.device.type == "cpu":
         return fused_flash_bwd_dkv_plain(
@@ -751,8 +751,8 @@ def flash_attention_bwd_dq(q, k, v, seg_q, pos_q, seg_k, pos_k, o, lse,
     D]``; seg/pos ``[S]`` or ``[B, S]``); o/do ``[(B,) H, Sq, D]``,
     lse/dlse ``[(B,) H, Sq]``.  ``dlse`` is the cotangent of the lse
     output (non-zero when the partial feeds a flash merge, the
-    executor's case).  On the CUDA kernel ``D`` is 32, 64, 80 or 128; q/k/v
-    are taken contiguous.
+    executor's case).  On the CUDA kernel ``D`` is 16, 32, 64, 80 or
+    128; q/k/v are taken contiguous.
     """
     args = (q, k, v, seg_q, pos_q, seg_k, pos_k, o, lse, do, dlse)
     if q.device.type == "cpu":

@@ -1,6 +1,7 @@
 """Serving steps on stacked workers: bucketed FCP prefill and CP decode
-(port of ``repro.launch.serve``; the dense, MoE, SSM and hybrid
-families).
+(port of ``repro.launch.serve``; every family.  Serving is text-only,
+as in the reference: the audio and vision-language backbones take token
+prompts, and no front-end input reaches them).
 
 * ``build_prefill_step`` — packed-stream forward through the attention
   it is given (FCP: the fused run kernel; or the dense escape hatch,
@@ -141,11 +142,13 @@ def serving_stream(rng, vocab: int, n: int, min_len: int, max_len: int,
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True,
-                   help="a config of repro_torch/configs of a ported "
-                        "family: dense (stablelm_1_6b, codeqwen1_5_7b, "
-                        "llama3_70b, qwen1_5_32b/110b), MoE "
-                        "(granite_moe_3b_a800m, moonshot_v1_16b_a3b), SSM "
-                        "(mamba2_130m) or hybrid (zamba2_2_7b)")
+                   help="a config of repro_torch/configs: dense "
+                        "(stablelm_1_6b, codeqwen1_5_7b, llama3_70b, "
+                        "qwen1_5_32b/110b), MoE (granite_moe_3b_a800m, "
+                        "moonshot_v1_16b_a3b), SSM (mamba2_130m), hybrid "
+                        "(zamba2_2_7b), audio (musicgen_large) or "
+                        "vision-language (internvl2_1b; both behind the "
+                        "front-end stub, which serving does not read)")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--mesh", default="1x1",
                    help="DxM (data x model) or PxDxM (pod x data x model)"

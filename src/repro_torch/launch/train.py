@@ -288,19 +288,34 @@ def build_train_step(model: Model, mesh, pcfg: ParallelConfig,
     return train_step
 
 
-def batch_arrays(b: Batch, cfg: ModelConfig, device="cuda") -> dict:
-    """A loader batch as tensors on ``device``."""
-    if cfg.frontend_dim:
-        raise NotImplementedError(
-            "the multimodal front end (frontend_dim) is not ported yet "
-            "(ROADMAP Queue A item 5)")
-    return {
+def batch_arrays(b: Batch, cfg: ModelConfig, device="cuda",
+                 rng: np.random.Generator | None = None) -> dict:
+    """A loader batch as tensors on ``device``.  A multimodal config
+    (``frontend_dim``) gets the reference's front-end stub: the first
+    ``min(256, T)`` positions of each frame are patches, drawn by numpy
+    from ``rng`` (``default_rng(0)`` when none is given, as the reference
+    draws them, so both packages see the same patches on every step),
+    and carry no next-token loss."""
+    out = {
         "tokens": torch.from_numpy(np.asarray(b.tokens)).to(device),
         "labels": torch.from_numpy(np.asarray(b.labels)).to(device),
         "positions": torch.from_numpy(np.asarray(b.positions)).to(device),
         "loss_mask": torch.from_numpy(
             np.asarray(b.loss_mask, np.float32)).to(device),
     }
+    if cfg.frontend_dim:
+        f, t = b.tokens.shape
+        rng = rng or np.random.default_rng(0)
+        n_fe = min(256, t)
+        fe = rng.normal(size=(f, n_fe, cfg.frontend_dim)) * 0.02
+        mask = np.zeros((f, t), bool)
+        mask[:, :n_fe] = True
+        out["frontend_embeds"] = torch.from_numpy(
+            fe.astype(np.float32)).to(device)
+        out["frontend_mask"] = torch.from_numpy(mask).to(device)
+        out["loss_mask"] = out["loss_mask"] * torch.from_numpy(
+            1.0 - mask.astype(np.float32)).to(device)
+    return out
 
 
 def route_layers(cfg: ModelConfig, layer_masks, group_masks, fn_of_mask):
@@ -975,11 +990,13 @@ PARITY_ONLY_FLAGS = ("shape", "attn_block_q", "attn_block_k",
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True,
-                   help="a config of repro_torch/configs of a ported "
-                        "family: dense (stablelm_1_6b, codeqwen1_5_7b, "
-                        "llama3_70b, qwen1_5_32b/110b), MoE "
-                        "(granite_moe_3b_a800m, moonshot_v1_16b_a3b), SSM "
-                        "(mamba2_130m) or hybrid (zamba2_2_7b)")
+                   help="a config of repro_torch/configs: dense "
+                        "(stablelm_1_6b, codeqwen1_5_7b, llama3_70b, "
+                        "qwen1_5_32b/110b), MoE (granite_moe_3b_a800m, "
+                        "moonshot_v1_16b_a3b), SSM (mamba2_130m), hybrid "
+                        "(zamba2_2_7b), audio (musicgen_large) or "
+                        "vision-language (internvl2_1b; both train behind "
+                        "batch_arrays' front-end stub)")
     p.add_argument("--shape", default=None,
                    help="assigned shape cell (accepted for parity; the "
                         "loop does not read it and warns when it is set)")

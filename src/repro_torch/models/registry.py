@@ -1,18 +1,20 @@
-"""Model registry (port of ``repro.models.registry``: the dense, MoE, SSM
-and hybrid families).
+"""Model registry (port of ``repro.models.registry``: every family the
+reference takes).
 
 ``Model(cfg, tp)`` dispatches on ``cfg.family``:
 
-* dense / moe  -> ``transformer.py`` (the MoE FFN via the config)
-* ssm          -> a pure Mamba2 stack (this module; mamba2-130m)
-* hybrid       -> ``hybrid.py`` (zamba2)
+* dense / moe / audio / vlm -> ``transformer.py`` (the MoE FFN via the
+  config; audio and vlm are transformer backbones behind the front-end
+  stub of ``transformer.embed_tokens``: musicgen, internvl2)
+* ssm                       -> a pure Mamba2 stack (this module;
+  mamba2-130m)
+* hybrid                    -> ``hybrid.py`` (zamba2)
 
 It offers ``init``, ``forward``, ``features``, ``head_fn``, ``loss`` and
 ``param_count`` (training), ``forward_prefill``, ``init_cache``,
 ``decode_step`` and ``unembed`` (serving), all with pluggable attention
 (the SSM family takes none), plus the single-device oracles
-``dense_attn_fn`` / ``dense_decode_attn`` / ``dense_cache_update``.  The
-audio and vision-language families are not ported yet and raise.
+``dense_attn_fn`` / ``dense_decode_attn`` / ``dense_cache_update``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ from ..configs.base import ModelConfig
 from ..kernels import ref
 from . import hybrid, layers, ssm, transformer
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 RECURRENT = ("ssm", "hybrid")
 
 
@@ -111,12 +112,6 @@ def _decode_ssm(params, cfg: ModelConfig, tokens, pos, cache):
 class Model:
     cfg: ModelConfig
     tp: int = 1
-
-    def __post_init__(self):
-        if self.cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet (ported: "
-                f"{', '.join(PORTED_FAMILIES)}; ROADMAP Queue A item 5)")
 
     def init(self, generator: torch.Generator, device="cuda") -> dict:
         if self.cfg.family == "ssm":

@@ -1,5 +1,7 @@
 """Decoder-only transformer, GQA + RoPE + SwiGLU or a Mixture-of-Experts
-FFN (port of ``repro.models.transformer``: the dense and MoE families).
+FFN (port of ``repro.models.transformer``: the dense and MoE families, and
+the audio and vision-language backbones behind the front-end stub of
+:func:`embed_tokens`).
 
 The parameter tree is a dict of tensors in the reference's layout
 (``wq [L, d, H, Dh]``, ``wo [L, H, Dh, d]``, ...), so every einsum maps
@@ -43,7 +45,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     :func:`repro_torch.models.convert.params_from_numpy`.  An MoE config
     (``n_experts``) gets the router and expert leaves of
     :func:`repro_torch.models.moe.init_moe_ffn` in place of ``wi``,
-    ``wg`` and ``wdown``."""
+    ``wg`` and ``wdown``; a multimodal config (``frontend_dim``) gets
+    ``frontend_proj [frontend_dim, d]`` (drawn last, so the other leaves
+    are those of the same config without a front end)."""
     nh, nkv = cfg.padded_heads(tp)
     vpad = cfg.padded_vocab(tp)
     d, dh, ff, nl = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.n_layers
@@ -78,6 +82,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
               "final_norm": ones(d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, vpad), d ** -0.5)
+    if cfg.frontend_dim:
+        params["frontend_proj"] = normal((cfg.frontend_dim, d),
+                                         cfg.frontend_dim ** -0.5)
     return params
 
 
@@ -165,7 +172,19 @@ def forward(params, cfg: ModelConfig, batch: dict, attn_fn,
 
 
 def embed_tokens(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    return params["embed"][batch["tokens"].long()]
+    """Token embeddings ``[F, T, d]``; multimodal front-end stub (the
+    reference's): ``frontend_embeds [F, P, frontend_dim]`` are precomputed
+    patch / frame embeddings, projected by ``frontend_proj``, that take
+    the first P positions of each frame where ``frontend_mask [F, T]`` is
+    set."""
+    x = params["embed"][batch["tokens"].long()]
+    if "frontend_embeds" in batch and "frontend_proj" in params:
+        fe = batch["frontend_embeds"]
+        pp = fe.shape[1]
+        fep = torch.matmul(fe.to(x.dtype), params["frontend_proj"])
+        mask = batch["frontend_mask"][:, :pp, None]
+        x = torch.cat([torch.where(mask, fep, x[:, :pp]), x[:, pp:]], dim=1)
+    return x
 
 
 def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

@@ -745,12 +745,13 @@ def test_fused_run_function_matches_jax_grad():
     assert _nerr(tg[4].numpy()[live], np.asarray(jg[4])[live]) <= 1e-5
 
 
-@pytest.mark.parametrize("d", [16, 48])
+@pytest.mark.parametrize("d", [24, 48])
 def test_wrappers_refuse_unbuilt_head_dims(d):
-    """The CUDA kernels are built for ``HEAD_DIMS`` (32, 64, 80, 128):
-    the launch checks of kernels 2-6 refuse another head dim (the smoke
-    configs' 16, or 48) before any launch, with the message the card
-    shows."""
+    """The CUDA kernels are built for ``HEAD_DIMS`` (16, 32, 64, 80,
+    128): the launch checks of kernels 2-6 refuse another head dim (24
+    or 48, which no config uses) before any launch, with the message
+    the card shows."""
+    assert d not in tfa.HEAD_DIMS and 16 in tfa.HEAD_DIMS
     rng = np.random.default_rng(61)
     msg = f"head_dim {d} not in"
     q, k = (_t(rng.normal(size=(1, 2, 64, d)).astype(np.float32))

@@ -64,7 +64,8 @@ HOST_COPIES = ["masks.py", "core/blocks.py", "core/cost_model.py",
                "core/plan_cache.py", "analysis/verifier.py",
                "data/loader.py", "data/distributions.py",
                "checkpoint/manager.py", "checkpoint/__init__.py",
-               "runtime/elastic.py", "runtime/health.py"]
+               "runtime/elastic.py", "runtime/health.py",
+               "core/policies.py"]
 
 
 @pytest.mark.parametrize("path", HOST_COPIES)
@@ -82,3 +83,12 @@ def test_config_copies_differ_only_in_package_name():
                             "repro.configs.{name.replace('-', '_')}") \
             .replace("(\n        f\"repro.configs", "(f\"repro.configs") \
             == ref.read_text(), ref.name
+
+
+def test_verify_cli_copy_differs_only_in_package_name():
+    """``repro_torch/verify.py`` is the reference's CLI with the package
+    renamed (its ``python -m`` name and the modules its text names)."""
+    port = (SRC / "repro_torch" / "verify.py").read_text()
+    assert "repro_torch." in port
+    assert port.replace("repro_torch.", "repro.") == \
+        (SRC / "repro" / "verify.py").read_text()

@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.base import ParallelConfig as JParallel
 from repro.configs.base import ServeConfig as JServe
@@ -170,8 +171,11 @@ def test_prefill_logits_match_jax_dense_prefill(attn_weights):
 
 
 def test_admission_and_unported_families():
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        Model(smoke_config("internvl2_1b"))
+    """Every family of the reference builds (the vlm one since the
+    front end was ported); admission refuses what the loop cannot hold."""
+    cfg = smoke_config("internvl2_1b")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    assert params["frontend_proj"].shape == (cfg.frontend_dim, cfg.d_model)
     loop = _port_loop(None)
     with pytest.raises(ValueError, match=r"cache_len >= \d+"):
         loop.submit(np.ones((SERVE["cache_len"] - 2,), np.int32),

@@ -179,5 +179,12 @@ def test_convert_keeps_the_ssm_decay_f32():
     for name in ("A_log", "D", "dt_bias"):
         assert t["mamba"][name].dtype == torch.float32
     assert t["mamba"]["in_proj"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Model(smoke_config("musicgen_large"))
+    # the audio family builds too (no SSM leaf, its front end in f32 under
+    # a bf16 cast as every other weight is cast)
+    cfg = smoke_config("musicgen_large")
+    tp = params_from_numpy(jax.device_get(JModel(
+        j_smoke("musicgen_large")).init(jax.random.key(1))), "cpu",
+        dtype=torch.bfloat16)
+    assert tp["frontend_proj"].dtype == torch.bfloat16
+    assert Model(cfg).init(torch.Generator().manual_seed(0), "cpu")[
+        "frontend_proj"].shape == (cfg.frontend_dim, cfg.d_model)
