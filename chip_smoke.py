@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py
+(``--phases llama,train`` runs the build and only the phases named, a
+development aid that prints no result line.)
 
-Phases, each reported on its own line:
+Phases, each reported on its own line with its wall:
 
 1. build   — compile the CUDA kernels from ``kernels/csrc`` (nvcc), print
              ``ptxas -v`` per entry and the HMMA/HGMMA/FFMA counts of
@@ -17,8 +19,9 @@ Phases, each reported on its own line:
              tiles, a trash step; f32 and bf16), then at the shapes the
              main paths give it, with StableLM's heads (32 of 64),
              Granite's (24 of 64 over 8 kv heads), Moonlight's (16 of
-             128), Zamba2's shared block's (32 of 80) and InternVL2's (14
-             of 64 over 2 kv heads: group 7); times (CUDA
+             128), Zamba2's shared block's (32 of 80), InternVL2's (14
+             of 64 over 2 kv heads: group 7) and llama3-70b's (64 of 128
+             over 8 kv heads: group 8); times (CUDA
              events around 10 launches back to back, median of 21 such
              windows, the plain versions 2 launches and 5 windows
              (PLAIN_TIMING); kernel 2, whose wrapper's host work is of the
@@ -53,7 +56,7 @@ Phases, each reported on its own line:
              Moonlight-16B-A3B (MoE, head_dim 128, 4 of 48 layers), whose
              kernel runs take the experts the plain runs chose
              (``PinnedRoutes``); Zamba2-2.7B (hybrid, head_dim 80, 18 of
-             54 layers; its f32 tokens kernels vs plain on a short
+             54 layers, 8 requests; its f32 tokens kernels vs plain on a short
              stream, bf16's reported) and Mamba2-130M (SSM, no
              attention, 4 of 24 layers: its prefill held against its
              recurrent decode).
@@ -65,8 +68,7 @@ Phases, each reported on its own line:
              numbers were taken: 24 layers, bf16, 4 stacked workers, 8192
              tokens per step, fused) for 3 steps with the launch counters
              read around them, one more step under the profiler, one
-             ``--attn-impl pallas`` step with its counters, a second one
-             (then one more under the profiler), and the bf16
+             ``--attn-impl pallas`` step with its counters, and the bf16
              step-0 loss, kernels against plain, held to a multiple of
              its noise floor: the loss moved by the kernel's deviation
              from the plain attention output under random signs.  Then
@@ -75,7 +77,7 @@ Phases, each reported on its own line:
              step, the bf16 step-0 loss check and where an MoE layer's
              time goes; and Moonlight at 2 layers: 2 fused steps, one
              pallas step, the loss check; and Zamba2: 6-layer f32
-             gradients (one shared-attention invocation), then 18 of 54
+             gradients (one shared-attention invocation), then 12 of 54
              layers: 3 fused steps, one pallas step, the loss check and
              where a Mamba2 layer's time goes (``ssm_breakdown``).
 5. the rest of the training path, StableLM at full width:
@@ -94,16 +96,17 @@ Phases, each reported on its own line:
              count must be > 0), then 3 steps with ``--layer-pipeline``
              and 3 with ``--layer-pipeline --overlap`` (one more of each
              profiled: device time, copies, peak), beside the plain step
-             of phase 4; (c) the Supervisor (``launch/drills.py``) at 4
-             layers, f32: the kill drill (worker 1 lost at step 7,
-             checkpoints every 2 steps under build/, at most 2 steps
+             of phase 4; (c) the Supervisor (``launch/drills.py``) at 1
+             layer, f32: the kill drill (worker 1 lost mid-step at step 3
+             of 5, checkpoints every 2 steps under build/, at most 2 steps
              lost, the replay within 1e-6 of an uninterrupted survivor
              run) and the straggler drill (worker 3 2x slow: demoted
              within the window and cooldown, its plan key missing once);
              then the CLI's default command (the Supervisor) for 3
              full-depth bf16 steps with the counters read around them,
-             and a checkpoint round trip of its 1.6 B bf16 parameters
-             and AdamW state (save and restore seconds, bytes equal).
+             and a checkpoint round trip of its bf16 parameters and AdamW
+             state, 4 of its 24 layers (save and restore seconds, bytes
+             equal).
 6. pods    — StableLM at full width on pod meshes (P pods x D stacked
              workers, every pod on the same D-worker plan, one launch of
              each kernel for all pods): (a) the training CLI's plain loop
@@ -116,14 +119,14 @@ Phases, each reported on its own line:
              with the counters read around them and one profiled; one
              ``--attn-impl pallas`` step at 4 layers (kernels 2, 5, 6)
              with its counters; (b) the pod drill
-             (``launch/drills.pod_drill``: 4 layers, f32, 2 x 2 workers,
-             compression on, pod 1 lost at step 5 and back at step 9 of
-             12, checkpoints under build/pods/): at most 2 steps lost,
+             (``launch/drills.pod_drill``: 1 layer, f32, 2 x 2 workers,
+             compression on, pod 1 lost at step 3 and back at step 5 of
+             7, checkpoints under build/pods/): at most 2 steps lost,
              the replay within 1e-6, no plan miss and no step closure
              after the rejoin; (c) serving on a 2x2x2 mesh: with f32
-             weights at 4 layers the FCP prefill warns and serves
+             weights at 4 layers, 4 requests, the FCP prefill warns and serves
              densely, its tokens those of a 4x2 FCP loop, and
-             ``strict_prefill`` raises; at full depth, bf16, 16 requests
+             ``strict_prefill`` raises; at full depth, bf16, 8 requests
              in phase 3's setting with kernel 2's counter (decode), the
              prefill p50 beside phase 3's.  Then kernels 1 and 3-6 at the
              pod step's shapes (8 frames), each against its plain
@@ -131,7 +134,7 @@ Phases, each reported on its own line:
 7. multimodal — InternVL2-1B (vision-language: 24 layers, d 896, 14 / 2
              heads of 64, ``qkv_bias``, vocab 151655, the front-end stub of
              1024-d patches) and MusicGen-large (audio: d 2048, 32 heads
-             of 64, 12 of 48 layers) at full width: served in
+             of 64, 6 of 48 layers) at full width: served in
              phase 3's setting (text-only, as the reference serves them),
              then trained through the CLI's plain loop (3 fused steps,
              one profiled, a pallas step, the bf16 step-0 loss check;
@@ -146,6 +149,22 @@ Phases, each reported on its own line:
              (one layer's attention, bf16): forward against the dense
              oracle, gradients against plain, each schedule's attention
              device time beside FCP's.
+8. llama3 — llama3-70b, the paper's own model (d 8192, 64 / 8 heads of
+             128, d_ff 28672, vocab 128256): served in phase 3's setting
+             at 8 of 80 layers (f32 prefill logits against plain), then
+             trained through the CLI's plain loop: 1 layer with f32
+             weights, every leaf's gradient through kernels 1, 3, 4 and
+             2, 5, 6 against plain; at 3 of 80 layers, bf16, 3 fused steps
+             (one more profiled: device time, GEMM and attention time,
+             peak) under ``--remat-policy dots`` (the default, which saves
+             the products without batch dimensions) and under
+             ``nothing``, a pallas step, and 3 steps with ``--comm-dtype
+             int8``.  StableLM's fused step under ``nothing`` beside
+             phase 4's (``dots``).  The reference's wire-format section
+             at llama3-70b's attention (f32 q, k, v; kernels 1, 3, 4):
+             the bf16 and int8 wires' gradient error against the f32
+             wire's and their round bytes ratios, held to the
+             reference's gates.  No phase here writes a checkpoint.
 
 The line before the card's line is a JSON object with one entry per
 kernel, its StableLM main-path row at the top (kernel 2's at decode) and
@@ -202,16 +221,29 @@ HYBRID_SERVE_LAYERS = 18            # of 54: 3 shared-attention invocations
 HYBRID_WHY = ("depth cut for the run's time (its host-bound decode loop "
               "took 207 s at 54 layers); the layers kept are at full "
               "width, every 6th followed by the shared block")
+HYBRID_SERVE_REQUESTS = 8           # of phase 3's 16
+HYBRID_REQUESTS_WHY = (
+    "requests cut for the run's time: the serve phase took 69-80 s with "
+    "16 on an H100 80GB HBM3 host, its decode loop host-bound; a cut to "
+    "6 layers (one shared-block invocation) left the bf16 logits check "
+    "without a noise floor: a one-ulp nudge of the attention output "
+    "moved no bf16 logit (floor 0.0)")
 HYBRID_GRAD_LAYERS = 6              # one shared-attention invocation
-HYBRID_TRAIN_LAYERS = 18            # of 54, as served
-HYBRID_TRAIN_WHY = ("depth cut for the run's time (78.3 s at 54 layers); "
-                    "the layers kept are at full width, every 6th followed "
-                    "by the shared block")
+HYBRID_TRAIN_LAYERS = 12            # of 54: 2 shared-block invocations
+HYBRID_TRAIN_WHY = ("depth cut for the run's time (78.3 s at 54 layers, "
+                    "27-35 s at 18 on an H100 80GB HBM3 host); the layers "
+                    "kept are at full width, every 6th followed by the "
+                    "shared block")
 SSM_ARCH = "mamba2_130m"            # the SSM, full width (no attention)
 SSM_SERVE_LAYERS = 4                # of 24
 SSM_WHY = ("depth cut for the run's time (its host-bound decode loop took "
            "39.9 s at 24 layers); the layers kept are at full width")
 TOL_SSM_F32 = 1e-4                  # f32 prefill vs recurrent decode logits
+PALLAS_WHY = ("steps cut for the run's time: StableLM's per-step-executor "
+              "step is host-bound (3.3-5.2 s a step, device busy 38-49%, "
+              "on an H100 80GB HBM3 host); one step with its counters "
+              "drives kernels 2, 5 and 6, without the second step and its "
+              "profile")
 
 
 def log(msg: str) -> None:
@@ -500,6 +532,16 @@ def fused_fwd_row(fa, run, spec, cfg, nf: int, dev, phase: str) -> dict:
     plain()
     torch.cuda.synchronize()
     err = compare("fused_flash_fwd main path", ko, kl, po, pl)
+    # o's scale bias: the kernel's deviation along the plain output over
+    # the q slots the run's steps touch, relative (a drift of the
+    # accumulation toward zero shows as a negative value; summation noise
+    # as one near 0)
+    touched = torch.zeros(nf, SL, dtype=torch.bool, device=dev)
+    touched[torch.arange(nf, device=dev)[:, None],
+            run["step_q"].long()] = True
+    touched[:, spec.q_trash] = False
+    dk, pk = (ko - po)[touched].double(), po[touched].double()
+    o_bias = float((dk * pk).sum() / (pk * pk).sum())
     # a second launch on the same inputs gives the same bytes
     ko2, kl2 = acc_o0.clone(), acc_l0.clone()
     ko.copy_(acc_o0)
@@ -533,7 +575,7 @@ def fused_fwd_row(fa, run, spec, cfg, nf: int, dev, phase: str) -> dict:
     nbytes = (n_q * H * bs * D * 2 + 2 * n_kv * KH * bs * D * 2
               + 2 * n_q * H * bs * (D + 1) * 4)
     return {"name": "fused_flash_fwd", "phase": phase,
-            "max_abs_err": err, "ms": ms,
+            "max_abs_err": err, "o_scale_bias": o_bias, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
             **bound(flops, PEAK_BF16, nbytes),
             "shape": f"N={nf} S={sq.shape[1]} SL={SL} EX={EX} H={H} "
@@ -1013,6 +1055,19 @@ def main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev, pods: int = 1):
     return rows
 
 
+def device_events(prof) -> list:
+    """``(name, us)`` of every device activity of a finished
+    ``torch.profiler`` run, read from its raw trace: ``prof.events()``
+    builds every host and device event's Python object and their tree
+    (about 80 us an event), which took tens of seconds of host time for
+    one profiled step of the per-step executor."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
 def device_ms(fn, n: int = 20, tries: int = 3,
               floor: float = 0.0) -> tuple[float, dict]:
     """Device ms per call of ``fn``: the sum of the device activity of
@@ -1035,9 +1090,8 @@ def device_ms(fn, n: int = 20, tries: int = 3,
                 fn()
             torch.cuda.synchronize()
         per: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+        for name, us in device_events(prof):
+            per[name] = per.get(name, 0.0) + us
         per = {name[:90]: us / 1e3 / n for name, us in per.items()}
         if per and sum(per.values()) >= floor:
             return sum(per.values()), per
@@ -1398,6 +1452,7 @@ def train_grad_check(trainlib, dev, argv, n_layers: int = 4) -> dict:
     tr = trainlib.trainer_from_args(trainlib.parse_args(
         argv + ["--override", f"n_layers={n_layers}",
                 "--override", "param_dtype=float32"]))
+    tr.state.opt = None          # no step here: the AdamW moments' memory
     try:
         b = tr.loader.next()
         batch = trainlib.batch_arrays(b, tr.cfg, dev)
@@ -1476,11 +1531,9 @@ def train_steps(fa, trainlib, dev, argv, steps: int) -> dict:
             "profile_step": prof}
 
 
-def train_pallas(fa, trainlib, dev, argv, more: bool) -> dict:
+def train_pallas(fa, trainlib, dev, argv) -> dict:
     """One ``--attn-impl pallas`` step (kernels 2, 5 and 6) with its
-    counters; with ``more`` a second one (past the first step's one-time
-    costs) and one more under the profiler."""
-    import torch
+    counters."""
     argv = [x if x != "fused" else "pallas" for x in argv]
     argv[argv.index("--steps") + 1] = "1"
     tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
@@ -1488,24 +1541,18 @@ def train_pallas(fa, trainlib, dev, argv, more: bool) -> dict:
         reset_counters(fa)
         rec = tr.step()
         launches_p = read_counters(fa)
-        recs = [rec]
-        out = {"loss": rec.loss, "ms": rec.ms, "launches": launches_p}
-        if more:
-            recs.append(tr.step())
-            out.update(second_step_ms=recs[1].ms,
-                       profile_step=profile(tr.step, 1))
     finally:
         tr.close()
     del tr
     release()
-    if not all(np.isfinite(r.loss) for r in recs):
+    if not np.isfinite(rec.loss):
         raise AssertionError("pallas train loss not finite")
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         if launches_p[name] <= 0:
             raise AssertionError(f"{name} never launched on the pallas "
                                  f"train path")
-    return out
+    return {"loss": rec.loss, "ms": rec.ms, "launches": launches_p}
 
 
 def train_loss_check(trainlib, dev, argv) -> dict:
@@ -1568,17 +1615,31 @@ def train_loss_check(trainlib, dev, argv) -> dict:
     return out
 
 
+def timed(tag: str, fn):
+    """``fn()``, its wall printed on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn()
+    log(f"  {tag}: {time.perf_counter() - t0:.2f}s")
+    return out
+
+
 def train(fa, trainlib, dev) -> dict:
     """(a) the 4-layer f32 gradient check; (b) the training CLI's main
-    path (24 layers, bf16) for 3 fused steps and one profiled, two
-    ``--attn-impl pallas`` steps and one profiled, and the bf16 step-0
-    loss check."""
-    out = {"grad_check_4_layers_f32": train_grad_check(trainlib, dev,
-                                                       TRAIN_ARGV)}
+    path (24 layers, bf16) for 3 fused steps and one profiled, one
+    ``--attn-impl pallas`` step (PALLAS_WHY), and the bf16 step-0 loss
+    check."""
+    out = {"grad_check_4_layers_f32": timed(
+        "train f32 gradient check", lambda: train_grad_check(
+            trainlib, dev, TRAIN_ARGV))}
     release()
-    out.update(train_steps(fa, trainlib, dev, TRAIN_ARGV, 3))
-    out["pallas_step"] = train_pallas(fa, trainlib, dev, TRAIN_ARGV, True)
-    out["bf16_step0_loss"] = train_loss_check(trainlib, dev, TRAIN_ARGV)
+    out.update(timed("train fused steps", lambda: train_steps(
+        fa, trainlib, dev, TRAIN_ARGV, 3)))
+    out["pallas_step"] = timed("train pallas step", lambda: train_pallas(
+        fa, trainlib, dev, TRAIN_ARGV))
+    out["pallas_step"]["steps_cut"] = PALLAS_WHY
+    out["bf16_step0_loss"] = timed("train bf16 loss check",
+                                   lambda: train_loss_check(
+                                       trainlib, dev, TRAIN_ARGV))
     out["bf16_step0_loss"]["main_path_step0"] = out["losses"][0]
     log(f"train bf16 step-0 loss: {json.dumps(out['bf16_step0_loss'])}")
     return out
@@ -1602,10 +1663,14 @@ def train_model(fa, trainlib, dev, arch: str, steps: int,
     steps (one more profiled), one ``--attn-impl pallas`` step, and the
     bf16 step-0 loss check."""
     argv = model_argv(arch, n_layers, steps)
-    out = train_steps(fa, trainlib, dev, argv, steps)
+    out = timed(f"{arch} fused steps", lambda: train_steps(
+        fa, trainlib, dev, argv, steps))
     out["depth"] = {"n_layers": out["n_layers"], "why": why}
-    out["pallas_step"] = train_pallas(fa, trainlib, dev, argv, False)
-    out["bf16_step0_loss"] = train_loss_check(trainlib, dev, argv)
+    out["pallas_step"] = timed(f"{arch} pallas step", lambda: train_pallas(
+        fa, trainlib, dev, argv))
+    out["bf16_step0_loss"] = timed(f"{arch} bf16 loss check",
+                                   lambda: train_loss_check(
+                                       trainlib, dev, argv))
     out["bf16_step0_loss"]["main_path_step0"] = out["losses"][0]
     return out
 
@@ -1732,10 +1797,23 @@ DKDV_TOL = 1e-6             # overlap on vs off: dk/dv, normalized (the
 TOL_OVERLAP_LEAF = 1e-5     # overlap on vs off: weight gradients, which
                             # sum dk/dv's association-order drift
 TOL_PIPELINE = 1e-6         # layer pipeline vs not: loss and every leaf
-DRILL_LAYERS = 4
-DRILL_TOTAL, DRILL_EVERY = 8, 2
-DRILL_FAIL_STEP, DRILL_FAIL_WORKER, DRILL_FAIL_ROUND = 7, 1, 2
+CHECK_LAYERS = 4            # the overlap and layer-pipeline f32 checks
+DRILL_LAYERS = 1            # the kill, straggler and pod drills
+DRILL_TOTAL, DRILL_EVERY = 5, 2
+DRILL_FAIL_STEP, DRILL_FAIL_WORKER, DRILL_FAIL_ROUND = 3, 1, 2
 STRAGGLER_TOTAL, STRAGGLER_WINDOW, STRAGGLER_COOLDOWN = 12, 3, 4
+DRILL_WHY = ("depth and steps cut for the run's time: a drill's time is "
+             "its checkpoint saves (7.40 GB at 4 layers, about 12 s each "
+             "on an H100 80GB HBM3 host; 5.5 GB at 1 layer, the embedding "
+             "and head f32 with their AdamW moments) and its f32 steps; "
+             "the worker dies mid-step after one committed checkpoint, as "
+             "at step 7 of 8, and the limits are the reference runner's")
+ROUND_TRIP_LAYERS = 4       # of 24: the checkpoint round trip's state
+ROUND_TRIP_WHY = ("depth cut for the run's time (the full 16.44 GB state "
+                  "saved in 23.4 s and restored in 11.0 s on an H100 80GB "
+                  "HBM3 host): the first 4 layers of every stacked layer "
+                  "leaf, the embedding, head and norm whole, params and "
+                  "both AdamW moments")
 BUILD = os.path.join(ROOT, "build")
 PATH_KERNELS = {"fused": ("fused_flash_fwd", "fused_flash_bwd_dq",
                           "fused_flash_bwd_dkv"),
@@ -1844,7 +1922,7 @@ def overlap_and_pipeline_checks(fa, ex, trainlib, dev) -> dict:
     from repro_torch.optimizer import adamw
     from repro_torch.runtime.serving import ServingLoop
     tr = trainlib.trainer_from_args(trainlib.parse_args(
-        TRAIN_ARGV + ["--override", f"n_layers={DRILL_LAYERS}",
+        TRAIN_ARGV + ["--override", f"n_layers={CHECK_LAYERS}",
                       "--override", "param_dtype=float32"]))
     out: dict = {}
     try:
@@ -2020,11 +2098,13 @@ def overlap_step(fa, trainlib, dev, argv) -> dict:
 
 
 def overlap_phase(fa, ex, trainlib, dev) -> dict:
-    out = overlap_and_pipeline_checks(fa, ex, trainlib, dev)
+    out = timed("overlap checks", lambda: overlap_and_pipeline_checks(
+        fa, ex, trainlib, dev))
     log(f"  overlap / layer-pipeline checks: {json.dumps(out)}")
-    out["step_serial"] = overlap_step(fa, trainlib, dev, TRAIN_ARGV)
-    out["step_overlap"] = overlap_step(fa, trainlib, dev,
-                                       TRAIN_ARGV + ["--overlap"])
+    out["step_serial"] = timed("overlap serial steps", lambda: overlap_step(
+        fa, trainlib, dev, TRAIN_ARGV))
+    out["step_overlap"] = timed("overlap steps", lambda: overlap_step(
+        fa, trainlib, dev, TRAIN_ARGV + ["--overlap"]))
     for tag in ("step_serial", "step_overlap"):
         p = out[tag]["profile"]
         log(f"  {tag}: device {p['device_ms']:.1f} ms in a "
@@ -2050,12 +2130,14 @@ def layer_pipeline_phase(fa, trainlib, dev) -> dict:
 
 
 def supervisor_phase(fa, trainlib, dev) -> dict:
-    """StableLM at full width, 4 layers, f32, 4 stacked workers, the
-    CLI's plan settings: the kill drill (worker 1 dies at step 7,
-    checkpoints every 2 steps under build/) and the straggler drill
-    (worker 3 2x slow); then the CLI's default command (the Supervisor)
-    for 3 full-depth bf16 steps with the counters read around them, and
-    a checkpoint round trip of its params and AdamW state."""
+    """StableLM at full width, DRILL_LAYERS deep, f32, 4 stacked workers,
+    the CLI's plan settings: the kill drill (worker 1 dies mid-step at
+    step DRILL_FAIL_STEP of DRILL_TOTAL, checkpoints every 2 steps under
+    build/) and the straggler drill (worker 3 2x slow); then the CLI's
+    default command (the Supervisor) for 3 full-depth bf16 steps with the
+    counters read around them, and a checkpoint round trip of its params
+    and AdamW state (ROUND_TRIP_LAYERS of them)."""
+    import dataclasses
     import shutil
     import torch
     from repro_torch.checkpoint import checkpointer
@@ -2081,7 +2163,8 @@ def supervisor_phase(fa, trainlib, dev) -> dict:
                 checkpoint_keep=3, verbose=False, device=dev,
                 attn_impl="fused", **kw)
         return make
-    out: dict = {}
+    out: dict = {"drill_depth": f"{DRILL_LAYERS} layer(s), {DRILL_TOTAL} "
+                                f"steps: {DRILL_WHY}"}
     t0 = time.perf_counter()
     out["kill_drill"] = drills.kill_drill(
         factory(), root, total=DRILL_TOTAL, fail_step=DRILL_FAIL_STEP,
@@ -2101,6 +2184,7 @@ def supervisor_phase(fa, trainlib, dev) -> dict:
     log(f"  drills: {json.dumps(out)}")
 
     # the CLI's default command: the Supervisor
+    t_cli = time.perf_counter()
     argv = [x for x in TRAIN_ARGV if x != "--no-supervised"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2122,9 +2206,17 @@ def supervisor_phase(fa, trainlib, dev) -> dict:
                     if k in ("steps", "n_workers", "compiles", "events")}}
     if not all(np.isfinite(out["cli_default"]["losses"])):
         raise AssertionError("Supervisor losses not finite")
+    log(f"  supervisor CLI default steps: {time.perf_counter() - t_cli:.2f}s")
 
-    # a checkpoint round trip of the full-width bf16 params + AdamW state
-    tree = {"params": sup.state.params, "opt": sup.state.opt}
+    # a checkpoint round trip of the full-width bf16 params + AdamW state,
+    # its depth cut to ROUND_TRIP_LAYERS (the stacked layer leaves' first
+    # rows)
+    def cut(t):
+        return {k: ({n: w[:ROUND_TRIP_LAYERS] for n, w in v.items()}
+                    if k == "layers" else v) for k, v in t.items()}
+    opt = sup.state.opt
+    tree = {"params": cut(sup.state.params),
+            "opt": dataclasses.replace(opt, m=cut(opt.m), v=cut(opt.v))}
     path = os.path.join(root, "round_trip")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2148,7 +2240,9 @@ def supervisor_phase(fa, trainlib, dev) -> dict:
         raise AssertionError("checkpoint round trip changed a byte")
     out["checkpoint_round_trip"] = {
         "bytes": nbytes, "leaves": len(leaves), "save_s": save_s,
-        "restore_s": restore_s, "bytes_equal": True}
+        "restore_s": restore_s, "bytes_equal": True,
+        "depth": f"{ROUND_TRIP_LAYERS} of {sup.cfg.n_layers} layers: "
+                 f"{ROUND_TRIP_WHY}"}
     del sup, tree, back, leaves, got
     release()
     return out
@@ -2164,8 +2258,12 @@ POD_ARGV = ["--arch", "stablelm_1_6b", "--mesh", "2x4x1", "--dist",
             "2048", "--attn-impl", "fused", "--steps", "3",
             "--no-supervised"]
 POD_LAYOUT_TOL = 1e-6       # 2-pod loss vs the mean of the one-pod losses
-POD_DRILL_TOTAL, POD_DRILL_EVERY = 12, 2
-POD_FAIL_STEP, POD_FAIL_ROUND, POD_REJOIN = 5, 1, 9
+POD_DRILL_TOTAL, POD_DRILL_EVERY = 7, 2    # DRILL_WHY: steps cut from 12
+POD_FAIL_STEP, POD_FAIL_ROUND, POD_REJOIN = 3, 1, 5     # from 5, 1, 9
+POD_CHECK_REQUESTS = 4      # the f32 dispatch check's stream, from 8
+POD_SERVE_REQUESTS = 8      # full depth, bf16, on the 2x2x2 mesh
+POD_SERVE_WHY = ("requests cut from 16 for the run's time: the dense "
+                 "prefill of a pod mesh takes 1.47 s a batch at full depth")
 
 
 def pod_checks(trainlib, dev) -> dict:
@@ -2230,20 +2328,24 @@ def pod_train_phase(fa, trainlib, dev) -> dict:
     """(a) the 4-layer f32 checks; the pod step at full depth, bf16 (3
     fused steps with the counters read around them, one profiled); one
     ``--attn-impl pallas`` pod step at 4 layers with its counters."""
-    out = {"checks_4_layers_f32": pod_checks(trainlib, dev)}
+    out = {"checks_4_layers_f32": timed("pod checks", lambda: pod_checks(
+        trainlib, dev))}
     release()
     log(f"  pod checks (4 layers, f32): {json.dumps(out)}")
-    out.update(train_steps(fa, trainlib, dev, POD_ARGV, 3))
-    out["pallas_step_4_layers"] = train_pallas(
-        fa, trainlib, dev, POD_ARGV + ["--override", "n_layers=4"], False)
+    out.update(timed("pod fused steps", lambda: train_steps(
+        fa, trainlib, dev, POD_ARGV, 3)))
+    out["pallas_step_4_layers"] = timed(
+        "pod pallas step", lambda: train_pallas(
+            fa, trainlib, dev, POD_ARGV + ["--override", "n_layers=4"]))
     return out
 
 
 def pod_drill_phase(fa, trainlib, dev) -> dict:
     """(b) the pod drill (``launch/drills.pod_drill``): StableLM at full
-    width, 4 layers, f32, 2 pods x 2 workers of 2048 tokens, block 512,
-    error-feedback compression on; pod 1 dies at step 5 (round 1) and
-    rejoins at step 9 of 12, checkpoints every 2 steps under build/."""
+    width, DRILL_LAYERS deep, f32, 2 pods x 2 workers of 2048 tokens,
+    block 512, error-feedback compression on; pod 1 dies at step
+    POD_FAIL_STEP (round 1) and rejoins at step POD_REJOIN of
+    POD_DRILL_TOTAL, checkpoints every 2 steps under build/."""
     import shutil
     from repro_torch.configs.base import (ParallelConfig, TrainConfig,
                                           get_config)
@@ -2274,6 +2376,8 @@ def pod_drill_phase(fa, trainlib, dev) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     out["launches"] = read_counters(fa)
     out["seconds"] = time.perf_counter() - t0
+    out["depth"] = (f"{DRILL_LAYERS} layer(s), {POD_DRILL_TOTAL} steps: "
+                    f"{DRILL_WHY}")
     for name in PATH_KERNELS["fused"]:
         if out["launches"][name] <= 0:
             raise AssertionError(f"{name} never launched in the pod drill")
@@ -2285,9 +2389,10 @@ def pod_serve_phase(fa, dev) -> dict:
     """(c) StableLM at full width on a 2x2x2 pod mesh.  With f32 weights
     at 4 layers, 8 requests: FCP prefill warns and serves densely, its
     tokens those of a 4x2 FCP loop on the same prompts, and
-    ``strict_prefill`` raises.  Then full depth, bf16, 16 requests in
-    cell 1's setting: the prefill that served, prefill p50, the decode
-    step's wall and profile, with the counters read around the run."""
+    ``strict_prefill`` raises.  Then full depth, bf16, POD_SERVE_REQUESTS
+    requests in cell 1's setting: the prefill that served, prefill p50,
+    the decode step's wall and profile, with the counters read around the
+    run."""
     import warnings
     import torch
     from repro_torch.configs.base import (ParallelConfig, ServeConfig,
@@ -2315,7 +2420,7 @@ def pod_serve_phase(fa, dev) -> dict:
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     pcfg = ParallelConfig(block_size=512, in_dtype_bytes=4)
-    ps, toks = prompts(cfg.vocab_size, 8), {}
+    ps, toks = prompts(cfg.vocab_size, POD_CHECK_REQUESTS), {}
     for tag, shape in (("fcp_4x2", (4, 2)), ("pod_2x2x2", (2, 2, 2))):
         loop, warned = build(model, params, StackedMesh(shape), pcfg, scfg)
         reset_counters(fa)
@@ -2334,7 +2439,8 @@ def pod_serve_phase(fa, dev) -> dict:
     if out["pod_2x2x2"]["launches"]["fused_flash_fwd"] != 0 or \
             out["pod_2x2x2"]["launches"]["flash_attention_fwd"] <= 0:
         raise AssertionError(f"pod-mesh serving launches: {out}")
-    if toks["pod_2x2x2"] != toks["fcp_4x2"] or len(toks["fcp_4x2"]) != 8:
+    if toks["pod_2x2x2"] != toks["fcp_4x2"] or \
+            len(toks["fcp_4x2"]) != POD_CHECK_REQUESTS:
         raise AssertionError("pod-mesh dense tokens differ from the 4x2 FCP "
                              "loop's")
     out["tokens_equal"] = True
@@ -2362,10 +2468,12 @@ def pod_serve_phase(fa, dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters(fa)
-    rep = loop.run(prompts(cfg.vocab_size, 16), max_new=scfg.max_new_tokens)
+    rep = loop.run(prompts(cfg.vocab_size, POD_SERVE_REQUESTS),
+                   max_new=scfg.max_new_tokens)
     launches = read_counters(fa)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if rep["requests"] != 16 or launches["flash_attention_fwd"] <= 0 or \
+    if rep["requests"] != POD_SERVE_REQUESTS or \
+            launches["flash_attention_fwd"] <= 0 or \
             launches["fused_flash_fwd"] != 0:
         raise AssertionError(f"pod-mesh serving: {rep['requests']} "
                              f"requests, launches {launches}")
@@ -2376,6 +2484,7 @@ def pod_serve_phase(fa, dev) -> dict:
     step = loop.prefill_fn(first.bucket)
     out["full_depth_bf16"] = {
         "prefill_impl": rep["prefill_impl"], "warned": warned,
+        "requests_cut": POD_SERVE_WHY,
         "warmup_s": warm_s, "wall_s": rep["wall_s"],
         "sustained_tok_s": rep["sustained_tok_s"],
         "requests": rep["requests"], "prefill_batches": rep["prefill_batches"],
@@ -2422,9 +2531,10 @@ def pod_phase(fa, ex, trainlib, dev, cfg, pcfg) -> tuple[dict, list]:
 VLM_ARCH = "internvl2_1b"       # full width and depth: 24 layers, d 896,
                                 # 14 / 2 heads of 64, qkv_bias, vocab 151655
 AUDIO_ARCH = "musicgen_large"   # full width: d 2048, 32 heads of 64
-AUDIO_LAYERS = 12               # of 48: ~0.8 B parameters
+AUDIO_LAYERS = 6                # of 48: ~0.5 B parameters
 AUDIO_WHY = ("depth cut for the run's time (at 48 layers it served in "
-             "44.4 s and trained in 108.1 s); the layers kept are at full "
+             "44.4 s and trained in 108.1 s, at 12 in 8-10 s and 22-30 s "
+             "on an H100 80GB HBM3 host); the layers kept are at full "
              "width (d 2048, 32 heads of 64, d_ff 8192, vocab 2048)")
 POLICIES = ("ring", "bytescale", "magi", "wlb")
 
@@ -2494,7 +2604,7 @@ def d16_phase(fa, trainlib, dev) -> dict:
     steps = train_steps(fa, trainlib, dev, argv, 1)
     out["fused_step"] = {k: steps[k] for k in (
         "losses", "step_ms", "launches_steps")}
-    out["pallas_step"] = train_pallas(fa, trainlib, dev, argv, False)
+    out["pallas_step"] = train_pallas(fa, trainlib, dev, argv)
     return out
 
 
@@ -2625,6 +2735,202 @@ def multimodal_phase(fa, trainlib, dev, pcfg, scfg) -> tuple[dict, dict]:
     return served, trained
 
 
+# --------------------------------------------------------------------------
+# phase 8: llama3-70b (the paper's own model), the remat policies, the
+# quantized wires
+# --------------------------------------------------------------------------
+
+LLAMA_ARCH = "llama3_70b"       # d 8192, 64 / 8 heads of 128 (GQA group
+                                # 8), d_ff 28672, vocab 128256 untied
+LLAMA_TRAIN_LAYERS = 3          # of 80: 4.67 B parameters
+LLAMA_TRAIN_WHY = (
+    "depth cut to fit the card: bf16 parameters and gradients with f32 "
+    "AdamW moments take 12 B a parameter, 25.2 GB for the embedding and "
+    "untied head and 10.3 GB a layer, beside the f32 logits of 8192 "
+    "tokens and their gradient (4.2 GB each); 3 layers peaked at 67.5 GiB "
+    "under dots on an H100 80GB HBM3, a 4th would pass 70; the layers "
+    "kept are at full width")
+LLAMA_GRAD_LAYERS = 1           # f32: both runs' gradients on the card
+LLAMA_GRAD_WHY = (
+    "depth cut to fit the card: f32 weights and two runs' f32 gradients "
+    "take 12 B a parameter, beside the plain attention's f32 score "
+    "tensors of 64 heads (7.25 GiB each); at 2 layers the plain run's "
+    "attention backward ran out of the card's 79 GiB")
+LLAMA_SERVE_LAYERS = 8          # of 80
+LLAMA_SERVE_WHY = (
+    "depth cut to fit the card and the run's time: the logits check adds "
+    "an f32 copy of the weights (4 B a parameter, 35.8 GB at 8 layers); "
+    "the layers kept are at full width")
+# the reference's wire gates (scripts/check_bench.py): round bytes at
+# most this share of the f32 wire's, and the gradients' error against
+# the f32 wire's at most this (max |a - b| / max(1, max |b|)), above 0
+WIRE_LIMITS = {"bf16": {"round_bytes_ratio": 0.55, "grad_err": 1e-2},
+               "int8": {"round_bytes_ratio": 0.35, "grad_err": 3e-2}}
+
+
+def step_summary(r: dict) -> dict:
+    """The numbers PERF.md sets side by side for one ``train_steps``
+    run."""
+    p = r["profile_step"]
+    return {"step_ms": r["step_ms"], "tokens_per_s": r["tokens_per_s"],
+            "device_ms": p["device_ms"], "busy_share": p["busy_share"],
+            "window_ms": p["wall_ms"], "gemm_ms": p["gemm_ms"],
+            "copies_ms": p["copies_ms"],
+            "attention_kernels_ms": p["attention_kernels_ms"],
+            "peak_mem_gib": r["peak_mem_gib"], "losses": r["losses"]}
+
+
+def llama_train_phase(fa, trainlib, dev) -> dict:
+    """llama3-70b through the training CLI's plain loop at full width:
+    (a) LLAMA_GRAD_LAYERS deep with f32 weights, every leaf's gradient
+    through kernels 1, 3, 4 and 2, 5, 6 against the plain versions
+    (TOL_TRAIN_F32); (b) LLAMA_TRAIN_LAYERS deep, bf16: 3 fused steps
+    (one more profiled) under each remat policy (``--remat-policy dots``,
+    the default, then ``nothing``), one pallas step, and 3 fused steps
+    (one more profiled) with ``--comm-dtype int8``; every profile times
+    the fourth batch of the stream.  No phase here writes a checkpoint (a
+    2-layer state is about 45 GB)."""
+    argv = model_argv(LLAMA_ARCH, LLAMA_TRAIN_LAYERS, 3)
+    out = {"depth": {"n_layers": LLAMA_TRAIN_LAYERS, "why": LLAMA_TRAIN_WHY}}
+    out["grad_check_f32"] = timed("llama3 f32 gradient check", lambda: {
+        **train_grad_check(trainlib, dev, model_argv(LLAMA_ARCH, None, 3),
+                           LLAMA_GRAD_LAYERS),
+        "n_layers": LLAMA_GRAD_LAYERS, "why": LLAMA_GRAD_WHY})
+    release()
+    for policy in ("dots", "nothing"):
+        r = timed(f"llama3 fused steps, remat {policy}", lambda: train_steps(
+            fa, trainlib, dev, argv + ["--remat-policy", policy], 3))
+        out[policy] = r if policy == "dots" else step_summary(r)
+        log(f"  llama3 remat {policy}: "
+            f"{json.dumps(step_summary(r))}")
+    out.update({k: out["dots"][k] for k in ("launches_steps", "n_layers",
+                                            "params", "tokens_per_s")})
+    out["pallas_step"] = timed("llama3 pallas step", lambda: train_pallas(
+        fa, trainlib, dev, argv))
+    r = timed("llama3 fused steps, int8 wire", lambda: train_steps(
+        fa, trainlib, dev, argv + ["--comm-dtype", "int8"], 3))
+    out["int8_wire"] = step_summary(r)
+    log(f"  llama3 int8 wire: {json.dumps(out['int8_wire'])} (f32 wire: "
+        f"step_ms {out['dots']['step_ms']} device_ms "
+        f"{out['dots']['profile_step']['device_ms']})")
+    return out
+
+
+def wire_formats(fa, ex, dev, cfg, n: int = 4, tpw: int = 2048,
+                 bs: int = 512) -> dict:
+    """The reference's ``wire_formats_section``
+    (``benchmarks/bench_executor.py``) at llama3-70b's attention (64 / 8
+    heads of 128, f32 q, k and v from a seed) on the training CLI's first
+    plan (4 workers of 2048 tokens, block 512, coalesce 16, causal):
+    each format's round bytes from its own plan
+    (``cost_model.spec_wire_bytes``) against the f32 plan's; the
+    gradients of ``sum(o * key)`` through kernels 1, 3 and 4 on the f32
+    plan with only the spec's wire swapped, against the f32 wire's,
+    held to the reference's gates (WIRE_LIMITS); the forward and
+    backward's wall."""
+    import dataclasses
+    import torch
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.data.loader import SyntheticLoader
+    hq, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b = SyntheticLoader(dist="real_world", n_frames=n, tokens_per_worker=tpw,
+                        vocab_size=cfg.vocab_size, seed=0,
+                        bucket_min_len=bs).next()
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((n, tpw, hq, d), generator=g, device=dev)
+    k, v = (torch.randn((n, tpw, kvh, d), generator=g, device=dev)
+            for _ in range(2))
+    key = torch.randn(q.shape, generator=g, device=dev)
+    out: dict = {"config": {"n_workers": n, "tokens_per_worker": tpw,
+                            "block_size": bs, "heads": hq, "kv_heads": kvh,
+                            "head_dim": d, "coalesce": 16,
+                            "seqlens": [int(x) for x in b.seqlens]}}
+    base, grads32 = None, None
+    for fmt in ("f32", "bf16", "int8"):
+        sched = make_schedule(b.seqlens, n, tpw, bs, n_q_heads=hq,
+                              n_kv_heads=kvh, head_dim=d, mask=True,
+                              coalesce=16, wire=fmt)
+        row = {"comm_bytes": cm.spec_wire_bytes(sched.spec, hq, kvh, d)}
+        if base is None:
+            base = sched
+        spec = dataclasses.replace(base.spec, wire=sched.spec.wire)
+        tabs = ex.schedule_tables(base, dev)
+
+        def step():
+            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            o = ex.fcp_attention(*xs, tabs, spec=spec,
+                                 cfg=ex.ExecConfig(impl="fused"))
+            return torch.autograd.grad((o * key).sum(), xs)
+        reset_counters(fa)
+        grads = step()
+        torch.cuda.synchronize()
+        row["launches"] = {n_: c for n_, c in read_counters(fa).items()
+                           if n_ in PATH_KERNELS["fused"]}
+        if min(row["launches"].values()) <= 0 or not all(
+                bool(torch.isfinite(x).all()) for x in grads):
+            raise AssertionError(f"wire {fmt}: launches {row['launches']}, "
+                                 f"gradients finite?")
+        row["fwd_bwd_ms"] = wall_ms(step, 5)
+        if fmt == "f32":
+            grads32 = grads
+        else:
+            row["grad_err_vs_f32"] = max(
+                float((a - b_).abs().max()) / max(1.0, float(b_.abs().max()))
+                for a, b_ in zip(grads, grads32))
+            row["round_bytes_ratio"] = (row["comm_bytes"]["rounds"]
+                                        / out["f32"]["comm_bytes"]["rounds"])
+            row["total_bytes_ratio"] = (row["comm_bytes"]["total"]
+                                        / out["f32"]["comm_bytes"]["total"])
+            lim = WIRE_LIMITS[fmt]
+            if not (0 < row["grad_err_vs_f32"] <= lim["grad_err"]
+                    and row["round_bytes_ratio"]
+                    <= lim["round_bytes_ratio"]):
+                raise AssertionError(f"wire {fmt}: {row} against the "
+                                     f"reference's gates {lim}")
+        out[fmt] = row
+        del grads
+    del grads32
+    release()
+    return out
+
+
+def llama_phase(fa, ex, trainlib, dev, pcfg, scfg, plain_step) -> tuple:
+    """Phase 8: llama3-70b served (LLAMA_SERVE_LAYERS deep, phase 3's
+    setting and checks) and trained (``llama_train_phase``); StableLM's
+    fused step under ``--remat-policy nothing`` beside the train phase's
+    default (``dots``) one; the wire formats.  Returns (served, trained,
+    extra)."""
+    from repro_torch.configs.base import get_config
+    c = get_config(LLAMA_ARCH)
+    t0 = time.perf_counter()
+    served = serve(fa, c.replace(n_layers=LLAMA_SERVE_LAYERS), pcfg, scfg,
+                   dev)
+    served["depth"] = (f"{LLAMA_SERVE_LAYERS} of {c.n_layers} layers: "
+                       f"{LLAMA_SERVE_WHY}")
+    log(f"phase llama3 serve: ok {time.perf_counter() - t0:.2f}s "
+        f"{json.dumps(served)}")
+    release()
+    t0 = time.perf_counter()
+    trained = llama_train_phase(fa, trainlib, dev)
+    log(f"phase llama3 train: ok {time.perf_counter() - t0:.2f}s "
+        f"{json.dumps(trained)}")
+    t0 = time.perf_counter()
+    # 3 steps, then the profiled one: the train phase's step (the same
+    # batch), so the two profiles time the same plan
+    extra = {"stablelm_remat": {"dots": plain_step or step_summary(
+        train_steps(fa, trainlib, dev, TRAIN_ARGV, 3))}}
+    extra["stablelm_remat"]["nothing"] = step_summary(train_steps(
+        fa, trainlib, dev, TRAIN_ARGV + ["--remat-policy", "nothing"], 3))
+    log(f"phase stablelm remat policies: ok {time.perf_counter() - t0:.2f}s "
+        f"{json.dumps(extra['stablelm_remat'])}")
+    t0 = time.perf_counter()
+    extra["wire_formats"] = wire_formats(fa, ex, dev, c)
+    log(f"phase wire formats: ok {time.perf_counter() - t0:.2f}s "
+        f"{json.dumps(extra['wire_formats'])}")
+    return served, trained, extra
+
+
 def release() -> None:
     """Free what a phase left on the card before the next one measures its
     peak: reference cycles first (the serve phase's spied method, a
@@ -2665,9 +2971,8 @@ def profile(fn, n: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev[e.name] = dev.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, us in device_events(prof):
+        dev[name] = dev.get(name, 0.0) + us
     busy_ms = sum(dev.values()) / 1e3 / n
     # the copies PERF.md counts: device-to-device copies and the index
     # kernels (gathers, scatters, index_put) of the executor's writes
@@ -2676,12 +2981,20 @@ def profile(fn, n: int) -> dict:
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
     attn = {k: sum(us for name, us in dev.items() if k in name) / 1e3 / n
             for k in ATTN_KERNELS}
+    gemm = sum(us for name, us in dev.items()
+               if any(g in name.lower() for g in GEMM_NAMES)) / 1e3 / n
     return {"wall_ms": wall * 1e3 / n,
             "device_ms": busy_ms if dev else None,
             "busy_share": busy_ms / (wall * 1e3 / n) if dev else None,
             "copies_ms": copies if dev else None,
+            "gemm_ms": gemm if dev else None,
             "attention_kernels_ms": {k: v for k, v in attn.items() if v},
             "top_ms": [[name[:70], us / 1e3 / n] for name, us in top]}
+
+
+# cuBLAS's and CUTLASS's GEMM kernels, by name (the products of the
+# layers, the head and their gradients)
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
 
 # the device functions of kernels 1-6 (the decode variant's split and
@@ -2743,7 +3056,28 @@ def check_tensor_cores(counts: dict) -> None:
                                      f"{hits} FFMA, an FFMA dot-product loop")
 
 
+# what ``--phases`` may name (the build always runs)
+PHASES = ("kernels", "serve", "train", "rest", "pods", "multimodal", "llama")
+
+
+def parse_phases(argv) -> tuple:
+    """``--phases a,b`` runs only those phases, a development aid: only a
+    run of every phase (the default) prints the kernels line and the
+    last line."""
+    import argparse
+    p = argparse.ArgumentParser()
+    p.add_argument("--phases", default=",".join(PHASES),
+                   help="comma-separated subset of " + ", ".join(PHASES))
+    names = tuple(p.parse_args(argv).phases.split(","))
+    unknown = sorted(set(names) - set(PHASES))
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}")
+    return names
+
+
 def main() -> int:
+    phases = parse_phases(sys.argv[1:])
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2765,7 +3099,9 @@ def main() -> int:
         f"{torch.version.cuda}")
 
     secs = build.LIBRARIES.build()
-    log(f"phase build: ok {secs:.2f}s")
+    log(f"phase build: ok {secs:.2f}s (each source's nvcc: " + ", ".join(
+        f"{n} {t:.1f}s" for n, t in build.LIBRARIES.source_seconds.items())
+        + ")")
     for name, out in build.LIBRARIES.build_log.items():
         for line in out.splitlines():
             if ("registers" in line or "spill" in line
@@ -2777,12 +3113,14 @@ def main() -> int:
     check_tensor_cores(sass)
 
     masks = (CAUSAL, sliding_window(96), chunked(96), FULL)
-    t0 = time.perf_counter()
-    small_flash_cases(fa, masks, dev)
-    small_fused_cases(fa, masks, dev)
-    small_bwd_fused_cases(fa, masks, dev)
-    small_bwd_flash_cases(fa, masks, dev)
-    log(f"phase kernels (small shapes): ok {time.perf_counter() - t0:.2f}s")
+    if "kernels" in phases:
+        t0 = time.perf_counter()
+        small_flash_cases(fa, masks, dev)
+        small_fused_cases(fa, masks, dev)
+        small_bwd_fused_cases(fa, masks, dev)
+        small_bwd_flash_cases(fa, masks, dev)
+        log(f"phase kernels (small shapes): ok "
+            f"{time.perf_counter() - t0:.2f}s")
     cfg = get_config("stablelm_1_6b")
     cfg_moe = get_config(MOE_ARCH)
     cfg128 = get_config(D128_ARCH)
@@ -2791,15 +3129,21 @@ def main() -> int:
     pcfg = ParallelConfig(block_size=512, in_dtype_bytes=2)
     # every kernel at the main paths' shapes of each model: StableLM (32
     # heads of 64), Granite (24 of 64 over 8 kv heads: GQA group 3),
-    # Moonlight (16 of 128), Zamba2's shared block (32 of 80) and
-    # InternVL2 (14 of 64 over 2 kv heads: GQA group 7)
+    # Moonlight (16 of 128), Zamba2's shared block (32 of 80), InternVL2
+    # (14 of 64 over 2 kv heads: GQA group 7) and llama3-70b (64 of 128
+    # over 8 kv heads: GQA group 8)
+    t0 = time.perf_counter()
     rows = []
-    paths = (("stablelm", cfg), ("granite", cfg_moe), ("moonshot", cfg128),
-             ("zamba2", cfg_z), ("internvl2", cfg_vl))
+    paths = tuple((p, c) for p, c in (
+        ("stablelm", cfg), ("granite", cfg_moe), ("moonshot", cfg128),
+        ("zamba2", cfg_z), ("internvl2", cfg_vl),
+        ("llama3", get_config(LLAMA_ARCH)))
+        if "kernels" in phases or (p == "llama3" and "llama" in phases))
     for path, c in paths:
-        new = [main_path_fused(fa, ex, servelib, c, pcfg, dev),
-               main_path_decode(fa, c, dev),
-               *main_path_bwd(fa, ex, trainlib, c, pcfg, dev)]
+        new = timed(f"main-path rows {path}", lambda: [
+            main_path_fused(fa, ex, servelib, c, pcfg, dev),
+            main_path_decode(fa, c, dev),
+            *main_path_bwd(fa, ex, trainlib, c, pcfg, dev)])
         for r in new:
             r["path"] = path
         rows += new
@@ -2812,7 +3156,9 @@ def main() -> int:
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, "
             f"{r['flops']:.3e} flop, {r['bytes']:.3e} B) "
             f"library_ms={r['library_ms']} max_abs_err="
-            f"{r['max_abs_err']:.3e}")
+            f"{r['max_abs_err']:.3e}" + (
+                f" o_scale_bias={r['o_scale_bias']:.3e}"
+                if "o_scale_bias" in r else ""))
         if "library" in r:
             log(f"  library: {r['library']}")
     # the backward kernels' rates side by side: counted flop (valid pairs
@@ -2823,163 +3169,209 @@ def main() -> int:
             f"{r['name']} {r['flops'] / r['ms'] / 1e9:.1f}" for r in rows
             if "bwd" in r["name"] and r["path"] == path))
     release()
+    log(f"phase kernels (main-path shapes): ok "
+        f"{time.perf_counter() - t0:.2f}s")
 
     scfg = ServeConfig(cache_len=4096, decode_slots=8, queue_depth=64,
                        max_new_tokens=32, prefill_tokens_per_worker=2048,
                        bucket_min=64)
-    served = {}
+    served, trained = {}, {}
+    t_phase = time.perf_counter()
     for tag, c, depth, why in (
             ("stablelm", cfg, None, None),
             ("granite", cfg_moe, MOE_LAYERS, MOE_WHY),
             ("moonshot", cfg128, D128_SERVE_LAYERS, D128_WHY),
             ("zamba2", cfg_z, HYBRID_SERVE_LAYERS, HYBRID_WHY),
             ("mamba2", get_config(SSM_ARCH), SSM_SERVE_LAYERS, SSM_WHY)):
+        if "serve" not in phases:
+            break
         t0 = time.perf_counter()
         cut = c.replace(n_layers=depth or c.n_layers)
-        served[tag] = serve(fa, cut, pcfg, scfg, dev)
+        n_req = HYBRID_SERVE_REQUESTS if tag == "zamba2" else 16
+        served[tag] = serve(fa, cut, pcfg, scfg, dev, n_req=n_req)
         if depth is not None:
             served[tag]["depth_cut"] = f"{depth} of {c.n_layers} layers: {why}"
         if tag == "zamba2":
+            served[tag]["requests_cut"] = (f"{n_req} requests: "
+                                           f"{HYBRID_REQUESTS_WHY}")
             served[tag]["tokens_kernels_vs_plain"] = serve_tokens(
                 fa, cut, pcfg, scfg, dev)
         log(f"phase serve {tag}: ok {time.perf_counter() - t0:.2f}s "
             f"{json.dumps(served[tag])}")
         release()
+    if "serve" in phases:
+        log(f"phase serve: ok {time.perf_counter() - t_phase:.2f}s")
 
-    t0 = time.perf_counter()
-    tr = train(fa, trainlib, dev)
-    log(f"phase train: ok {time.perf_counter() - t0:.2f}s {json.dumps(tr)}")
-    trained = {"stablelm": tr}
-    t0 = time.perf_counter()
-    trained["granite"] = {"grad_check_4_layers_f32": train_grad_check(
-        trainlib, dev, model_argv(MOE_ARCH, None, 3))}
-    release()
-    trained["granite"].update(train_model(
-        fa, trainlib, dev, MOE_ARCH, 3, MOE_LAYERS, MOE_WHY))
-    trained["granite"]["moe_breakdown"] = moe_breakdown(
-        dev, MOE_ARCH, trained["granite"]["n_layers"])
-    log(f"phase train granite: ok {time.perf_counter() - t0:.2f}s "
-        f"{json.dumps(trained['granite'])}")
-    t0 = time.perf_counter()
-    trained["moonshot"] = train_model(
-        fa, trainlib, dev, D128_ARCH, 2, D128_TRAIN_LAYERS, D128_WHY)
-    log(f"phase train moonshot: ok {time.perf_counter() - t0:.2f}s "
-        f"{json.dumps(trained['moonshot'])}")
-    t0 = time.perf_counter()
-    trained["zamba2"] = {
-        f"grad_check_{HYBRID_GRAD_LAYERS}_layers_f32": train_grad_check(
-            trainlib, dev, model_argv(HYBRID_ARCH, None, 3),
-            HYBRID_GRAD_LAYERS)}
-    release()
-    trained["zamba2"].update(train_model(
-        fa, trainlib, dev, HYBRID_ARCH, 3, HYBRID_TRAIN_LAYERS,
-        HYBRID_TRAIN_WHY))
-    trained["zamba2"]["ssm_breakdown"] = ssm_breakdown(
-        dev, HYBRID_ARCH, HYBRID_TRAIN_LAYERS,
-        served["zamba2"]["first_batch_bucket"])
-    log(f"phase train zamba2: ok {time.perf_counter() - t0:.2f}s "
-        f"{json.dumps(trained['zamba2'])}")
+    tr = None
+    if "train" in phases:
+        t_phase = t0 = time.perf_counter()
+        tr = train(fa, trainlib, dev)
+        log(f"phase train stablelm: ok {time.perf_counter() - t0:.2f}s "
+            f"{json.dumps(tr)}")
+        trained["stablelm"] = tr
+        t0 = time.perf_counter()
+        trained["granite"] = {"grad_check_4_layers_f32": train_grad_check(
+            trainlib, dev, model_argv(MOE_ARCH, None, 3))}
+        release()
+        trained["granite"].update(train_model(
+            fa, trainlib, dev, MOE_ARCH, 3, MOE_LAYERS, MOE_WHY))
+        trained["granite"]["moe_breakdown"] = moe_breakdown(
+            dev, MOE_ARCH, trained["granite"]["n_layers"])
+        log(f"phase train granite: ok {time.perf_counter() - t0:.2f}s "
+            f"{json.dumps(trained['granite'])}")
+        t0 = time.perf_counter()
+        trained["moonshot"] = train_model(
+            fa, trainlib, dev, D128_ARCH, 2, D128_TRAIN_LAYERS, D128_WHY)
+        log(f"phase train moonshot: ok {time.perf_counter() - t0:.2f}s "
+            f"{json.dumps(trained['moonshot'])}")
+        t0 = time.perf_counter()
+        trained["zamba2"] = {
+            f"grad_check_{HYBRID_GRAD_LAYERS}_layers_f32": train_grad_check(
+                trainlib, dev, model_argv(HYBRID_ARCH, None, 3),
+                HYBRID_GRAD_LAYERS)}
+        release()
+        trained["zamba2"].update(train_model(
+            fa, trainlib, dev, HYBRID_ARCH, 3, HYBRID_TRAIN_LAYERS,
+            HYBRID_TRAIN_WHY))
+        trained["zamba2"]["ssm_breakdown"] = ssm_breakdown(
+            dev, HYBRID_ARCH, HYBRID_TRAIN_LAYERS,
+            served.get("zamba2", {}).get("first_batch_bucket", 2048))
+        log(f"phase train zamba2: ok {time.perf_counter() - t0:.2f}s "
+            f"{json.dumps(trained['zamba2'])}")
+        log(f"phase train: ok {time.perf_counter() - t_phase:.2f}s")
 
     # phase 5: the rest of the training path, beside the plain fused
     # step of the train phase (same call, same card)
-    plain = tr["profile_step"]
-    log(f"phase plain fused step (train phase): step_ms {tr['step_ms']} "
-        f"device_ms {plain['device_ms']} wall_ms {plain['wall_ms']} "
-        f"copies_ms {plain['copies_ms']} peak_mem_gib {tr['peak_mem_gib']}")
-    t0 = time.perf_counter()
-    ov = overlap_phase(fa, ex, trainlib, dev)
-    log(f"phase overlap: ok {time.perf_counter() - t0:.2f}s "
-        f"{json.dumps(ov)}")
-    t0 = time.perf_counter()
-    lp = layer_pipeline_phase(fa, trainlib, dev)
-    for tag, r in lp.items():
-        log(f"  {tag}: step_ms {r['step_ms']} tokens_per_s "
-            f"{r['tokens_per_s']:.1f} device_ms "
-            f"{r['profile_step']['device_ms']} copies_ms "
-            f"{r['profile_step']['copies_ms']} peak_mem_gib "
-            f"{r['peak_mem_gib']:.2f} (plain: device_ms "
-            f"{plain['device_ms']} copies_ms {plain['copies_ms']} "
-            f"tokens_per_s {tr['tokens_per_s']:.1f} peak_mem_gib "
-            f"{tr['peak_mem_gib']:.2f})")
-    log(f"phase layer pipeline: ok {time.perf_counter() - t0:.2f}s "
-        f"{json.dumps(lp)}")
-    t0 = time.perf_counter()
-    sv = supervisor_phase(fa, trainlib, dev)
-    log(f"  supervisor step_ms {sv['cli_default']['step_ms']} (plain loop "
-        f"{tr['step_ms']}); checkpoint round trip "
-        f"{json.dumps(sv['checkpoint_round_trip'])}")
-    log(f"phase supervisor: ok {time.perf_counter() - t0:.2f}s "
-        f"{json.dumps(sv)}")
+    plain = tr["profile_step"] if tr else {}
+    if tr:
+        log(f"phase plain fused step (train phase): step_ms {tr['step_ms']} "
+            f"device_ms {plain['device_ms']} wall_ms {plain['wall_ms']} "
+            f"copies_ms {plain['copies_ms']} gemm_ms {plain['gemm_ms']} "
+            f"peak_mem_gib {tr['peak_mem_gib']}")
+    if "rest" in phases:
+        t_phase = t0 = time.perf_counter()
+        ov = overlap_phase(fa, ex, trainlib, dev)
+        log(f"phase overlap: ok {time.perf_counter() - t0:.2f}s "
+            f"{json.dumps(ov)}")
+        t0 = time.perf_counter()
+        lp = layer_pipeline_phase(fa, trainlib, dev)
+        for tag, r in lp.items():
+            log(f"  {tag}: step_ms {r['step_ms']} tokens_per_s "
+                f"{r['tokens_per_s']:.1f} device_ms "
+                f"{r['profile_step']['device_ms']} copies_ms "
+                f"{r['profile_step']['copies_ms']} peak_mem_gib "
+                f"{r['peak_mem_gib']:.2f} (plain: device_ms "
+                f"{plain.get('device_ms')} copies_ms "
+                f"{plain.get('copies_ms')} tokens_per_s "
+                f"{tr and tr['tokens_per_s']} peak_mem_gib "
+                f"{tr and tr['peak_mem_gib']})")
+        log(f"phase layer pipeline: ok {time.perf_counter() - t0:.2f}s "
+            f"{json.dumps(lp)}")
+        t0 = time.perf_counter()
+        sv = supervisor_phase(fa, trainlib, dev)
+        log(f"  supervisor step_ms {sv['cli_default']['step_ms']} (plain "
+            f"loop {tr and tr['step_ms']}); checkpoint round trip "
+            f"{json.dumps(sv['checkpoint_round_trip'])}")
+        log(f"phase supervisor: ok {time.perf_counter() - t0:.2f}s "
+            f"{json.dumps(sv)}")
+        log(f"phase rest of the training path: ok "
+            f"{time.perf_counter() - t_phase:.2f}s")
 
     # phase 6: pod meshes, beside the plain step of the train phase and
     # the 4x2 serving of phase 3 (same call, same card)
-    t0 = time.perf_counter()
-    pods, pod_rows = pod_phase(fa, ex, trainlib, dev, cfg, pcfg)
-    pt, ps = pods["train"], pods["serve"]["full_depth_bf16"]
-    log(f"  pod step (2x4x1, 16384 tokens): step_ms {pt['step_ms']} "
-        f"tokens_per_s {pt['tokens_per_s']:.1f} device_ms "
-        f"{pt['profile_step']['device_ms']} window_ms "
-        f"{pt['profile_step']['wall_ms']} attention_kernels_ms "
-        f"{sum(pt['profile_step']['attention_kernels_ms'].values()):.1f} "
-        f"peak_mem_gib {pt['peak_mem_gib']:.2f} (plain 4x1 step: step_ms "
-        f"{tr['step_ms']} tokens_per_s {tr['tokens_per_s']:.1f} device_ms "
-        f"{plain['device_ms']} peak_mem_gib {tr['peak_mem_gib']:.2f})")
-    log(f"  pod serving (2x2x2, {ps['prefill_impl']} prefill): prefill p50 "
-        f"{ps['prefill_ms_p50']:.1f} ms decode_step_ms "
-        f"{ps['decode_step_ms']:.1f} tok/s {ps['sustained_tok_s']:.1f} "
-        f"(4x2 fcp prefill p50 {served['stablelm']['prefill_ms_p50']:.1f} "
-        f"ms decode_step_ms {served['stablelm']['decode_step_ms']:.1f} "
-        f"tok/s {served['stablelm']['sustained_tok_s']:.1f})")
-    log(f"phase pods: ok {time.perf_counter() - t0:.2f}s on {card}")
-    for r in pod_rows:
-        r["path"] = "stablelm pods"
-    # the pod mesh decodes at the 4x2 mesh's shapes (8 slots x 2 cache
-    # shards of 4096): the stablelm decode row, counted on the pod run
-    pod_rows.append({**next(r for r in rows if r["path"] == "stablelm"
-                            and r["name"] == "flash_attention_fwd"
-                            and r["phase"] == "serve"),
-                     "path": "stablelm pods"})
-    for r in pod_rows:
-        log(f"phase pods kernels {r['name']} [{r['shape']}]: ok "
-            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-            f"library_ms={r['library_ms']} max_abs_err="
-            f"{r['max_abs_err']:.3e}")
-        if "library" in r:
-            log(f"  library: {r['library']}")
-    rows += pod_rows
+    if "pods" in phases:
+        t0 = time.perf_counter()
+        pods, pod_rows = pod_phase(fa, ex, trainlib, dev, cfg, pcfg)
+        pt, ps = pods["train"], pods["serve"]["full_depth_bf16"]
+        s4 = served.get("stablelm", {})
+        log(f"  pod step (2x4x1, 16384 tokens): step_ms {pt['step_ms']} "
+            f"tokens_per_s {pt['tokens_per_s']:.1f} device_ms "
+            f"{pt['profile_step']['device_ms']} window_ms "
+            f"{pt['profile_step']['wall_ms']} attention_kernels_ms "
+            f"{sum(pt['profile_step']['attention_kernels_ms'].values()):.1f}"
+            f" peak_mem_gib {pt['peak_mem_gib']:.2f} (plain 4x1 step: "
+            f"step_ms {tr and tr['step_ms']} tokens_per_s "
+            f"{tr and tr['tokens_per_s']} device_ms {plain.get('device_ms')}"
+            f" peak_mem_gib {tr and tr['peak_mem_gib']})")
+        log(f"  pod serving (2x2x2, {ps['prefill_impl']} prefill): prefill "
+            f"p50 {ps['prefill_ms_p50']:.1f} ms decode_step_ms "
+            f"{ps['decode_step_ms']:.1f} tok/s {ps['sustained_tok_s']:.1f} "
+            f"(4x2 fcp prefill p50 {s4.get('prefill_ms_p50')} ms "
+            f"decode_step_ms {s4.get('decode_step_ms')} tok/s "
+            f"{s4.get('sustained_tok_s')})")
+        for r in pod_rows:
+            r["path"] = "stablelm pods"
+        # the pod mesh decodes at the 4x2 mesh's shapes (8 slots x 2 cache
+        # shards of 4096): the stablelm decode row, counted on the pod run
+        pod_rows += [{**r, "path": "stablelm pods"} for r in rows
+                     if r["path"] == "stablelm"
+                     and r["name"] == "flash_attention_fwd"
+                     and r["phase"] == "serve"]
+        for r in pod_rows:
+            log(f"phase pods kernels {r['name']} [{r['shape']}]: ok "
+                f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"library_ms={r['library_ms']} max_abs_err="
+                f"{r['max_abs_err']:.3e}")
+            if "library" in r:
+                log(f"  library: {r['library']}")
+        rows += pod_rows
+        log(f"phase pods: ok {time.perf_counter() - t0:.2f}s on {card}")
 
     # phase 7: the vision-language and audio families at full width, head
     # dim 16 (internvl2's smoke config), the baseline CP policies
-    t0 = time.perf_counter()
-    mm_served, mm_trained = multimodal_phase(fa, trainlib, dev, pcfg, scfg)
-    served.update(mm_served)
-    trained.update(mm_trained)
-    for tag in mm_trained:
-        t_, s_ = mm_trained[tag], mm_served[tag]
-        log(f"  {tag}: serve tok/s {s_['sustained_tok_s']:.1f} prefill p50 "
-            f"{s_['prefill_ms_p50']:.1f} ms decode_step_ms "
-            f"{s_['decode_step_ms']:.1f} f32 logits err "
-            f"{s_['prefill_logits_err']['f32']:.3e}; train step_ms "
-            f"{t_['step_ms']} tokens_per_s {t_['tokens_per_s']:.1f} "
-            f"device_ms {t_['profile_step']['device_ms']} peak_mem_gib "
-            f"{t_['peak_mem_gib']:.2f} breakdown "
-            f"{json.dumps(t_['breakdown'])}")
-    t1 = time.perf_counter()
-    d16 = d16_phase(fa, trainlib, dev)
-    log(f"phase d16 ({VLM_ARCH} smoke, head dim 16): ok "
-        f"{time.perf_counter() - t1:.2f}s {json.dumps(d16)}")
-    t1 = time.perf_counter()
-    pol = policies_phase(fa, ex, trainlib, dev, cfg, pcfg)
-    for name in ("fcp",) + POLICIES:
-        log(f"  policy {name}: attention fwd+bwd device ms "
-            f"{pol[name]['attention_fwd_bwd_device_ms']:.3f} (fcp "
-            f"{pol['fcp']['attention_fwd_bwd_device_ms']:.3f}) rounds "
-            f"{pol[name]['n_rounds']} steps {pol[name]['n_steps']} fwd err "
-            f"{pol[name]['fwd_err']:.3e}")
-    log(f"phase policies: ok {time.perf_counter() - t1:.2f}s "
-        f"{json.dumps(pol)}")
-    log(f"phase multimodal: ok {time.perf_counter() - t0:.2f}s on {card}")
+    if "multimodal" in phases:
+        t0 = time.perf_counter()
+        mm_served, mm_trained = multimodal_phase(fa, trainlib, dev, pcfg,
+                                                 scfg)
+        served.update(mm_served)
+        trained.update(mm_trained)
+        for tag in mm_trained:
+            t_, s_ = mm_trained[tag], mm_served[tag]
+            log(f"  {tag}: serve tok/s {s_['sustained_tok_s']:.1f} prefill "
+                f"p50 {s_['prefill_ms_p50']:.1f} ms decode_step_ms "
+                f"{s_['decode_step_ms']:.1f} f32 logits err "
+                f"{s_['prefill_logits_err']['f32']:.3e}; train step_ms "
+                f"{t_['step_ms']} tokens_per_s {t_['tokens_per_s']:.1f} "
+                f"device_ms {t_['profile_step']['device_ms']} peak_mem_gib "
+                f"{t_['peak_mem_gib']:.2f} breakdown "
+                f"{json.dumps(t_['breakdown'])}")
+        t1 = time.perf_counter()
+        d16 = d16_phase(fa, trainlib, dev)
+        log(f"phase d16 ({VLM_ARCH} smoke, head dim 16): ok "
+            f"{time.perf_counter() - t1:.2f}s {json.dumps(d16)}")
+        t1 = time.perf_counter()
+        pol = policies_phase(fa, ex, trainlib, dev, cfg, pcfg)
+        for name in ("fcp",) + POLICIES:
+            log(f"  policy {name}: attention fwd+bwd device ms "
+                f"{pol[name]['attention_fwd_bwd_device_ms']:.3f} (fcp "
+                f"{pol['fcp']['attention_fwd_bwd_device_ms']:.3f}) rounds "
+                f"{pol[name]['n_rounds']} steps {pol[name]['n_steps']} fwd "
+                f"err {pol[name]['fwd_err']:.3e}")
+        log(f"phase policies: ok {time.perf_counter() - t1:.2f}s "
+            f"{json.dumps(pol)}")
+        log(f"phase multimodal: ok {time.perf_counter() - t0:.2f}s on {card}")
+
+    # phase 8: llama3-70b, the remat policies, the quantized wires
+    if "llama" in phases:
+        t0 = time.perf_counter()
+        served["llama3"], trained["llama3"], extra = llama_phase(
+            fa, ex, trainlib, dev, pcfg, scfg, tr and step_summary(tr))
+        lt = trained["llama3"]
+        for policy in ("dots", "nothing"):
+            r = step_summary(lt[policy]) if policy == "dots" else lt[policy]
+            log(f"  remat {policy}: llama3 ({LLAMA_TRAIN_LAYERS} layers) "
+                f"{json.dumps(r)}; stablelm "
+                f"{json.dumps(extra['stablelm_remat'][policy])}")
+        log(f"phase llama3: ok {time.perf_counter() - t0:.2f}s on {card}")
+
+    log(f"chip_smoke phases {','.join(phases)}: ok "
+        f"{time.perf_counter() - t_start:.2f}s")
+    if set(phases) != set(PHASES):
+        log("chip_smoke: a partial run (--phases) prints no kernels line "
+            "and no result line")
+        return 0
+    pt, ps = pods["train"], pods["serve"]["full_depth_bf16"]
 
     # launches: each kernel's count over the main path that runs it (the
     # row's phase) of the model whose shapes it was timed at (the row's

@@ -6,24 +6,29 @@ Run on the card, once per checkout, alternating the two trees compared
 
     python3 scripts/chip_kernel_turns.py PATH/TO/CHECKOUT
 
-Each run builds that checkout's kernels and calls its own
-``chip_smoke.main_path_fused`` and ``chip_smoke.main_path_bwd`` (every
-kernel against its plain version, then timed: 10 launches between CUDA
-events, median of 21 windows), and prints one line ``TURN {json}`` with
-the card and each kernel's ms.
+Each run builds that checkout's kernels and calls this repository's
+``chip_smoke.main_path_fused`` and ``chip_smoke.main_path_bwd`` on them
+(the same measurement code for both trees: every kernel against its
+plain version, then timed: 10 launches between CUDA events, median of
+21 windows), and prints one line ``TURN {json}`` with the card, each
+kernel's ms and kernel 1's o scale bias against plain.
 """
 
+import importlib.util
 import json
 import os
 import sys
 
 root = os.path.abspath(sys.argv[1])
-sys.path.insert(0, root)
 sys.path.insert(0, os.path.join(root, "src"))
 
 import torch  # noqa: E402
 
-import chip_smoke as cs  # noqa: E402
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py"))
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
 from repro_torch.configs.base import ParallelConfig, get_config  # noqa: E402
 from repro_torch.core import executor as ex  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -39,5 +44,6 @@ pcfg = ParallelConfig(block_size=512, in_dtype_bytes=2)
 rows = [cs.main_path_fused(fa, ex, servelib, cfg, pcfg, dev),
         *cs.main_path_bwd(fa, ex, trainlib, cfg, pcfg, dev)]
 print("TURN", json.dumps({"tree": sys.argv[1], "card": cs.card_line(),
-                          "ms": [[r["name"], r["ms"]] for r in rows]}),
+                          "ms": [[r["name"], r["ms"]] for r in rows],
+                          "o_scale_bias": rows[0]["o_scale_bias"]}),
       flush=True)

@@ -938,7 +938,10 @@ __device__ __forceinline__ void fwd_tile(FwdAcc<D>& a,
       a.l[e >> 1] += p;
     }
 
-  // acc += P.V, one k16 step per 16 keys
+  // acc += P.V, one k16 step per 16 keys.  The tensor cores add to their
+  // accumulator with truncation, so a running acc fed to every mma drifts
+  // toward zero over a long row (a scale bias of o): each k16 step's
+  // products go to a zeroed fragment and join acc by FADD
 #pragma unroll
   for (int kc = 0; kc < kRows / 16; ++kc) {
     uint32_t ph[4], pl[4];
@@ -949,17 +952,17 @@ __device__ __forceinline__ void fwd_tile(FwdAcc<D>& a,
 #pragma unroll
     for (int nd = 0; nd < D / 16; ++nd) {
       const int off = b_cols_off(16 * kc, 16 * nd, ld, lane);
-      uint32_t vf[4];
+      uint32_t vf[4], vl[4];
       ldsm_x4_t(vf, vt + off);
-      mma(a.o[2 * nd], ph, vf[0], vf[1]);
-      mma(a.o[2 * nd + 1], ph, vf[2], vf[3]);
-      mma(a.o[2 * nd], pl, vf[0], vf[1]);
-      mma(a.o[2 * nd + 1], pl, vf[2], vf[3]);
-      if constexpr (kF32) {
-        uint32_t vl[4];
-        ldsm_x4_t(vl, vtl + off);
-        mma(a.o[2 * nd], ph, vl[0], vl[1]);
-        mma(a.o[2 * nd + 1], ph, vl[2], vl[3]);
+      if constexpr (kF32) ldsm_x4_t(vl, vtl + off);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+        mma(t, ph, vf[2 * h], vf[2 * h + 1]);
+        mma(t, pl, vf[2 * h], vf[2 * h + 1]);
+        if constexpr (kF32) mma(t, ph, vl[2 * h], vl[2 * h + 1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a.o[2 * nd + h][e] += t[e];
       }
     }
   }

@@ -503,9 +503,18 @@ Args make_args(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// FCP_ENTRY selects the entry point a translation unit defines: the build
+// compiles this file once per entry (1, 2) and links both objects into
+// one library, so the two halves of its instantiations compile at once;
+// left undefined, both are defined.
+#ifndef FCP_ENTRY
+#define FCP_ENTRY 0
+#endif
+
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and the outputs share it);
 // D is 16, 32, 64, 80 or 128; q, k, v and dout 16-byte aligned
 // (cp.async).  Each returns cudaGetLastError() after its launch.
+#if FCP_ENTRY != 2
 extern "C" int fcp_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* seg_q,
     const void* pos_q, const void* seg_k, const void* pos_k,
@@ -530,6 +539,9 @@ extern "C" int fcp_flash_attention_bwd_dq(
   if (dtype == 1 && D == 128) return launch_dq<__nv_bfloat16, 128>(a, dq);
   return cudaErrorInvalidValue;
 }
+#endif
+
+#if FCP_ENTRY != 1
 
 extern "C" int fcp_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* seg_q,
@@ -556,3 +568,4 @@ extern "C" int fcp_flash_attention_bwd_dkv(
     return launch_dkv<__nv_bfloat16, 128>(a, dk, dv);
   return cudaErrorInvalidValue;
 }
+#endif

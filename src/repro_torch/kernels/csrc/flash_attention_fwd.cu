@@ -639,6 +639,15 @@ Args make_args(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// FCP_ENTRY selects the entry point a translation unit defines: the build
+// compiles this file once per entry (1, 2) and links both objects into
+// one library, so the two halves of its instantiations compile at once;
+// left undefined, both are defined.
+#ifndef FCP_ENTRY
+#define FCP_ENTRY 0
+#endif
+
+#if FCP_ENTRY != 2
 // (a) tiled.  dtype: 0 = float32, 1 = bfloat16 (q, k and v share it); D is
 // 16, 32, 64, 80 or 128.  Strides are in elements.  Returns
 // cudaGetLastError() after the launch (0 on success).
@@ -667,6 +676,9 @@ extern "C" int fcp_flash_attention_fwd(
   if (dtype == 1 && D == 128) return launch_tiled<__nv_bfloat16, 128>(a);
   return cudaErrorInvalidValue;
 }
+#endif
+
+#if FCP_ENTRY != 1
 
 // (b) decode, split-KV: the same arguments, the workspace ws_o [B, H, Sq,
 // n_split, D] and ws_ml [B, H, Sq, n_split, 2] (f32, contiguous) and
@@ -706,3 +718,4 @@ extern "C" int fcp_flash_attention_fwd_decode(
     return decode_rc<__nv_bfloat16, 128>(a, wo, wm, n_split);
   return cudaErrorInvalidValue;
 }
+#endif

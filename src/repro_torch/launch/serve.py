@@ -148,7 +148,10 @@ def main(argv=None):
                         "moonshot_v1_16b_a3b), SSM (mamba2_130m), hybrid "
                         "(zamba2_2_7b), audio (musicgen_large) or "
                         "vision-language (internvl2_1b; both behind the "
-                        "front-end stub, which serving does not read)")
+                        "front-end stub, which serving does not read).  "
+                        "chip_smoke.py serves all but codeqwen1_5_7b, "
+                        "qwen1_5_32b and qwen1_5_110b on the card (most at "
+                        "a cut depth)")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--mesh", default="1x1",
                    help="DxM (data x model) or PxDxM (pod x data x model)"

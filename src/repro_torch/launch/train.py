@@ -996,7 +996,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "moonshot_v1_16b_a3b), SSM (mamba2_130m), hybrid "
                         "(zamba2_2_7b), audio (musicgen_large) or "
                         "vision-language (internvl2_1b; both train behind "
-                        "batch_arrays' front-end stub)")
+                        "batch_arrays' front-end stub).  chip_smoke.py "
+                        "trains all but codeqwen1_5_7b, qwen1_5_32b and "
+                        "qwen1_5_110b on the card (most at a cut depth)")
     p.add_argument("--shape", default=None,
                    help="assigned shape cell (accepted for parity; the "
                         "loop does not read it and warns when it is set)")
@@ -1036,6 +1038,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["f32", "bf16", "int8"],
                    help="wire format of every FCP ship (forward and"
                         " backward)")
+    p.add_argument("--remat-policy", default="dots",
+                   choices=["dots", "nothing"],
+                   help="per-layer activation checkpointing: dots (the"
+                        " reference's default) saves every product without"
+                        " batch dimensions and recomputes the rest;"
+                        " nothing recomputes the whole layer")
     p.add_argument("--overlap", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="software-pipelined executor rounds: issue round"
@@ -1122,6 +1130,7 @@ def trainer_from_args(args: argparse.Namespace) -> Trainer | Supervisor:
                           attn_interpret=args.attn_interpret,
                           attn_mask=args.attn_mask,
                           comm_dtype=args.comm_dtype,
+                          remat_policy=args.remat_policy,
                           in_dtype_bytes=param_dtype_bytes(cfg),
                           overlap=args.overlap,
                           layer_pipeline=args.layer_pipeline,

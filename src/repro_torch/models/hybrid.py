@@ -62,7 +62,7 @@ def _shared_attn_block(x, sp, cfg: ModelConfig, pos, attn_fn):
     h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
     q, k, v = _attention_qkv(sp, cfg, h, pos)
     o = attn_fn(q, k, v)
-    x = x + torch.einsum("fthk,hkd->ftd", o.to(x.dtype), sp["wo"])
+    x = x + L.dense(o.to(x.dtype), sp["wo"], 2)
     h2 = L.rms_norm(x, sp["ln2"], cfg.norm_eps)
     return x + L.swiglu(h2, sp["wi"], sp["wg"], sp["wdown"]), k, v
 
@@ -73,7 +73,9 @@ def forward(params, cfg: ModelConfig, batch: dict, attn_fn: Callable,
     logits (or the pre-unembed features ``[F, T, d]``).  The Mamba layers
     scan the stream as one sequence (resets at document starts); with
     ``remat`` each Mamba layer and each shared-block invocation is
-    recomputed in the backward, as the reference's ``apply_remat``."""
+    checkpointed under the policy ``remat`` names, as the reference's
+    ``apply_remat`` (``"dots"`` saves the Mamba layers' ``in_proj`` and
+    the shared block's projections)."""
     f, t = batch["tokens"].shape
     x = params["embed"][batch["tokens"].long()]
     pos = batch["positions"]

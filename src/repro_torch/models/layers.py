@@ -3,6 +3,9 @@ PyTorch on parameter dictionaries)."""
 
 from __future__ import annotations
 
+import math
+import threading
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -38,20 +41,91 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+class _DotsStore:
+    """The outputs of one checkpointed call's saved products, in call
+    order: recorded by the call's forward, replayed by its recompute."""
+
+    def __init__(self):
+        self.outs: list[torch.Tensor] = []
+        self.replay = False
+        self.next = 0
+
+
+_dots = threading.local()        # the _DotsStore of the running call
+
+
+class _SavedProduct(torch.autograd.Function):
+    """``a @ b`` whose output the ``"dots"`` checkpoint keeps: its
+    recompute takes the kept output instead of running the product
+    again; the backward is the product's, on the recomputed inputs."""
+
+    @staticmethod
+    def forward(ctx, a, b, store):
+        ctx.save_for_backward(a, b)
+        if store.replay:
+            store.next += 1
+            return store.outs[store.next - 1].detach()
+        out = torch.mm(a, b)
+        store.outs.append(out.detach())
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = g.mm(b.t()) if ctx.needs_input_grad[0] else None
+        gb = a.t().mm(g) if ctx.needs_input_grad[1] else None
+        return ga, gb, None
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, n_in: int = 1,
+          save: bool = True) -> torch.Tensor:
+    """The product of ``x``'s last ``n_in`` dims with ``w``'s first
+    ``n_in`` (``"...d,dhk->...hk"`` for ``n_in=1``), a product without
+    batch dimensions, as one 2-D ``torch.mm``.  Inside a ``"dots"``
+    checkpoint (:func:`maybe_checkpoint`) its output is kept, unless
+    ``save=False``: a product whose output no backward reads (a layer's
+    last, added into the residual stream), as the reference's partial
+    evaluation keeps no such residual."""
+    k = math.prod(w.shape[:n_in])
+    a, b = x.reshape(-1, k), w.reshape(k, -1)
+    store = getattr(_dots, "store", None)
+    out = (_SavedProduct.apply(a, b, store) if save and store is not None
+           else torch.mm(a, b))
+    return out.reshape(*x.shape[:x.ndim - n_in], *w.shape[n_in:])
+
+
 def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
            wo: torch.Tensor) -> torch.Tensor:
-    h = torch.matmul(x, wi)
-    g = torch.matmul(x, wg)
-    return torch.matmul(F.silu(g) * h, wo)
+    h = dense(x, wi)
+    g = dense(x, wg)
+    return dense(F.silu(g) * h, wo, save=False)
 
 
 def maybe_checkpoint(fn, remat, *args):
     """``fn(*args)``, under a non-reentrant ``torch.utils.checkpoint`` when
-    ``remat`` is set and a gradient flows: the backward keeps only the
-    inputs and recomputes ``fn`` (the reference's ``apply_remat``)."""
-    if remat and torch.is_grad_enabled():
+    ``remat`` is set and a gradient flows (the reference's
+    ``apply_remat``).  ``"nothing"`` keeps only the inputs and recomputes
+    all of ``fn`` in the backward.  ``True`` or ``"dots"`` (the default)
+    is the reference's ``dots_with_no_batch_dims_saveable``: it also
+    keeps the output of every product without batch dimensions (each
+    :func:`dense` call; batched products, such as the MoE experts', the
+    SSD einsums and attention, dispatch ``bmm`` or run in the kernels)
+    and the recompute takes those instead of running them again."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if remat == "nothing":
         return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    store = _DotsStore()
+
+    def run(*a):
+        outer = getattr(_dots, "store", None)
+        _dots.store = store
+        try:
+            return fn(*a)
+        finally:
+            _dots.store = outer
+            store.replay, store.next = True, 0     # the recompute's turn
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def normal(generator: torch.Generator, shape, scale: float,

@@ -76,7 +76,7 @@ def router_probs(x: torch.Tensor, router: torch.Tensor,
     """``x [..., d]`` -> the router's f32 probabilities ``[..., E]``,
     padded experts masked out."""
     ep = router.shape[-1]
-    logits = torch.matmul(x.to(torch.float32), router)
+    logits = L.dense(x.to(torch.float32), router)
     if ep > cfg.n_experts:
         pad = torch.arange(ep, device=x.device) >= cfg.n_experts
         logits = torch.where(pad, -1e30, logits)

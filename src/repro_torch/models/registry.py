@@ -58,7 +58,8 @@ def _init_ssm_model(cfg: ModelConfig, generator: torch.Generator, device,
 def _forward_ssm(params, cfg: ModelConfig, batch: dict, remat=False,
                  return_features: bool = False) -> torch.Tensor:
     """The packed stream ``[F, T]`` scanned as one sequence (resets at
-    document starts); ``remat`` recomputes each layer in the backward."""
+    document starts); ``remat`` checkpoints each layer under its policy
+    (``"dots"`` saves ``in_proj``, as the reference)."""
     f, t = batch["tokens"].shape
     x = params["embed"][batch["tokens"].long()].reshape(1, f * t, -1)
     pos = batch["positions"].reshape(1, f * t)

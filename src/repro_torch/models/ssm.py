@@ -156,7 +156,7 @@ def mamba_block(x: torch.Tensor, lp: dict, cfg: ModelConfig,
     ds = cfg.ssm_state
 
     h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
-    zxbcdt = torch.matmul(h, lp["in_proj"])
+    zxbcdt = L.dense(h, lp["in_proj"])
     z, xbc, dtraw = torch.split(zxbcdt, [din, din + 2 * ds, nh], dim=-1)
 
     # doc-boundary masks: token t-i is in t's document iff position >= i
@@ -179,7 +179,7 @@ def mamba_block(x: torch.Tensor, lp: dict, cfg: ModelConfig,
     y = y + lp["D"][:, None] * xin.to(torch.float32)
     y = y.reshape(bt, s, din).to(x.dtype)
     y = L.gated_rms_norm(y, z, lp["ssm_norm"], cfg.norm_eps)
-    out = x + torch.matmul(y, lp["out_proj"])
+    out = x + L.dense(y, lp["out_proj"], save=False)
     if return_state:
         conv_tail = xbc_raw[:, s - (cw - 1):] if cw > 1 else xbc_raw[:, :0]
         return out, (final_state, conv_tail)

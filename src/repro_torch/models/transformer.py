@@ -94,9 +94,9 @@ def layer_params(params: dict, i: int) -> dict:
 
 def _attention_qkv(lp, cfg: ModelConfig, h, pos):
     """h: [..., T, d] -> q [..., T, H, Dh], k/v [..., T, KH, Dh] (roped)."""
-    q = torch.einsum("...d,dhk->...hk", h, lp["wq"])
-    k = torch.einsum("...d,dhk->...hk", h, lp["wk"])
-    v = torch.einsum("...d,dhk->...hk", h, lp["wv"])
+    q = L.dense(h, lp["wq"])
+    k = L.dense(h, lp["wk"])
+    v = L.dense(h, lp["wv"])
     if "bq" in lp:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     return L.rope(q, pos, cfg.rope_theta), L.rope(k, pos, cfg.rope_theta), v
@@ -118,7 +118,7 @@ def _layer_body(x, lp, cfg: ModelConfig, pos, attn_fn):
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = _attention_qkv(lp, cfg, h, pos)
     o = attn_fn(q, k, v)                                     # [F,T,H,Dh]
-    x = x + torch.einsum("fthk,hkd->ftd", o.to(x.dtype), lp["wo"])
+    x = x + L.dense(o.to(x.dtype), lp["wo"], 2)
     return _ffn(x, lp, cfg)
 
 
@@ -138,13 +138,15 @@ def forward(params, cfg: ModelConfig, batch: dict, attn_fn,
     between run with the moved positions.
 
     ``remat`` (``False`` | ``True`` | ``"dots"`` | ``"nothing"``) wraps
-    each layer in a non-reentrant ``torch.utils.checkpoint``: the
-    backward keeps only the layer inputs and recomputes the layer.  The
-    reference's ``"dots"`` policy (save the matmul outputs) has no eager
-    counterpart, so both policies recompute the whole layer: the saved
-    set differs from the reference's, the numbers do not (the MoE
-    dispatch is deterministic, so the recomputed layer routes as the
-    forward did).
+    each layer in a non-reentrant ``torch.utils.checkpoint``
+    (:func:`layers.maybe_checkpoint`).  ``True`` and ``"dots"`` save what
+    the reference's ``dots_with_no_batch_dims_saveable`` saves: the q, k,
+    v and output projections, the FFN's gate and up products and an MoE
+    layer's router logits; the backward recomputes the rest of the layer,
+    attention and the expert products included.  ``"nothing"`` keeps
+    only the layer inputs and recomputes the whole layer.  The numbers
+    are those of no remat (the MoE dispatch is deterministic, so a
+    recomputed layer routes as the forward did).
     """
     fns = [attn_fn] * cfg.n_layers if callable(attn_fn) else list(attn_fn)
     if len(fns) != cfg.n_layers:
@@ -209,7 +211,7 @@ def forward_prefill(params, cfg: ModelConfig, batch: dict,
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _attention_qkv(lp, cfg, h, pos)
         o = attn_fn(q, k, v)                                 # [F,T,H,Dh]
-        x = x + torch.einsum("fthk,hkd->ftd", o.to(x.dtype), lp["wo"])
+        x = x + L.dense(o.to(x.dtype), lp["wo"], 2)
         x = _ffn(x, lp, cfg)
         ks.append(k.to(x.dtype))
         vs.append(v.to(x.dtype))
