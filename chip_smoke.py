@@ -47,7 +47,16 @@ Phases, each reported on its own line with its wall:
 3. serve   — full-width StableLM-2-1.6B (bf16, random seeded weights) on
              a stacked (4 data x 2 model) mesh: warmup, then 16 requests
              through FCP prefill and CP decode, with both kernels'
-             launch counters read around that run; the first prefill
+             launch counters read around that run.  Every serving loop
+             here streams through its compiled programs (CUDA graphs of
+             the decode step, each bucket's prefill and insert, the fresh
+             insert): 0 recompiles after warmup; one decode step and the
+             first prefill batch replayed and run eagerly on the same
+             inputs, the same bytes; kernels 1 and 2's counted launches
+             of a replay against its profile's kernel events; eager and
+             replayed walls side by side (``programs`` lines); StableLM's
+             stream again through the eager methods (tokens identical,
+             tokens/s both ways).  The first prefill
              batch is replayed through the plain versions and compared
              (f32 weights to TOL_SERVE_F32; bf16 weights to a multiple
              of bf16's own noise floor on that batch).  Then the same for
@@ -151,7 +160,8 @@ Phases, each reported on its own line with its wall:
              device time beside FCP's.
 8. llama3 — llama3-70b, the paper's own model (d 8192, 64 / 8 heads of
              128, d_ff 28672, vocab 128256): served in phase 3's setting
-             at 8 of 80 layers (f32 prefill logits against plain), then
+             at 8 of 80 layers (f32 prefill logits against plain; its
+             stream eagerly too, as StableLM's), then
              trained through the CLI's plain loop: 1 layer with f32
              weights, every leaf's gradient through kernels 1, 3, 4 and
              2, 5, 6 against plain; at 3 of 80 layers, bf16, 3 fused steps
@@ -1151,12 +1161,17 @@ class PinnedRoutes:
         return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), eidx
 
 
-def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
+def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048,
+          eager: bool = False):
     """Serve ``n_req`` requests of 64..``max_len`` prompt tokens (seed 0)
     through the port's ``ServingLoop`` on a stacked 4 x 2 mesh, with the
-    counters of kernels 1 and 2 read around the run; then hold the first
-    prefill batch's logits, kernels against plain, and time a decode step
-    and that batch (with profiles).
+    counters of kernels 1 and 2 read around the run and the programs
+    built after warmup counted (zero recompiles); with ``eager`` the same
+    stream again through the eager methods (``eager_stream``: tokens
+    identical, tokens/s both ways).  Then hold the first prefill batch's
+    logits, kernels against plain, and the programs against the eager
+    methods (``program_checks``: bytes, launches against a profile, times
+    side by side).
 
     With f32 weights the kernels run with the experts the plain run chose
     (``PinnedRoutes``; no effect on a dense model) and are held to
@@ -1180,7 +1195,7 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
     loop = ServingLoop(model, params, StackedMesh((4, 2), ("data", "model")),
                        pcfg, scfg, device=dev)
     t0 = time.perf_counter()
-    loop.warmup()
+    base = loop.warmup()
     warm_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, (int(L),)).astype(np.int32)
@@ -1201,7 +1216,11 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
     launches = {"fused_flash_fwd": fa.fused_flash_fwd.launches,
                 "flash_attention_fwd": fa.flash_attention_fwd.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    reserved_gb = torch.cuda.memory_reserved() / 2**30
     loop._prefill_and_insert = inner
+    programs = recompile_check(loop, base)
+    streams = eager_stream(loop, prompts, scfg.max_new_tokens, dev,
+                           report) if eager else None
     if report["requests"] != len(prompts):
         raise AssertionError(f"served {report['requests']} of "
                              f"{len(prompts)} requests")
@@ -1223,6 +1242,13 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
     # that comparison is held to a multiple of the floor measured below.
     E, reqs = first[0]
     batch, last = loop.assemble(E, reqs)
+    # the programs against the eager methods; then the programs go, and
+    # their graphs' pools with them, before the f32 copies of the weights
+    # (llama3-70b's 8 layers take 36 GB in f32 beside 31 GiB of pools)
+    checks = program_checks(fa, loop, E, batch, last)
+    loop._programs.clear()
+    loop.last_logits = None
+    release()
     params32 = {k: ({n: w.float() for n, w in v.items()}
                     if isinstance(v, dict) else v.float())
                 for k, v in params.items()}
@@ -1241,19 +1267,15 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
               "decode_ms_p50": report["decode_ms"]["p50"],
               "decode_ms_p99": report["decode_ms"]["p99"],
               "plan_cache_hit_rate": report["plan_cache"]["hit_rate"],
-              "peak_mem_gib": peak_gb, "launches": launches,
-              "first_batch_bucket": E}
+              "peak_mem_gib": peak_gb, "reserved_gib": reserved_gb,
+              "launches": launches, "first_batch_bucket": E, **programs}
+    if streams is not None:
+        common["eager_stream"] = streams
     if not cfg.uses_attention:
+        hold_replay(checks, None)
         out = {**common, "ssm_check": ssm_check(model, params32, loop, dev)}
         del params32
-        out["decode_step_ms"] = wall_ms(loop._loop_step, 10)
-        out["prefill_batch_ms"] = wall_ms(
-            lambda: loop.prefill_fn(E)(params, batch, last), 3)
-        out["profile"] = {
-            "decode_step": profile(loop._loop_step, 5),
-            "prefill_batch": profile(
-                lambda: loop.prefill_fn(E)(params, batch, last), 1)}
-        return out
+        return {**out, **checks}
     ragged = cfg.family not in RECURRENT
     logits, pins = {}, {}
     for tag, prm in (("bf16", params), ("f32", params32)):
@@ -1321,17 +1343,202 @@ def serve(fa, cfg, pcfg, scfg, dev, n_req=16, max_len=2048):
             f"prefill logits kernels vs plain (bf16 weights) "
             f"{errs['bf16']:.3e} > {BF16_FLOORS} x the bf16 noise floor "
             f"{errs['bf16_floor']:.3e}")
-    # where the time goes: one decode step (all slots, as in the loop)
-    # and the first prefill batch, timed plain and then under the
+    hold_replay(checks, errs["bf16_floor"])
+    return {**common, "prefill_logits_err": errs, **checks}
+
+
+def hold_replay(checks: dict, floor) -> None:
+    """Replay against eager (``program_checks``): the same bytes, or, where
+    not, the bf16 logits within BF16_FLOORS x ``floor`` (none for a model
+    without one)."""
+    for tag, r in checks["replay_vs_eager"].items():
+        if not r["bitwise"] and (floor is None or r["logits_err"]
+                                 > BF16_FLOORS * floor):
+            raise AssertionError(
+                f"{tag} replay vs eager: not the same bytes, logits "
+                f"{r['logits_err']:.3e} (bf16 floor {floor})")
+
+
+def programs_line(tag: str, r: dict, card: str) -> str:
+    """One served configuration's programs beside its eager methods."""
+    p, rv = r["profile"]["decode_step_replayed"], r["replay_vs_eager"]
+    es = r.get("eager_stream")
+    bucket = r.get("first_batch_bucket", r.get("prefill_batch_bucket"))
+    return (f"  programs {tag}: recompiles after warmup "
+            f"{r['recompiles_after_warmup']} ({len(r['programs'])} programs, "
+            f"{sum(r['programs'].values())} builds); decode step eager "
+            f"{r['decode_step_ms']:.3f} ms, replayed "
+            f"{r['decode_step_ms_replayed']:.3f} ms (device "
+            f"{p['device_ms']} ms, busy {p['busy_share']}); prefill batch "
+            f"(bucket {bucket}) eager {r['prefill_batch_ms']:.3f} ms, "
+            f"replayed {r['prefill_batch_ms_replayed']:.3f} ms; warmup "
+            f"{r['warmup_s']:.2f} s; peak {r['peak_mem_gib']:.2f} GiB "
+            f"(reserved {r['reserved_gib']:.2f}); tok/s "
+            f"{r['sustained_tok_s']:.1f}" + (
+                f" (eager {es['eager_tok_s']:.1f}, tokens identical "
+                f"{es['tokens_identical']})" if es else "")
+            + f"; bitwise decode {rv['decode']['bitwise']} prefill "
+            f"{rv['prefill']['bitwise']}; on {card}")
+
+
+def recompile_check(loop, base: dict) -> dict:
+    """The programs built, by key, after the measured stream; fails unless
+    it built none (zero recompiles after warmup)."""
+    built = loop.compile_counts()
+    recompiles = sum(built.values()) - sum(base.values())
+    if recompiles != 0 or built.keys() != base.keys():
+        raise AssertionError(f"recompiles after warmup: {recompiles} "
+                             f"(warmup {base}, after the stream {built})")
+    return {"programs": built, "recompiles_after_warmup": recompiles}
+
+
+class EagerPrograms:
+    """In place of ``ServingLoop._program``: every program call runs the
+    program's eager function on its inputs (moved to the card), nothing
+    captured — the loop's dispatch through its eager methods."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __call__(self, name, fn):
+        def to(x):
+            if isinstance(x, dict):
+                return {k: to(v) for k, v in x.items()}
+            return x.to(self.dev, non_blocking=True)
+
+        def call(*inputs, held=None):
+            return fn(*(to(x) for x in inputs))
+        return call
+
+
+def eager_stream(loop, prompts, max_new: int, dev, report: dict) -> dict:
+    """The stream ``loop`` just served through its programs, again
+    through the eager methods (``EagerPrograms``): the tokens must be
+    identical, request by request; sustained tokens/s both ways."""
+    def tokens():
+        rs = sorted(loop.stats.finished, key=lambda r: r.rid)
+        return [r.tokens.tolist() for r in rs]
+    replayed = tokens()
+    loop.reset_counters()
+    loop._program = EagerPrograms(dev)
+    try:
+        rep = loop.run(prompts, max_new=max_new)
+    finally:
+        del loop._program
+    same = tokens() == replayed
+    out = {"tokens_identical": same,
+           "replayed_tok_s": report["sustained_tok_s"],
+           "eager_tok_s": rep["sustained_tok_s"],
+           "replayed_wall_s": report["wall_s"], "eager_wall_s": rep["wall_s"],
+           "eager_decode_steps": rep["decode_steps"]}
+    if not same or rep["requests"] != len(prompts):
+        raise AssertionError(f"the eager stream's tokens differ from the "
+                             f"programs': {out}")
+    return out
+
+
+REPLAY_KERNELS = {"fused_flash_fwd": ("fused_fwd_kernel",),
+                  "flash_attention_fwd": ("decode_kernel", "tiled_kernel")}
+
+
+def replay_launches(fa, fn, tries: int = 3) -> dict:
+    """Kernels 1 and 2 in one call of ``fn`` (a program's replay): the
+    counters' launches against the kernels' device events, by name, in a
+    ``torch.profiler`` trace (a split-KV decode launch is one
+    ``decode_kernel`` event and a merge); fails unless they are equal.  A
+    trace with no device activity (the profiler now and then records
+    none in a process that has profiled before) is taken again."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        reset_counters(fa)
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [name for name, _ in device_events(prof)]
+        if names:
+            break
+    counted = {k: getattr(fa, k).launches for k in REPLAY_KERNELS}
+    events = {k: sum(any(p in n for p in pat) for n in names)
+              for k, pat in REPLAY_KERNELS.items()}
+    out = {"counted": counted, "events": events,
+           "device_events": len(names)}
+    if counted != events or not names:
+        raise AssertionError(f"a replay's counted launches are not its "
+                             f"kernel events: {out}")
+    return out
+
+
+def program_checks(fa, loop, E: int, batch, last) -> dict:
+    """The loop's programs against its eager methods on the same inputs,
+    on the card: one decode step from one state and cache (logits, state
+    and cache) and the prefill batch ``(batch, last)`` of bucket ``E``
+    (logits and caches), bytes equal or not (``hold_replay`` holds them);
+    kernels 1 and 2's counted launches of one decode and one prefill
+    replay against their profile (``replay_launches``); the decode step's
+    and the batch's wall eager and replayed, and their profiles."""
+    import torch
+    params = loop.params
+    step = loop._programs["loop_step"]
+    held = (loop.params, loop.state, loop.cache)
+    prefill = loop._programs[f"prefill_{E}"]
+
+    def decode_replay():
+        return step(held=held)
+
+    def prefill_replay():
+        return prefill(batch, last, held=params)
+
+    def clone(d):
+        return {k: v.clone() for k, v in d.items()}
+
+    def nerr(a, b):
+        return float((a.float() - b.float()).abs().max()) / max(
+            float(b.float().abs().max()), 1.0)
+    st0, c0 = clone(loop.state), clone(loop.cache)
+    lg_r = decode_replay().clone()
+    st_r, c_r = clone(loop.state), clone(loop.cache)
+    for live, saved in ((loop.state, st0), (loop.cache, c0)):
+        for k in live:
+            live[k].copy_(saved[k])
+    del st0, c0
+    lg_e = loop._loop_step()
+    decode = {"bitwise": bool(
+        torch.equal(lg_r, lg_e)
+        and all(torch.equal(st_r[k], loop.state[k]) for k in st_r)
+        and all(torch.equal(c_r[k], loop.cache[k]) for k in c_r)),
+        "logits_err": nerr(lg_r, lg_e)}
+    del st_r, c_r
+    lg_p, cache_p = prefill_replay()
+    lg_p, cache_p = lg_p.clone(), clone(cache_p)
+    lg_pe, cache_pe = loop.prefill_fn(E)(params, batch, last)
+    pre = {"bitwise": bool(torch.equal(lg_p, lg_pe) and all(
+        torch.equal(cache_p[k], cache_pe[k]) for k in cache_p)),
+        "logits_err": nerr(lg_p, lg_pe)}
+    del lg_p, cache_p, lg_pe, cache_pe
+    out = {"replay_vs_eager": {"decode": decode, "prefill": pre},
+           "replay_launches": {"decode": replay_launches(fa, decode_replay),
+                               "prefill": replay_launches(fa,
+                                                          prefill_replay)}}
+    # where the time goes: one decode step (all slots, as in the loop) and
+    # the prefill batch, eager and replayed, timed and then under the
     # profiler for the device's busy share and its top kernels
-    decode_ms = wall_ms(loop._loop_step, 10)
-    prefill_ms = wall_ms(lambda: loop.prefill_fn(E)(params, batch, last), 3)
-    prof = {"decode_step": profile(loop._loop_step, 5),
-            "prefill_batch": profile(
-                lambda: loop.prefill_fn(E)(params, batch, last), 1)}
-    return {**common, "prefill_logits_err": errs,
-            "decode_step_ms": decode_ms, "prefill_batch_ms": prefill_ms,
-            "profile": prof}
+    eager_prefill = loop.prefill_fn(E)
+    out["decode_step_ms"] = wall_ms(loop._loop_step, 10)
+    out["decode_step_ms_replayed"] = wall_ms(decode_replay, 10)
+    out["prefill_batch_ms"] = wall_ms(
+        lambda: eager_prefill(params, batch, last), 3)
+    out["prefill_batch_ms_replayed"] = wall_ms(prefill_replay, 3)
+    out["profile"] = {
+        "decode_step": profile(loop._loop_step, 5),
+        "decode_step_replayed": profile(decode_replay, 5),
+        "prefill_batch": profile(lambda: eager_prefill(params, batch, last),
+                                 1),
+        "prefill_batch_replayed": profile(prefill_replay, 1)}
+    return out
 
 
 def ssm_check(model, params32, loop, dev, n: int = 256) -> dict:
@@ -1425,18 +1632,13 @@ def serve_tokens(fa, cfg, pcfg, scfg, dev, n_req=4, max_len=512) -> dict:
 # phase 4: train
 # --------------------------------------------------------------------------
 
-COUNTERS = ("fused_flash_fwd", "flash_attention_fwd", "fused_flash_bwd_dq",
-            "fused_flash_bwd_dkv", "flash_attention_bwd_dq",
-            "flash_attention_bwd_dkv")
-
-
 def reset_counters(fa) -> None:
-    for name in COUNTERS:
-        getattr(fa, name).launches = 0
+    for f in fa.COUNTED:
+        f.launches = 0
 
 
 def read_counters(fa) -> dict:
-    return {name: getattr(fa, name).launches for name in COUNTERS}
+    return {f.__name__: f.launches for f in fa.COUNTED}
 
 
 def train_grad_check(trainlib, dev, argv, n_layers: int = 4) -> dict:
@@ -2463,7 +2665,7 @@ def pod_serve_phase(fa, dev) -> dict:
                          ParallelConfig(block_size=512, in_dtype_bytes=2),
                          scfg)
     t0 = time.perf_counter()
-    loop.warmup()
+    base = loop.warmup()
     warm_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2472,6 +2674,8 @@ def pod_serve_phase(fa, dev) -> dict:
                    max_new=scfg.max_new_tokens)
     launches = read_counters(fa)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.memory_reserved() / 2**30
+    programs = recompile_check(loop, base)
     if rep["requests"] != POD_SERVE_REQUESTS or \
             launches["flash_attention_fwd"] <= 0 or \
             launches["fused_flash_fwd"] != 0:
@@ -2481,7 +2685,6 @@ def pod_serve_phase(fa, dev) -> dict:
         raise AssertionError("pod-mesh decode logits not finite")
     first = loop.stats.finished[0]
     batch, last = loop.assemble(first.bucket, [first])
-    step = loop.prefill_fn(first.bucket)
     out["full_depth_bf16"] = {
         "prefill_impl": rep["prefill_impl"], "warned": warned,
         "requests_cut": POD_SERVE_WHY,
@@ -2492,14 +2695,11 @@ def pod_serve_phase(fa, dev) -> dict:
         "prefill_ms_p99": rep["prefill_ms"]["p99"],
         "decode_ms_p50": rep["decode_ms"]["p50"],
         "decode_steps": rep["decode_steps"], "launches": launches,
-        "peak_mem_gib": peak,
-        "decode_step_ms": wall_ms(loop._loop_step, 10),
+        "peak_mem_gib": peak, "reserved_gib": reserved, **programs,
         "prefill_batch_bucket": first.bucket,
-        "prefill_batch_ms": wall_ms(lambda: step(params, batch, last), 3),
-        "profile": {"decode_step": profile(loop._loop_step, 5),
-                    "prefill_batch": profile(
-                        lambda: step(params, batch, last), 1)}}
-    del loop, model, params, step, batch
+        **program_checks(fa, loop, first.bucket, batch, last)}
+    hold_replay(out["full_depth_bf16"], None)
+    del loop, model, params, batch
     release()
     return out
 
@@ -2905,7 +3105,7 @@ def llama_phase(fa, ex, trainlib, dev, pcfg, scfg, plain_step) -> tuple:
     c = get_config(LLAMA_ARCH)
     t0 = time.perf_counter()
     served = serve(fa, c.replace(n_layers=LLAMA_SERVE_LAYERS), pcfg, scfg,
-                   dev)
+                   dev, eager=True)
     served["depth"] = (f"{LLAMA_SERVE_LAYERS} of {c.n_layers} layers: "
                        f"{LLAMA_SERVE_WHY}")
     log(f"phase llama3 serve: ok {time.perf_counter() - t0:.2f}s "
@@ -2934,7 +3134,8 @@ def llama_phase(fa, ex, trainlib, dev, pcfg, scfg, plain_step) -> tuple:
 def release() -> None:
     """Free what a phase left on the card before the next one measures its
     peak: reference cycles first (the serve phase's spied method, a
-    trainer's closures), then the allocator's cache."""
+    serving loop's programs with their graphs and pools, a trainer's
+    closures), then the allocator's cache."""
     import torch
     gc.collect()
     torch.cuda.empty_cache()
@@ -3188,12 +3389,14 @@ def main() -> int:
         t0 = time.perf_counter()
         cut = c.replace(n_layers=depth or c.n_layers)
         n_req = HYBRID_SERVE_REQUESTS if tag == "zamba2" else 16
-        served[tag] = serve(fa, cut, pcfg, scfg, dev, n_req=n_req)
+        served[tag] = serve(fa, cut, pcfg, scfg, dev, n_req=n_req,
+                            eager=tag == "stablelm")
         if depth is not None:
             served[tag]["depth_cut"] = f"{depth} of {c.n_layers} layers: {why}"
         if tag == "zamba2":
             served[tag]["requests_cut"] = (f"{n_req} requests: "
                                            f"{HYBRID_REQUESTS_WHY}")
+            release()           # the served loop's graphs and their pools
             served[tag]["tokens_kernels_vs_plain"] = serve_tokens(
                 fa, cut, pcfg, scfg, dev)
         log(f"phase serve {tag}: ok {time.perf_counter() - t0:.2f}s "
@@ -3364,6 +3567,13 @@ def main() -> int:
                 f"{json.dumps(r)}; stablelm "
                 f"{json.dumps(extra['stablelm_remat'][policy])}")
         log(f"phase llama3: ok {time.perf_counter() - t0:.2f}s on {card}")
+
+    # the serving loop's programs against its eager methods, every served
+    # configuration side by side
+    pod_served = ([("stablelm pods 2x2x2", pods["serve"]["full_depth_bf16"])]
+                  if "pods" in phases else [])
+    for tag, r in list(served.items()) + pod_served:
+        log(programs_line(tag, r, card))
 
     log(f"chip_smoke phases {','.join(phases)}: ok "
         f"{time.perf_counter() - t_start:.2f}s")

@@ -24,7 +24,9 @@ CUDA kernels fix their own tiles.  A wrapper takes
 its plain PyTorch version (``*_plain``, same module) only because the
 tensors it was given lie on the CPU; on a CUDA tensor it launches the
 kernel or raises.  ``<wrapper>.launches`` counts kernel launches (plain
-integers; reset them to 0 to count a region).
+integers; reset them to 0 to count a region).  A replay of a captured
+CUDA graph adds the launches its capture recorded
+(``runtime/graphs.py``), so the counters count what the card runs.
 """
 
 from __future__ import annotations
@@ -292,9 +294,14 @@ def fused_flash_fwd_plain(step_q, step_kv, qs, kxt, vxt, q_seg, q_pos,
     w_p = torch.exp(lse_p - m[flat])
     den = w_a.index_add(0, flat, w_p)
     num = (a_o * w_a[..., None]).index_add(0, flat, o_p * w_p[..., None])
-    vis = torch.unique(flat)
-    a_o[vis] = (num[vis] / den[vis][..., None])
-    a_l[vis] = m[vis] + torch.log(den[vis])
+    # visited slots take the merge, the others keep their bytes (a mask,
+    # not ``torch.unique``: no host sync or copy, so a CUDA graph can
+    # capture it)
+    vis = torch.zeros((N * SL,), dtype=torch.bool,
+                      device=qs.device).index_fill_(0, flat, True)
+    a_o.copy_(torch.where(vis[:, None, None, None], num / den[..., None],
+                          a_o))
+    a_l.copy_(torch.where(vis[:, None, None], m + torch.log(den), a_l))
     return acc_o, acc_lse
 
 
@@ -801,8 +808,16 @@ def flash_attention_bwd(q, k, v, seg_q, pos_q, seg_k, pos_k, o, lse, do,
     return (_launch_bwd_dq(prep), *_launch_bwd_dkv(prep))
 
 
-__all__ = ["NEG_INF", "flash_attention_bwd", "flash_attention_bwd_dkv",
-           "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq",
+# the wrappers whose ``launches`` count (a graph replay adds its captured
+# launches to each, runtime/graphs.py)
+COUNTED = (fused_flash_fwd, flash_attention_fwd, fused_flash_bwd_dq,
+           fused_flash_bwd_dkv, flash_attention_bwd_dq,
+           flash_attention_bwd_dkv)
+
+
+__all__ = ["COUNTED", "NEG_INF", "flash_attention_bwd",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
+           "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_fwd_plain",
            "fused_flash_bwd_dkv", "fused_flash_bwd_dkv_plain",

@@ -220,13 +220,16 @@ def main(argv=None):
         raise SystemExit("--cache-len must exceed --tokens")
 
     # warmup: one request per admissible bucket builds the kernels, plans
-    # every bucket and touches every code path once
+    # every bucket and builds every program (on the card: captures its
+    # CUDA graph); the measured stream then builds nothing
     t0 = time.perf_counter()
-    loop.warmup()
+    base = loop.warmup()
     warm_s = time.perf_counter() - t0
 
     stream = serving_stream(rng, cfg.vocab_size, args.requests, 1, max_len)
     report = loop.run(stream, max_new=args.tokens)
+    recompiles = (sum(loop.compile_counts().values())
+                  - sum(base.values()))
 
     print(f"warmup {warm_s:.2f}s over buckets {loop.edges} "
           f"({loop.prefill_impl} prefill, device {dev})")
@@ -240,6 +243,7 @@ def main(argv=None):
           f"{report['decode_steps']} steps, p99 "
           f"{report['decode_ms']['p99']:.1f}ms | queue p99 "
           f"{report['queue_ms']['p99']:.1f}ms")
+    print(f"recompiles after warmup: {recompiles}")
     if "plan_cache" in report:
         pcs = report["plan_cache"]
         print(f"plan cache: {pcs['hits']} hits / {pcs['misses']} misses "

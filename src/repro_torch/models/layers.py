@@ -3,6 +3,7 @@ PyTorch on parameter dictionaries)."""
 
 from __future__ import annotations
 
+import functools
 import math
 import threading
 
@@ -25,13 +26,21 @@ def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
     return rms_norm(x * F.silu(z.to(torch.float32)).to(x.dtype), w, eps)
 
 
+@functools.lru_cache(maxsize=64)
+def _rope_freq(half: int, theta: float, device: torch.device
+               ) -> torch.Tensor:
+    """The rotary frequencies on ``device``, uploaded once: a host copy
+    inside a captured CUDA graph (the serving programs) is refused."""
+    freq = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
+    return torch.from_numpy(np.asarray(freq, np.float32)).to(device)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """Rotary embedding. x: [..., T, H, D]; positions: [..., T]."""
     d = x.shape[-1]
     half = d // 2
-    freq = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
-    freq = torch.from_numpy(np.asarray(freq, np.float32)).to(x.device)
+    freq = _rope_freq(half, float(theta), x.device)
     ang = positions[..., None].to(torch.float32) * freq      # [..., T, half]
     cos = torch.cos(ang)[..., None, :]                       # [..., T, 1, h]
     sin = torch.sin(ang)[..., None, :]

@@ -27,6 +27,17 @@
   tail, generated tokens) lives in device tensors updated in place;
   the host mirrors completion counters and reads a slot's tokens only
   when its request finishes — no per-token host sync.
+* **Compiled programs** — as the reference jits its steps, the loop
+  runs each through a :class:`~repro_torch.runtime.graphs.Program`: on
+  the card one CUDA graph per program and static shape, captured at its
+  first call (warmup) and replayed after it.  ``loop_step`` (the decode
+  step and the slot-state update), ``prefill_{E}`` per bucket edge,
+  ``insert_{E}`` (a prefill row's cache write and slot state, its slot,
+  row and request scalars device inputs) and ``fresh_insert``;
+  ``compile_counts()`` counts their builds, and ``warmup()`` returns
+  them as the baseline the stream must not grow (zero recompiles after
+  warmup).  The eager methods stay callable: ``_loop_step``,
+  ``prefill_fn(E, impl)``, ``_insert_rows`` and ``_fresh_rows``.
 * :class:`LatencyStats` — per-request queue/prefill/decode p50/p99 and
   sustained tokens/sec, on ``time.perf_counter``.
 """
@@ -34,6 +45,7 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import warnings
 from collections import deque
@@ -49,6 +61,7 @@ from ..launch import serve as servelib
 from ..launch.mesh import stacked_frames
 from ..models import Model
 from ..models.registry import RECURRENT, dense_attn_fn
+from . import graphs
 
 
 class QueueFull(RuntimeError):
@@ -217,7 +230,9 @@ class ServingLoop:
     plain versions on the card, to hold the kernels against them).
     ``run(prompts)`` drives an offline stream end to end;
     ``submit``/``_refill``/``_dispatch_step`` are the building blocks an
-    online server would call.
+    online server would call.  Every step runs through a compiled
+    program (module docstring), a CUDA graph whenever ``device`` is
+    CUDA.
     """
 
     def __init__(self, model: Model, params, mesh,
@@ -276,7 +291,9 @@ class ServingLoop:
         self.cache = model.init_cache(B, scfg.cache_len, self.device)
         self.state = self._init_state(B)
         self._slots: list[_SlotMeta | None] = [None] * B
-        self._prefill_fns: dict = {}        # E -> prefill step
+        self._prefill_fns: dict = {}        # (E, impl) -> prefill step
+        self._programs: dict = {}           # name -> graphs.Program
+        self._pool = None                   # prefill + insert graph pool
         self.last_logits = None             # decode logits (tests)
         self.reset_counters()
 
@@ -289,6 +306,30 @@ class ServingLoop:
         self.prefill_rows = 0
         self.prefill_rows_real = 0
         self.decode_steps = 0
+
+    def compile_counts(self) -> dict[str, int]:
+        """Programs built per program (the reference's per-jitted-function
+        compile counts): after ``warmup`` every entry must stay put (zero
+        recompiles over the stream)."""
+        out = {"loop_step": 0, "fresh_insert": 0}
+        out.update({name: p.builds for name, p in self._programs.items()})
+        return out
+
+    def _program(self, name: str, fn) -> graphs.Program:
+        """The program ``name`` (made at its first use around ``fn``).
+        The decode program keeps a graph memory pool of its own; the
+        prefill and insert programs share one (``graphs`` pool rule: a
+        prefill's outputs are inserted before another of them runs)."""
+        prog = self._programs.get(name)
+        if prog is None:
+            pool = None
+            if self.device.type == "cuda" and name != "loop_step":
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                pool = self._pool
+            prog = self._programs[name] = graphs.Program(name, fn,
+                                                         self.device, pool)
+        return prog
 
     def n_active(self) -> int:
         return sum(m is not None for m in self._slots)
@@ -365,20 +406,70 @@ class ServingLoop:
         st["active"] &= st["gen_idx"] < st["max_new"]
         return logits
 
-    def _state_insert(self, slot: int, tok0, pos0: int, gen0: int,
-                      first_gen, tail_row: np.ndarray, tail_len: int,
-                      max_new: int) -> None:
+    def _insert_args(self, row: int, slot: int, pos0: int, first_tail: int,
+                     has_tail: bool, tail_row: np.ndarray, tail_len: int,
+                     max_new: int) -> torch.Tensor:
+        """One insert's arguments as one int32 vector (the reference's
+        traced scalars; ``_unpack`` reads it on the device), pinned on the
+        card, so the program's copy does not wait on the device."""
+        a = np.concatenate([np.array(
+            [row, slot, pos0, first_tail, int(has_tail), tail_len,
+             max_new], np.int32), tail_row.astype(np.int32)])
+        t = torch.from_numpy(a)
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    @staticmethod
+    def _unpack(args: torch.Tensor) -> tuple:
+        """(row, slot, pos0, first tail token, has_tail, tail_len,
+        max_new), each ``[1]``, and the tail row of ``_insert_args``."""
+        return tuple(args[i:i + 1] for i in range(7)) + (args[7:],)
+
+    def _write_slot(self, args: torch.Tensor, first: torch.Tensor) -> None:
+        """The slot state of one insert, from its argument vector and the
+        first generated token ``first`` (``[1]``): a slot with a tail
+        feeds its first tail token and has generated nothing; one without
+        feeds ``first``, already generated."""
         st = self.state
-        st["tok"][slot] = tok0
-        st["pos"][slot] = pos0
-        st["active"][slot] = gen0 < max_new
-        st["tail_buf"][slot] = torch.from_numpy(tail_row).to(self.device)
-        st["tail_idx"][slot] = 0
-        st["tail_len"][slot] = tail_len
-        st["gen_buf"][slot] = 0
-        st["gen_buf"][slot, 0] = first_gen
-        st["gen_idx"][slot] = gen0
-        st["max_new"][slot] = max_new
+        _, slot, pos0, tail0, has_tail, tail_len, max_new, tail_row = \
+            self._unpack(args)
+        slot, has_tail = slot.long(), has_tail.bool()
+        gen0 = torch.where(has_tail, 0, 1).to(torch.int32)
+        gen_row = torch.zeros_like(st["gen_buf"][:1])
+        gen_row[:, 0] = torch.where(has_tail, 0, first)
+        st["tok"].index_copy_(0, slot, torch.where(has_tail, tail0, first))
+        st["pos"].index_copy_(0, slot, pos0)
+        st["active"].index_copy_(0, slot, gen0 < max_new)
+        st["tail_buf"].index_copy_(0, slot, tail_row[None])
+        st["tail_idx"].index_fill_(0, slot, 0)
+        st["tail_len"].index_copy_(0, slot, tail_len)
+        st["gen_buf"].index_copy_(0, slot, gen_row)
+        st["gen_idx"].index_copy_(0, slot, gen0)
+        st["max_new"].index_copy_(0, slot, max_new)
+
+    def _insert_rows(self, pcache: dict, plogits: torch.Tensor,
+                     args: torch.Tensor) -> None:
+        """The eager insert (program ``insert_{E}``): the prefill row
+        ``row`` into slot ``slot`` — k/v ``[G, E, KH, D]`` fill the slot's
+        first E positions, an SSM state or conv tail its whole row — and
+        its slot state; the first generated token is the argmax of the
+        row's prefill logits, taken on the device."""
+        row, slot = (x.long() for x in self._unpack(args)[:2])
+        for k, c in self.cache.items():
+            src = pcache[k].index_select(1, row).to(c.dtype)
+            c[:, :, :src.shape[2]].index_copy_(1, slot, src)
+        first = torch.argmax(plogits.index_select(0, row),
+                             dim=-1).to(torch.int32)
+        self._write_slot(args, first)
+
+    def _fresh_rows(self, args: torch.Tensor) -> None:
+        """The eager fresh insert (program ``fresh_insert``): the slot's
+        cache rows are zeroed and the whole prompt teacher-forces from
+        position 0 (its arguments name the first token as the first tail
+        token, with ``has_tail`` set, so no generated token is read)."""
+        slot = self._unpack(args)[1].long()
+        for c in self.cache.values():
+            c.index_fill_(1, slot, 0)
+        self._write_slot(args, torch.zeros_like(slot, dtype=torch.int32))
 
     # -- prefill -----------------------------------------------------------
 
@@ -476,14 +567,15 @@ class ServingLoop:
         slot's cache rows are zeroed and the whole prompt teacher-forces
         from position 0."""
         now = time.perf_counter()
+        prog = self._program("fresh_insert", self._fresh_rows)
         for req, slot in zip(reqs, free):
-            for c in self.cache.values():
-                c[:, slot] = 0
             tail_row = np.zeros((self._tail_cap,), np.int32)
             tail = req.prompt[1:]
             tail_row[:tail.shape[0]] = tail
-            self._state_insert(slot, int(req.prompt[0]), 0, 0, 0, tail_row,
-                               int(tail.shape[0]), req.max_new)
+            prog(self._insert_args(0, slot, 0, int(req.prompt[0]), True,
+                                   tail_row, int(tail.shape[0]),
+                                   req.max_new),
+                 held=(self.state, self.cache))
             req.queue_ms = (now - req.submit_t) * 1e3
             req.insert_t = now
             self._slots[slot] = _SlotMeta(req, tail_len=int(tail.shape[0]),
@@ -494,27 +586,27 @@ class ServingLoop:
         if reqs[0].mode == "fresh":
             return self._fresh_insert(reqs, free)
         E = reqs[0].bucket
-        fn = self.prefill_fn(E)
+        # prefill_fn looks the bucket's plan up on every batch (the cache
+        # stats prove the reuse); the program replays its first capture
+        prefill = self._program(f"prefill_{E}", functools.partial(
+            self.prefill_fn(E), self.params))
         batch, last = self.assemble(E, reqs)
         t0 = time.perf_counter()
-        plogits, pcache = fn(self.params, batch, last)
+        plogits, pcache = prefill(batch, last, held=self.params)
         self._sync()                       # one sync per BATCH (timing)
         dt_ms = (time.perf_counter() - t0) * 1e3
         self.prefill_batches += 1
         self.prefill_rows += self.budget // E
         self.prefill_rows_real += len(reqs)
-        first = torch.argmax(plogits, dim=-1).to(torch.int32)
+        insert = self._program(f"insert_{E}", functools.partial(
+            self._insert_rows, pcache, plogits))
+        held = (self.state, self.cache, pcache, plogits)
         for i, (req, slot) in enumerate(zip(reqs, free)):
             pos0, ft, ht, tail_row, tl = self._tail_arrays(req, E)
-            # a prefill row into the slot: k/v ``[G, E, KH, D]`` fill the
-            # first E positions, an SSM state or conv tail its whole row
-            for k, c in self.cache.items():
-                c[:, slot, :pcache[k].shape[2]] = pcache[k][:, i]
             # first generated token: argmax of the prefill's last-token
             # logits — computed on the device, never synced to the host
-            self._state_insert(
-                slot, ft if ht else first[i], pos0, 0 if ht else 1,
-                0 if ht else first[i], tail_row, tl, req.max_new)
+            insert(self._insert_args(i, slot, pos0, ft, ht, tail_row, tl,
+                                     req.max_new), held=held)
             req.queue_ms = (t0 - req.submit_t) * 1e3
             req.prefill_ms = dt_ms
             req.insert_t = time.perf_counter()
@@ -537,7 +629,8 @@ class ServingLoop:
             self._prefill_and_insert(reqs, take)
 
     def _dispatch_step(self) -> None:
-        self.last_logits = self._loop_step()
+        self.last_logits = self._program("loop_step", self._loop_step)(
+            held=(self.params, self.state, self.cache))
         self.decode_steps += 1
         for m in self._slots:
             if m is not None and not m.done:
@@ -565,12 +658,15 @@ class ServingLoop:
 
     # -- driver ------------------------------------------------------------
 
-    def warmup(self) -> None:
-        """Touch every steady-state path once — one filler request per
-        admissible prefill bucket (plus the below-minimum "fresh" path of
-        recurrent families), with enough generation to run the decode
-        loop — so kernels are built and every bucket is planned before
-        the measured stream; then reset the counters."""
+    def warmup(self) -> dict[str, int]:
+        """Build every steady-state program up front — one filler request
+        per admissible prefill bucket (plus the below-minimum "fresh"
+        path of recurrent families), with enough generation to run the
+        decode loop — so kernels are built, every bucket is planned and
+        every program captured before the measured stream; then reset
+        the counters.  Returns the compile-count baseline: over the
+        measured stream every count must stay put (zero recompiles after
+        warmup)."""
         mn = min(2, self.scfg.max_new_tokens)
         prompts = []
         for e in self.edges:
@@ -580,7 +676,9 @@ class ServingLoop:
         if self.model.cfg.family in RECURRENT and self.edges[0] > 1:
             prompts.append(np.ones((1,), np.int32))   # fresh path
         self.run(prompts, max_new=mn)
+        base = self.compile_counts()
         self.reset_counters()
+        return base
 
     def run(self, prompts: Sequence, max_new: int | None = None) -> dict:
         """Serve an offline stream of prompts end to end and return the
