@@ -69,15 +69,34 @@ Phases, each reported on its own line with its wall:
              stream, bf16's reported) and Mamba2-130M (SSM, no
              attention, 4 of 24 layers: its prefill held against its
              recurrent decode).
+   Every training run below goes through the loops' step programs (one
+             CUDA graph per plan key: a key's first step runs eagerly
+             and is captured, later steps replay; ``launch/train.py``,
+             ``runtime/graphs.py``): each run that reports tokens/s
+             first takes one round of the stream's compositions (its
+             builds), then times replayed steps and profiles one, and
+             fails if a program is built after the round; a ``train
+             programs`` line per run gives the builds' eager walls, the
+             replayed walls, device ms, busy share, capture seconds,
+             graph nodes, peak and the memory reserved with the pool.
 4. train   — (a) full width, 4 layers, f32 weights: every parameter's
              gradient through the kernels against the plain versions,
              for the fused (kernels 1, 3, 4) and the per-step (2, 5, 6)
-             executor, to TOL_TRAIN_F32; (b) the training CLI's plain loop
+             executor, to TOL_TRAIN_F32; the step programs at
+             CHECK_LAYERS, bf16 and f32 (``train_program_checks``): one
+             step replayed and two run eagerly from one copied state,
+             fused and pallas (the replay the same bytes where eager
+             against eager is, else within that spread; the replay's
+             counted launches of kernels 1-6 equal the eager step's and
+             its profiled kernel events), and zero recompiles after a
+             round in the plain loop, the Supervisor, ``--overlap`` and
+             the bf16 and int8 wires; (b) the training CLI's plain loop
              (``launch.train --no-supervised``, as the earlier PRs'
              numbers were taken: 24 layers, bf16, 4 stacked workers, 8192
-             tokens per step, fused) for 3 steps with the launch counters
-             read around them, one more step under the profiler, one
-             ``--attn-impl pallas`` step with its counters, and the bf16
+             tokens per step, fused) for a round and 3 replayed steps with
+             the launch counters read around them, one more step under
+             the profiler, one ``--attn-impl pallas`` step built and
+             replayed on the same batch with its counters, and the bf16
              step-0 loss, kernels against plain, held to a multiple of
              its noise floor: the loss moved by the kernel's deviation
              from the plain attention output under random signs.  Then
@@ -98,11 +117,12 @@ Phases, each reported on its own line with its wall:
              prefill batch (logits bitwise), one train step (loss
              bitwise, leaves to TOL_OVERLAP_LEAF), and the layer pipeline
              on and off (loss and leaves to TOL_PIPELINE); (b) full
-             depth, bf16: two steps serial and two with ``--overlap``,
-             one more of each profiled per CUDA stream
-             (``stream_profile``: ship kernels on the side and main
-             streams, the side time under a main-stream kernel; the side
-             count must be > 0), then 3 steps with ``--layer-pipeline``
+             depth, bf16: serial and with ``--overlap``, a build step's
+             eager call profiled per CUDA stream (``stream_profile``:
+             ship kernels on the side and main streams, the side time
+             under a main-stream kernel; the side count must be > 0),
+             a round, two replayed steps and one profiled, then a round
+             and 3 steps with ``--layer-pipeline``
              and 3 with ``--layer-pipeline --overlap`` (one more of each
              profiled: device time, copies, peak), beside the plain step
              of phase 4; (c) the Supervisor (``launch/drills.py``) at 1
@@ -111,8 +131,9 @@ Phases, each reported on its own line with its wall:
              lost, the replay within 1e-6 of an uninterrupted survivor
              run) and the straggler drill (worker 3 2x slow: demoted
              within the window and cooldown, its plan key missing once);
-             then the CLI's default command (the Supervisor) for 3
-             full-depth bf16 steps with the counters read around them,
+             then the CLI's default command (the Supervisor) for a round
+             and 2 replayed full-depth bf16 steps with the counters read
+             around them (no recompile, no health event),
              and a checkpoint round trip of its bf16 parameters and AdamW
              state, 4 of its 24 layers (save and restore seconds, bytes
              equal).
@@ -131,8 +152,8 @@ Phases, each reported on its own line with its wall:
              (``launch/drills.pod_drill``: 1 layer, f32, 2 x 2 workers,
              compression on, pod 1 lost at step 3 and back at step 5 of
              7, checkpoints under build/pods/): at most 2 steps lost,
-             the replay within 1e-6, no plan miss and no step closure
-             after the rejoin; (c) serving on a 2x2x2 mesh: with f32
+             the replay within 1e-6, no plan miss and no step program
+             built after the rejoin; (c) serving on a 2x2x2 mesh: with f32
              weights at 4 layers, 4 requests, the FCP prefill warns and serves
              densely, its tokens those of a 4x2 FCP loop, and
              ``strict_prefill`` raises; at full depth, bf16, 8 requests
@@ -186,6 +207,7 @@ before that line.  Without a CUDA device the script fails.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import os
@@ -250,16 +272,19 @@ SSM_WHY = ("depth cut for the run's time (its host-bound decode loop took "
            "39.9 s at 24 layers); the layers kept are at full width")
 TOL_SSM_F32 = 1e-4                  # f32 prefill vs recurrent decode logits
 PALLAS_WHY = ("steps cut for the run's time: StableLM's per-step-executor "
-              "step is host-bound (3.3-5.2 s a step, device busy 38-49%, "
-              "on an H100 80GB HBM3 host); one step with its counters "
-              "drives kernels 2, 5 and 6, without the second step and its "
-              "profile")
+              "step builds its program in 12.5-16 s (an eager step of "
+              "4.6-4.9 s, a capture of 6-9 s and the graph's "
+              "instantiation, 141-152 k nodes, on an H100 80GB HBM3 "
+              "host); one key is built and then replayed on the same "
+              "batch, the loader rewound, with its counters: kernels 2, "
+              "5 and 6, without the rest of a round and the profile")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+@functools.lru_cache(maxsize=None)
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1438,11 +1463,15 @@ def eager_stream(loop, prompts, max_new: int, dev, report: dict) -> dict:
 
 
 REPLAY_KERNELS = {"fused_flash_fwd": ("fused_fwd_kernel",),
-                  "flash_attention_fwd": ("decode_kernel", "tiled_kernel")}
+                  "flash_attention_fwd": ("decode_kernel", "tiled_kernel"),
+                  "fused_flash_bwd_dq": ("fused_dq_kernel",),
+                  "fused_flash_bwd_dkv": ("fused_dkv_kernel",),
+                  "flash_attention_bwd_dq": ("bwd_dq_kernel",),
+                  "flash_attention_bwd_dkv": ("bwd_dkv_kernel",)}
 
 
 def replay_launches(fa, fn, tries: int = 3) -> dict:
-    """Kernels 1 and 2 in one call of ``fn`` (a program's replay): the
+    """Kernels 1-6 in one call of ``fn`` (a program's replay): the
     counters' launches against the kernels' device events, by name, in a
     ``torch.profiler`` trace (a split-KV decode launch is one
     ``decode_kernel`` event and a merge); fails unless they are equal.  A
@@ -1691,20 +1720,74 @@ def train_grad_check(trainlib, dev, argv, n_layers: int = 4) -> dict:
         tr.close()
 
 
-def train_steps(fa, trainlib, dev, argv, steps: int) -> dict:
-    """The training CLI's main path, in process: ``steps`` steps of the
-    fused executor with the counters read around them, then one more step
-    under the profiler."""
+def step_programs(tr) -> dict:
+    """A training loop's step programs: the steps that built one, each
+    build's eager and capture seconds and graph nodes, and the memory the
+    card holds with the loop's graph pool."""
+    import torch
+    progs = list((tr.step_cache if hasattr(tr, "step_cache")
+                  else tr._step_cache).values())
+    log_ = [b for p in progs for b in p.build_log]
+    return {"compiled_at": list(tr.compiled_at),
+            "builds": sum(p.builds for p in progs),
+            "eager_ms": [b["eager_s"] * 1e3 for b in log_],
+            "capture_s": [b["capture_s"] for b in log_],
+            "instantiate_s": [b["instantiate_s"] for b in log_],
+            "graph_nodes": [b["nodes"] for b in log_],
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+
+
+def hold_warm(tag: str, tr, warm: int) -> int:
+    """Zero recompiles after warmup: every program of ``tr`` was built in
+    its first ``warm`` steps, one build each; returns the recompiles (0)."""
+    late = [s for s in tr.compiled_at if s >= warm]
+    builds = step_programs(tr)["builds"]
+    if late or builds != len(tr.compiled_at):
+        raise AssertionError(
+            f"{tag}: programs built after the first {warm} steps "
+            f"{tr.compiled_at} ({builds} builds)")
+    return len(late)
+
+
+class EagerSteps:
+    """In place of a training loop's ``_program``: every step runs the
+    key's eager step function, nothing captured (one closure built per
+    key, as ``compiled_at`` counts).  Only an explicit argument with its
+    reason passes it (``train_steps(eager_why=...)``)."""
+
+    def __call__(self, name, fn):
+        def call(*inputs, held=None):
+            return fn(*inputs)
+        call.fn, call.builds, call.build_log = fn, 1, []
+        return call
+
+
+def train_steps(fa, trainlib, dev, argv, steps: int,
+                eager_why: str | None = None) -> dict:
+    """The training CLI's main path, in process: one round of the
+    stream's compositions (each plan key's first step builds its program:
+    an eager step, then a capture), then ``steps`` replayed steps with
+    the counters read around them, then one more replayed step under the
+    profiler; nothing may be built after the round (zero recompiles
+    after warmup).  Tokens/s and the profile are the replayed steps';
+    the eager walls are the builds' eager calls.  With ``eager_why`` the
+    loop's steps all run eagerly (``EagerSteps``), for that reason."""
     import torch
     tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
+    if eager_why:
+        tr._program = EagerSteps()
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        warm = len(tr.loader.compositions)
+        warmup = tr.run(warm)
         reset_counters(fa)
-        hist = tr.run(steps)
+        hist = tr.run(warm + steps)
         launches = read_counters(fa)
         peak = torch.cuda.max_memory_allocated() / 2**30
         prof = profile(tr.step, 1)
+        recompiles = hold_warm(argv_tag(argv), tr, warm)
+        programs = step_programs(tr)
         stats = tr.plan_cache.stats
         n_params = tr.model.param_count(tr.state.params)
         n_layers = tr.cfg.n_layers
@@ -1713,48 +1796,90 @@ def train_steps(fa, trainlib, dev, argv, steps: int) -> dict:
         tr.close()
     del tr
     release()
-    losses = [r.loss for r in hist]
+    losses = [r.loss for r in warmup + hist]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train losses not finite: {losses}")
     for name in ("fused_flash_fwd", "fused_flash_bwd_dq",
                  "fused_flash_bwd_dkv"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the train path")
-    steady = [r.ms for r in hist[1:]]
-    return {"n_layers": n_layers, "params": n_params, "losses": losses,
-            "gnorms": [r.gnorm for r in hist], "step_ms": [r.ms for r in hist],
+    replayed = [r.ms for r in hist]
+    out = {"n_layers": n_layers, "params": n_params, "losses": losses,
+            "gnorms": [r.gnorm for r in warmup + hist],
+            "step_ms": replayed, "warmup_step_ms": [r.ms for r in warmup],
+            "eager_step_ms": float(np.median(programs["eager_ms"]
+                                             or replayed)),
+            "eager": eager_why,
             "tokens_per_step": tokens,
-            "tokens_per_s": tokens / (float(np.mean(steady)) / 1e3),
+            "tokens_per_s": tokens / (float(np.mean(replayed)) / 1e3),
             "peak_mem_gib": peak, "launches_steps": launches,
             "launches_per_step": {n: launches[n] / steps for n in (
                 "fused_flash_fwd", "fused_flash_bwd_dq",
                 "fused_flash_bwd_dkv")},
             "plan_cache": {"hits": stats.hits, "misses": stats.misses},
+            "recompiles_after_warmup": recompiles, "programs": programs,
             "profile_step": prof}
+    log(programs_train_line(argv_tag(argv), out, card_line()))
+    return out
 
 
 def train_pallas(fa, trainlib, dev, argv) -> dict:
-    """One ``--attn-impl pallas`` step (kernels 2, 5 and 6) with its
-    counters."""
+    """One ``--attn-impl pallas`` step (kernels 2, 5 and 6), which builds
+    its program, then the loader rewound and the same batch's step
+    replayed with its counters (PALLAS_WHY)."""
     argv = [x if x != "fused" else "pallas" for x in argv]
-    argv[argv.index("--steps") + 1] = "1"
+    argv[argv.index("--steps") + 1] = "2"
     tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
     try:
+        built = tr.step()
+        tr.loader.state.step -= 1
         reset_counters(fa)
         rec = tr.step()
         launches_p = read_counters(fa)
+        hold_warm(argv_tag(argv), tr, 1)
+        programs = step_programs(tr)
     finally:
         tr.close()
     del tr
     release()
-    if not np.isfinite(rec.loss):
+    if not (np.isfinite(rec.loss) and np.isfinite(built.loss)):
         raise AssertionError("pallas train loss not finite")
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         if launches_p[name] <= 0:
             raise AssertionError(f"{name} never launched on the pallas "
                                  f"train path")
-    return {"loss": rec.loss, "ms": rec.ms, "launches": launches_p}
+    return {"loss": built.loss, "ms": rec.ms, "build_step_ms": built.ms,
+            "eager_step_ms": programs["eager_ms"][0], "launches": launches_p,
+            "programs": programs}
+
+
+def argv_tag(argv) -> str:
+    """A training command's model, mesh and the flags it adds to
+    TRAIN_ARGV's."""
+    extra = [x for x in argv[argv.index("--steps") + 2:]
+             if x not in TRAIN_ARGV]
+    return " ".join([argv[argv.index("--arch") + 1],
+                     argv[argv.index("--mesh") + 1],
+                     argv[argv.index("--attn-impl") + 1]] + extra)
+
+
+def programs_train_line(tag: str, r: dict, card: str) -> str:
+    """One trained configuration's step programs beside its eager step."""
+    p, pr = r["profile_step"], r["programs"]
+    if r.get("eager"):
+        tag += f" [EAGER: {r['eager']}]"
+    return (f"  train programs {tag}: {pr['builds']} builds (steps "
+            f"{pr['compiled_at']}), recompiles after warmup "
+            f"{r['recompiles_after_warmup']}; step eager "
+            f"{r['eager_step_ms']:.1f} ms (the builds' eager calls "
+            f"{[round(x, 1) for x in pr['eager_ms']]}), replayed "
+            f"{[round(x, 1) for x in r['step_ms']]} ms (device "
+            f"{p['device_ms']} ms, busy {p['busy_share']}); capture "
+            f"{[x and round(x, 2) for x in pr['capture_s']]} s, graph nodes "
+            f"{pr['graph_nodes']}; tokens/s {r['tokens_per_s']:.1f}; peak "
+            f"{r['peak_mem_gib']:.2f} GiB, reserved with the pool "
+            f"{pr['reserved_gib']:.2f} GiB; on {card}")
 
 
 def train_loss_check(trainlib, dev, argv) -> dict:
@@ -1817,6 +1942,132 @@ def train_loss_check(trainlib, dev, argv) -> dict:
     return out
 
 
+def replay_vs_eager(fa, trainlib, dev, argv) -> dict:
+    """The first batch's step program at ``argv`` built, then from one
+    copied state (weights, AdamW moments and step) one step replayed and
+    two run eagerly (``eager_step_fn``): the weights after the step,
+    the loss and the gnorm.  Eager against eager is the yardstick: where
+    it gives the same bytes the replay must too, else the replay must lie
+    within its spread (max |a - b| / max |b| over the weights).  The
+    counted launches of kernels 1-6 in the replay equal the eager step's
+    and a profiled replay's kernel events (``replay_launches``)."""
+    import torch
+    from repro_torch.optimizer import adamw
+    tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
+    try:
+        b = tr.loader.next()
+        batch = trainlib.batch_arrays(b, tr.cfg, dev)
+        prog, eager = tr.step_fn(b, prefetch=False), tr.eager_step_fn(b)
+        held = trainlib.held(tr.state)
+        prog(batch, held=held)                     # the build
+        st = tr.state
+        leaves = adamw.tree_leaves({"p": st.params, "m": st.opt.m,
+                                    "v": st.opt.v}) + [st.opt.step]
+        snap = [x.detach().clone() for x in leaves]
+
+        def step(replay: bool):
+            with torch.no_grad():
+                for dst, src in zip(leaves, snap):
+                    dst.copy_(src)
+            torch.cuda.synchronize()
+            reset_counters(fa)
+            loss, gnorm = prog(batch, held=held) if replay else eager(batch)
+            torch.cuda.synchronize()
+            return (float(loss), float(gnorm), read_counters(fa),
+                    [x.detach().clone() for x in adamw.tree_leaves(
+                        st.params)])
+        rep_, e1, e2 = step(True), step(False), step(False)
+        launches = replay_launches(fa, lambda: prog(batch, held=held))
+    finally:
+        tr.close()
+    del tr
+    release()
+
+    def same(x, y):
+        return x[:2] == y[:2] and all(torch.equal(a, c)
+                                      for a, c in zip(x[3], y[3]))
+
+    def err(x, y):
+        return max(float((a.float() - c.float()).abs().max())
+                   / max(float(c.float().abs().max()), 1e-30)
+                   for a, c in zip(x[3], y[3]))
+    out = {"bitwise_replay_vs_eager": same(rep_, e1),
+           "bitwise_eager_vs_eager": same(e1, e2),
+           "weights_err_replay_vs_eager": min(err(rep_, e1), err(rep_, e2)),
+           "weights_err_eager_vs_eager": err(e1, e2),
+           "loss": [rep_[0], e1[0], e2[0]], "gnorm": [rep_[1], e1[1], e2[1]],
+           "launches_replayed": rep_[2], "launches_eager": e1[2],
+           "replay_launches": launches}
+    log(f"  replay vs eager {argv_tag(argv)}: bitwise "
+        f"{out['bitwise_replay_vs_eager']} (eager vs eager "
+        f"{out['bitwise_eager_vs_eager']}), weights "
+        f"{out['weights_err_replay_vs_eager']:.3e} (eager vs eager "
+        f"{out['weights_err_eager_vs_eager']:.3e}), loss {out['loss']}, "
+        f"gnorm {out['gnorm']}")
+    if rep_[2] != e1[2]:
+        raise AssertionError(f"replayed launches {rep_[2]} != the eager "
+                             f"step's {e1[2]}")
+    if out["bitwise_eager_vs_eager"] and not out["bitwise_replay_vs_eager"]:
+        raise AssertionError(f"the replay is not the eager step's bytes, "
+                             f"eager against eager is: {out}")
+    if (not out["bitwise_replay_vs_eager"]
+            and out["weights_err_replay_vs_eager"]
+            > out["weights_err_eager_vs_eager"]):
+        raise AssertionError(f"the replay lies outside the eager-against-"
+                             f"eager spread: {out}")
+    return out
+
+
+def warm_run(trainlib, argv, steps: int = 2) -> dict:
+    """A round of the stream's compositions and ``steps`` more at
+    ``argv``: nothing may be built after the round (``hold_warm``); a
+    Supervisor records no health event."""
+    tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
+    warm = len(tr.loader.compositions)
+    try:
+        tr.run(warm + steps)
+    finally:
+        tr.close()
+    out = {"compiled_at": list(tr.compiled_at), "steps": len(tr.history),
+           "recompiles_after_warmup": hold_warm(argv_tag(argv), tr, warm)}
+    if isinstance(tr, trainlib.Supervisor):
+        out["events"] = len(tr.monitor.events)
+        if tr.monitor.events:
+            raise AssertionError(f"{argv_tag(argv)}: health events "
+                                 f"{tr.monitor.events} in a healthy run")
+    del tr
+    release()
+    return out
+
+
+RECOMPILE_SETTINGS = (("plain", []), ("supervisor", ["--supervised"]),
+                      ("overlap", ["--overlap"]),
+                      ("bf16_wire", ["--comm-dtype", "bf16"]),
+                      ("int8_wire", ["--comm-dtype", "int8"]))
+
+
+def train_program_checks(fa, trainlib, dev) -> dict:
+    """StableLM at full width, CHECK_LAYERS deep, bf16 and f32 weights:
+    replay against eager for the fused (kernels 1, 3, 4) and the pallas
+    (2, 5, 6) step (``replay_vs_eager``), and zero recompiles after
+    warmup in the plain loop, the Supervisor, ``--overlap`` and the bf16
+    and int8 wires (bf16; the plain loop and the Supervisor also f32)."""
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        base = TRAIN_ARGV + ["--override", f"n_layers={CHECK_LAYERS}",
+                             "--override", f"param_dtype={dtype}"]
+        for impl in ("fused", "pallas"):
+            out[f"replay_{impl}_{dtype}"] = replay_vs_eager(
+                fa, trainlib, dev, [x if x != "fused" else impl
+                                    for x in base])
+        for name, flags in RECOMPILE_SETTINGS:
+            if dtype == "float32" and name not in ("plain", "supervisor"):
+                continue
+            out[f"recompiles_{name}_{dtype}"] = warm_run(trainlib,
+                                                         base + flags)
+    return out
+
+
 def timed(tag: str, fn):
     """``fn()``, its wall printed on a line of its own."""
     t0 = time.perf_counter()
@@ -1834,6 +2085,9 @@ def train(fa, trainlib, dev) -> dict:
         "train f32 gradient check", lambda: train_grad_check(
             trainlib, dev, TRAIN_ARGV))}
     release()
+    out["program_checks"] = timed(
+        "train program checks", lambda: train_program_checks(
+            fa, trainlib, dev))
     out.update(timed("train fused steps", lambda: train_steps(
         fa, trainlib, dev, TRAIN_ARGV, 3)))
     out["pallas_step"] = timed("train pallas step", lambda: train_pallas(
@@ -2010,6 +2264,7 @@ DRILL_WHY = ("depth and steps cut for the run's time: a drill's time is "
              "and head f32 with their AdamW moments) and its f32 steps; "
              "the worker dies mid-step after one committed checkpoint, as "
              "at step 7 of 8, and the limits are the reference runner's")
+SUPERVISOR_STEPS = 6        # the CLI's default: a round of 4 and 2 replays
 ROUND_TRIP_LAYERS = 4       # of 24: the checkpoint round trip's state
 ROUND_TRIP_WHY = ("depth cut for the run's time (the full 16.44 GB state "
                   "saved in 23.4 s and restored in 11.0 s on an H100 80GB "
@@ -2273,18 +2528,29 @@ def overlap_and_pipeline_checks(fa, ex, trainlib, dev) -> dict:
 
 def overlap_step(fa, trainlib, dev, argv) -> dict:
     """A full-depth bf16 fused step of the plain loop with ``argv``'s
-    flags: two steps with the counters read around them, then one under
-    ``stream_profile``."""
+    flags: the second step (a build: its eager call, then its capture)
+    under ``stream_profile``, whose eager kernels show the streams they
+    ran on (a replay's kernels trace on the stream that launched the
+    graph); the rest of the round, two replayed steps with the counters
+    read around them and one more profiled; nothing built after the
+    round."""
     import torch
     tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        warm = len(tr.loader.compositions)
+        prof = stream_profile(tr.step)
+        tr.run(warm)
         reset_counters(fa)
-        hist = tr.run(2)
+        hist = tr.run(warm + 2)
         launches = read_counters(fa)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        prof = stream_profile(tr.step)
+        replayed = profile(tr.step, 1)
+        recompiles = hold_warm(argv_tag(argv), tr, warm)
+        programs = step_programs(tr)
+        losses = [r.loss for r in tr.history]
+        tokens = tr.pods * tr.n_cp * tr.tpw
     finally:
         tr.close()
     del tr
@@ -2293,10 +2559,17 @@ def overlap_step(fa, trainlib, dev, argv) -> dict:
                  "fused_flash_bwd_dkv"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched ({argv[-1]})")
-    if not all(np.isfinite(r.loss) for r in hist):
+    if not all(np.isfinite(losses)):
         raise AssertionError("overlap train losses not finite")
-    return {"step_ms": [r.ms for r in hist], "losses": [r.loss for r in hist],
-            "launches": launches, "peak_mem_gib": peak, "profile": prof}
+    out = {"step_ms": [r.ms for r in hist], "losses": losses,
+           "launches": launches, "peak_mem_gib": peak, "profile": prof,
+           "profile_step": replayed, "recompiles_after_warmup": recompiles,
+           "programs": programs,
+           "eager_step_ms": float(np.median(programs["eager_ms"])),
+           "tokens_per_s": tokens / (float(np.mean(
+               [r.ms for r in hist])) / 1e3)}
+    log(programs_train_line(argv_tag(argv), out, card_line()))
+    return out
 
 
 def overlap_phase(fa, ex, trainlib, dev) -> dict:
@@ -2309,8 +2582,9 @@ def overlap_phase(fa, ex, trainlib, dev) -> dict:
         fa, trainlib, dev, TRAIN_ARGV + ["--overlap"]))
     for tag in ("step_serial", "step_overlap"):
         p = out[tag]["profile"]
-        log(f"  {tag}: device {p['device_ms']:.1f} ms in a "
-            f"{p['wall_ms']:.1f} ms window; ship/copy kernels: side stream "
+        log(f"  {tag}: a build's eager call: device {p['device_ms']:.1f} ms "
+            f"in a {p['wall_ms']:.1f} ms window (with the capture); "
+            f"ship/copy kernels: side stream "
             f"{p['side_ship_kernels']} (of {p['side_kernels']}, "
             f"{p['side_ms']:.1f} ms), main stream {p['main_ship_kernels']} "
             f"({p['main_ship_ms']:.1f} ms); side time under a main-stream "
@@ -2385,9 +2659,11 @@ def supervisor_phase(fa, trainlib, dev) -> dict:
     release()
     log(f"  drills: {json.dumps(out)}")
 
-    # the CLI's default command: the Supervisor
+    # the CLI's default command: the Supervisor, one round of the stream
+    # and two replayed steps
     t_cli = time.perf_counter()
     argv = [x for x in TRAIN_ARGV if x != "--no-supervised"]
+    argv[argv.index("--steps") + 1] = str(SUPERVISOR_STEPS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters(fa)
@@ -2400,14 +2676,21 @@ def supervisor_phase(fa, trainlib, dev) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched under the "
                                  f"Supervisor")
+    warm = len(sup.loader.compositions)
     out["cli_default"] = {
         "step_ms": [r.ms for r in sup.history],
         "losses": [r.loss for r in sup.history], "launches": launches,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "recompiles_after_warmup": hold_warm("supervisor", sup, warm),
+        "programs": step_programs(sup),
         "summary": {k: v for k, v in sup.summary().items()
                     if k in ("steps", "n_workers", "compiles", "events")}}
     if not all(np.isfinite(out["cli_default"]["losses"])):
         raise AssertionError("Supervisor losses not finite")
+    if sup.monitor.events:
+        raise AssertionError(f"the healthy Supervisor run recorded "
+                             f"{sup.monitor.events} (a build step's wall "
+                             f"demoted a worker?)")
     log(f"  supervisor CLI default steps: {time.perf_counter() - t_cli:.2f}s")
 
     # a checkpoint round trip of the full-width bf16 params + AdamW state,
@@ -2950,6 +3233,15 @@ LLAMA_TRAIN_WHY = (
     "tokens and their gradient (4.2 GB each); 3 layers peaked at 67.5 GiB "
     "under dots on an H100 80GB HBM3, a 4th would pass 70; the layers "
     "kept are at full width")
+LLAMA_INT8_EAGER_WHY = (
+    "the int8 wire's step programs do not fit beside the rest of the "
+    "script: alone in a process they captured and replayed (952.7 ms a "
+    "step, peak 67.46 GiB allocated, 77.81 GiB reserved with the pool "
+    "of the card's 79.18, on an H100 80GB HBM3 at 700 W), but after the "
+    "earlier phases the first capture ran out of memory (72.76 GiB "
+    "allocated, 8.19 GiB of them in the pool, a 3.91 GiB request with "
+    "3.38 GiB free), so this run steps eagerly; dots and nothing, the "
+    "same depth, are captured")
 LLAMA_GRAD_LAYERS = 1           # f32: both runs' gradients on the card
 LLAMA_GRAD_WHY = (
     "depth cut to fit the card: f32 weights and two runs' f32 gradients "
@@ -2987,11 +3279,14 @@ def llama_train_phase(fa, trainlib, dev) -> dict:
     (TOL_TRAIN_F32); (b) LLAMA_TRAIN_LAYERS deep, bf16: 3 fused steps
     (one more profiled) under each remat policy (``--remat-policy dots``,
     the default, then ``nothing``), one pallas step, and 3 fused steps
-    (one more profiled) with ``--comm-dtype int8``; every profile times
-    the fourth batch of the stream.  No phase here writes a checkpoint (a
+    (one more profiled) with ``--comm-dtype int8``; each after a round of
+    the stream's builds, every profile a replay of the same batch of the
+    stream.  No phase here writes a checkpoint (a
     2-layer state is about 45 GB)."""
     argv = model_argv(LLAMA_ARCH, LLAMA_TRAIN_LAYERS, 3)
     out = {"depth": {"n_layers": LLAMA_TRAIN_LAYERS, "why": LLAMA_TRAIN_WHY}}
+    log(f"  card memory before llama3's training: "
+        f"{json.dumps(card_memory())}")
     out["grad_check_f32"] = timed("llama3 f32 gradient check", lambda: {
         **train_grad_check(trainlib, dev, model_argv(LLAMA_ARCH, None, 3),
                            LLAMA_GRAD_LAYERS),
@@ -3008,7 +3303,8 @@ def llama_train_phase(fa, trainlib, dev) -> dict:
     out["pallas_step"] = timed("llama3 pallas step", lambda: train_pallas(
         fa, trainlib, dev, argv))
     r = timed("llama3 fused steps, int8 wire", lambda: train_steps(
-        fa, trainlib, dev, argv + ["--comm-dtype", "int8"], 3))
+        fa, trainlib, dev, argv + ["--comm-dtype", "int8"], 3,
+        eager_why=LLAMA_INT8_EAGER_WHY))
     out["int8_wire"] = step_summary(r)
     log(f"  llama3 int8 wire: {json.dumps(out['int8_wire'])} (f32 wire: "
         f"step_ms {out['dots']['step_ms']} device_ms "
@@ -3116,8 +3412,8 @@ def llama_phase(fa, ex, trainlib, dev, pcfg, scfg, plain_step) -> tuple:
     log(f"phase llama3 train: ok {time.perf_counter() - t0:.2f}s "
         f"{json.dumps(trained)}")
     t0 = time.perf_counter()
-    # 3 steps, then the profiled one: the train phase's step (the same
-    # batch), so the two profiles time the same plan
+    # a round and 3 steps, then the profiled one: the train phase's step
+    # (the same batch), so the two profiles time the same plan
     extra = {"stablelm_remat": {"dots": plain_step or step_summary(
         train_steps(fa, trainlib, dev, TRAIN_ARGV, 3))}}
     extra["stablelm_remat"]["nothing"] = step_summary(train_steps(
@@ -3139,6 +3435,22 @@ def release() -> None:
     import torch
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def card_memory() -> dict:
+    """What the allocator holds after ``release()``: allocated and
+    reserved GiB, and the graph pools' share of each (segments outside
+    the default pool, from ``torch.cuda.memory_snapshot()``)."""
+    import torch
+    release()
+    pools = [g for g in torch.cuda.memory_snapshot()
+             if tuple(g.get("segment_pool_id", (0, 0))) != (0, 0)]
+    return {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+            "pool_segments": len(pools),
+            "pool_reserved_gib": sum(g["total_size"] for g in pools) / 2**30,
+            "pool_allocated_gib": sum(g["allocated_size"]
+                                      for g in pools) / 2**30}
 
 
 def wall_ms(fn, n: int) -> float:
@@ -3442,6 +3754,7 @@ def main() -> int:
         log(f"phase train zamba2: ok {time.perf_counter() - t0:.2f}s "
             f"{json.dumps(trained['zamba2'])}")
         log(f"phase train: ok {time.perf_counter() - t_phase:.2f}s")
+        log(f"  card memory: {json.dumps(card_memory())}")
 
     # phase 5: the rest of the training path, beside the plain fused
     # step of the train phase (same call, same card)
@@ -3479,6 +3792,7 @@ def main() -> int:
             f"{json.dumps(sv)}")
         log(f"phase rest of the training path: ok "
             f"{time.perf_counter() - t_phase:.2f}s")
+        log(f"  card memory: {json.dumps(card_memory())}")
 
     # phase 6: pod meshes, beside the plain step of the train phase and
     # the 4x2 serving of phase 3 (same call, same card)
@@ -3520,6 +3834,7 @@ def main() -> int:
                 log(f"  library: {r['library']}")
         rows += pod_rows
         log(f"phase pods: ok {time.perf_counter() - t0:.2f}s on {card}")
+        log(f"  card memory: {json.dumps(card_memory())}")
 
     # phase 7: the vision-language and audio families at full width, head
     # dim 16 (internvl2's smoke config), the baseline CP policies
@@ -3554,6 +3869,7 @@ def main() -> int:
         log(f"phase policies: ok {time.perf_counter() - t1:.2f}s "
             f"{json.dumps(pol)}")
         log(f"phase multimodal: ok {time.perf_counter() - t0:.2f}s on {card}")
+        log(f"  card memory: {json.dumps(card_memory())}")
 
     # phase 8: llama3-70b, the remat policies, the quantized wires
     if "llama" in phases:
@@ -3567,6 +3883,7 @@ def main() -> int:
                 f"{json.dumps(r)}; stablelm "
                 f"{json.dumps(extra['stablelm_remat'][policy])}")
         log(f"phase llama3: ok {time.perf_counter() - t0:.2f}s on {card}")
+        log(f"  card memory: {json.dumps(card_memory())}")
 
     # the serving loop's programs against its eager methods, every served
     # configuration side by side

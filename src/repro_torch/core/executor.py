@@ -245,6 +245,15 @@ def _put(buf: torch.Tensor, idx: tuple, val: torch.Tensor,
     return buf.index_put(idx, val.to(buf.dtype))
 
 
+@functools.lru_cache(maxsize=None)
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The overlap loop's side stream, one per device for the process:
+    the caching allocator hands a freed block back only to its own
+    stream, so a new stream per call would strand each call's ship
+    buffers in a step program's graph pool."""
+    return torch.cuda.Stream(device)
+
+
 def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
                   cfg: ExecConfig = ExecConfig(),
                   layout: str = "stream") -> torch.Tensor:
@@ -333,7 +342,7 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
         vsrc = torch.cat([vs[:, :slots], zpad[:, :1]], dim=1)
         if q.is_cuda:
             main = torch.cuda.current_stream(q.device)
-            side = torch.cuda.Stream(q.device)
+            side = _side_stream(q.device)
             ready = torch.cuda.Event()
             ready.record(main)
             side.wait_event(ready)

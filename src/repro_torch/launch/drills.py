@@ -19,7 +19,8 @@ stacked workers: the kill and straggler drills of the reference's
   (at most ``checkpoint_every`` steps lost) while the prewarm thread
   verifies the survivor schedules, re-warms the full-fleet plans and
   stages the restored checkpoint; the rejoin re-hits the pre-shrink
-  plan keys with no plan miss and no step closure built after it, and
+  plan keys with no plan miss and no step program built after it (its
+  pre-shrink programs replay), and
   the survivor and post-rejoin losses and gradient norms match an
   uninterrupted run restored from the same checkpoint to
   ``REPLAY_TOL`` normalized.
@@ -217,11 +218,12 @@ def pod_drill(make_sup, tmp: pathlib.Path, *, total: int, fail_step: int,
            f"staged {pw['staged_step']} != {rec['resume_step'] - 1}")
 
     # rejoin: the pre-shrink plans re-hit; no plan miss and no step
-    # closure built after it
+    # program built after it
     s = sup.plan_cache.stats
     _check(rj["plan_keys_cached"] is True
            and s.misses == rj["plan_misses_before"]
-           and len(sup.compiled_at) == rj["compiles_before"],
+           and len(sup.compiled_at) == rj["compiles_before"]
+           and sup.builds() == rj["builds_before"],
            f"after rejoin: {s.to_dict()} {sup.compiled_at} {rj}")
     # the key contract: at full strength replan_key is the pre-shrink key
     key = elastic.replan_key(
@@ -255,6 +257,10 @@ def pod_drill(make_sup, tmp: pathlib.Path, *, total: int, fail_step: int,
             "resume_step": rec["resume_step"],
             "recovery_wall_s": rec["wall_s"], "rejoin_ms": rj["rejoin_ms"],
             "prewarm": pw, "replay_max_diff": max(diffs),
+            "rejoin": {"compiles_before": rj["compiles_before"],
+                       "compiles_after": len(sup.compiled_at),
+                       "builds_before": rj["builds_before"],
+                       "builds_after": sup.builds()},
             "steps_compared": len(got),
             "post_rejoin_steps": sum(p == p0 for _, p in got),
             "fleet_steps": [(r.step, r.pods, r.n_workers)

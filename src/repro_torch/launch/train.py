@@ -6,9 +6,15 @@ on the same plan; the SSM family plans no attention).
 ``build_train_step`` wires: FCP schedule -> attention closure over the
 stacked-worker executor -> model loss -> gradients (``torch.autograd``
 over the parameter leaves, the port's ``value_and_grad``) -> optional
-error-feedback bf16 compression -> AdamW.  PyTorch runs eagerly, so
-there is no ``jit`` to cache: the loops cache the attention closure and
-step function per plan key instead.
+error-feedback bf16 compression -> AdamW.  Where the reference jits the
+step once per plan key (``jit_train_step``, its parameters, moments and
+residuals donated), the loops wrap it once per plan key in a compiled
+program (``runtime/graphs.Program`` over :func:`step_on`): on the card
+one CUDA graph, captured at the key's first step and replayed at every
+later one, reading and updating the train state in place (:func:`held`;
+nothing may rebind those tensors).  Every step program of a loop shares
+one graph pool (``graphs.Pool``): a step's loss and gnorm are read on
+the host before the next step runs.
 
 Two loops, routed as the reference routes them: FCP runs with more than
 one CP worker and no model axis go through the fault-tolerant
@@ -63,6 +69,7 @@ from ..models import Model
 from ..optimizer import adamw, schedules
 from ..runtime import compression
 from ..runtime import elastic
+from ..runtime import graphs
 from ..runtime import health as health_mod
 from .mesh import StackedMesh, parse_mesh
 
@@ -226,10 +233,33 @@ def init_state(model: Model, tcfg: TrainConfig, device) -> TrainState:
         else None)
 
 
+def held(state: TrainState) -> tuple:
+    """The tensors a step program reads and updates in place (its
+    ``held``): the parameters, the AdamW moments and step counter, the
+    error-feedback residuals."""
+    return (state.params, state.opt.m, state.opt.v, state.opt.step,
+            state.residual)
+
+
+def reset_state(state: TrainState, model: Model, tcfg: TrainConfig,
+                device) -> None:
+    """``init_state``'s weights and zero moments, written into ``state``'s
+    tensors (the step programs hold them); the residuals are left as
+    they are."""
+    gen = torch.Generator(device=device).manual_seed(tcfg.seed)
+    with torch.no_grad():
+        for dst, src in zip(adamw.tree_leaves(state.params),
+                            adamw.tree_leaves(model.init(gen, device))):
+            dst.copy_(src)
+        for t in adamw.tree_leaves({"m": state.opt.m, "v": state.opt.v}):
+            t.zero_()
+        state.opt.step.zero_()
+
+
 def restore_state(manager: CheckpointManager, state: TrainState,
                   loader: SyntheticLoader) -> int:
     """Copy the newest intact committed checkpoint into ``state`` (in
-    place: the step closures hold no parameter) and rewind the loader
+    place: the step programs hold its tensors) and rewind the loader
     with it; returns the step to resume at."""
     tree, extra = manager.restore({"params": state.params,
                                    "opt": state.opt})
@@ -266,9 +296,11 @@ def value_and_grad(model: Model, pcfg: ParallelConfig, attn_fn):
 def build_train_step(model: Model, mesh, pcfg: ParallelConfig,
                      tcfg: TrainConfig, attn_fn: Callable | None):
     """``train_step(params, opt, residual, batch) -> (params, opt,
-    residual, loss, gnorm)``; the parameters and moments are updated in
-    place (``optimizer.adamw``).  ``mesh`` is kept for the reference's
-    signature: on stacked workers nothing is sharded."""
+    residual, loss, gnorm)``; the parameters, moments and residuals are
+    updated in place (``optimizer.adamw``, ``compression.compress_grads``)
+    and returned, the reference's donated buffers.
+    ``mesh`` is kept for the reference's signature: on stacked workers
+    nothing is sharded."""
     loss_and_grads = value_and_grad(model, pcfg, attn_fn)
 
     def train_step(params, opt, residual, batch):
@@ -286,6 +318,17 @@ def build_train_step(model: Model, mesh, pcfg: ParallelConfig,
         return params, opt, residual, loss, gnorm
 
     return train_step
+
+
+def step_on(train_step, state: TrainState):
+    """``train_step`` over ``state`` as ``fn(batch) -> (loss, gnorm)``,
+    the function a step program wraps (the loops' ``_program``: the
+    reference's ``jit_train_step``, called with ``held=held(state)``); it
+    reads and updates ``state``'s tensors in place."""
+    def fn(batch):
+        out = train_step(state.params, state.opt, state.residual, batch)
+        return out[3], out[4]
+    return fn
 
 
 def batch_arrays(b: Batch, cfg: ModelConfig, device="cuda",
@@ -364,8 +407,9 @@ class Trainer:
     """The plain training loop of the CLI (the reference's ``main`` loop
     without the ``Supervisor``): a plan cache with plan-ahead (batch
     t+1 is planned on a host thread while t runs), one attention
-    closure and step function per plan key, random weights from a
-    seeded ``torch.Generator``.  On a pod mesh (``"pod"`` axis P) the
+    closure and step program per plan key (``compiled_at`` lists the
+    steps that built one), random weights from a seeded
+    ``torch.Generator``.  On a pod mesh (``"pod"`` axis P) the
     loader emits P same-composition sub-streams and every pod runs the
     data axis's plan on its own frames.  ``attn_impl`` is the executor impl
     (default ``"fused"``: the kernels on the card).  With
@@ -401,6 +445,8 @@ class Trainer:
         self.layer_masks = layer_mask_specs(cfg, pcfg)
         self.group_masks = list(dict.fromkeys(self.layer_masks))
         self.step_cache: dict = {}
+        self.compiled_at: list[int] = []     # steps that built a program
+        self._pool = graphs.Pool(self.device)
         self.history: list[StepRecord] = []
         self.manager = (CheckpointManager(checkpoint_dir)
                         if checkpoint_dir else None)
@@ -421,10 +467,15 @@ class Trainer:
                                   seqlens, self.n_cp, self.tpw, mask=mask)
         return key, build
 
-    def step_fn(self, b: Batch, prefetch: bool = True):
-        """The step function of batch ``b``'s plan (planned, or taken
-        from the cache); prefetches the next batch's plan when
-        ``prefetch``.  An attention-free model (SSM) plans nothing."""
+    def _program(self, name: str, fn) -> graphs.Program:
+        """A step program in the loop's graph pool."""
+        return graphs.Program(name, fn, self.device, self._pool)
+
+    def step_fn(self, b: Batch, prefetch: bool = True) -> graphs.Program:
+        """The step program of batch ``b``'s plan (planned and built, or
+        taken from the cache; :func:`step_on`); prefetches the next
+        batch's plan when ``prefetch``.  An attention-free model (SSM)
+        plans nothing."""
         scheds: dict[MaskSpec, Schedule] = {}
         keys = []
         nxt = self.loader.peek_seqlens() if prefetch else None
@@ -439,11 +490,18 @@ class Trainer:
             attn = attention_closures(self.cfg, self.pcfg, self.layer_masks,
                                       self.group_masks, scheds, self.device,
                                       self.attn_impl, self.pods)
-            self.step_cache[key] = build_train_step(
-                self.model, self.mesh, self.pcfg, self.tcfg, attn)
+            self.step_cache[key] = self._program("train_step", step_on(
+                build_train_step(self.model, self.mesh, self.pcfg, self.tcfg,
+                                 attn), self.state))
+            self.compiled_at.append(self.next_step)
             while len(self.step_cache) > max(self.pcfg.plan_cache_size, 1):
                 self.step_cache.pop(next(iter(self.step_cache)))
         return self.step_cache[key]
+
+    def eager_step_fn(self, b: Batch):
+        """The eager step of batch ``b``'s plan, ``fn(batch) -> (loss,
+        gnorm)`` on this loop's state (its program's ``fn``)."""
+        return self.step_fn(b, prefetch=False).fn
 
     def step(self) -> StepRecord:
         t = self.next_step
@@ -452,8 +510,7 @@ class Trainer:
         fn = self.step_fn(b, prefetch=t + 1 < self.tcfg.total_steps)
         s = self.state
         t0 = time.perf_counter()
-        s.params, s.opt, s.residual, loss, gnorm = fn(
-            s.params, s.opt, s.residual, batch)
+        loss, gnorm = fn(batch, held=held(s))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         rec = StepRecord(t, float(loss), float(gnorm),
@@ -499,7 +556,7 @@ class Supervisor:
     train step:
 
     * **healthy path** — the plain loop's work (plan cache, plan-ahead,
-      a bounded step-closure cache) plus one device-synchronized wall
+      a bounded step-program cache) plus one device-synchronized wall
       clock per step (``executor.timed_call``).  The monitor's planning
       speeds stay ``None`` while healthy, so plan keys are those of a
       monitor-less run.
@@ -581,7 +638,8 @@ class Supervisor:
         nh, nkv = cfg.padded_heads(1)
         self._heads = (max(nh, 1), max(nkv, 1), max(cfg.head_dim, 1))
         self._step_cache: dict = {}
-        self.compiled_at: list[int] = []     # steps that built a closure
+        self.compiled_at: list[int] = []     # steps that built a program
+        self._pool = graphs.Pool(self.device)
         self.history: list[StepRecord] = []
         self.recoveries: list[dict] = []
         self.rejoins: list[dict] = []
@@ -651,18 +709,32 @@ class Supervisor:
                 self._group_key(seqlens, pods, n, m, speeds),
                 self._group_build(seqlens, pods, n, m, speeds))
 
-    def _step_fn(self, step: int, pods: int, n: int, keys: tuple, scheds):
+    def _program(self, name: str, fn) -> graphs.Program:
+        """A step program in the loop's graph pool."""
+        return graphs.Program(name, fn, self.device, self._pool)
+
+    def _step_fn(self, step: int, pods: int, n: int, keys: tuple,
+                 scheds) -> graphs.Program:
+        """The step program of ``(pods, n, keys)``, built at its first
+        step (``compiled_at``) and kept in a cache bounded by
+        ``plan_cache_size``, as the reference keeps its jitted steps."""
         ck = (pods, n, keys)
         if ck not in self._step_cache:
             attn = attention_closures(self.cfg, self.pcfg, self.layer_masks,
                                       self.group_masks, scheds, self.device,
                                       self.attn_impl, pods)
-            self._step_cache[ck] = build_train_step(
-                self.model, self._mesh(pods, n), self.pcfg, self.tcfg, attn)
+            self._step_cache[ck] = self._program("train_step", step_on(
+                build_train_step(self.model, self._mesh(pods, n), self.pcfg,
+                                 self.tcfg, attn), self.state))
             self.compiled_at.append(step)
             while len(self._step_cache) > max(self.pcfg.plan_cache_size, 1):
                 self._step_cache.pop(next(iter(self._step_cache)))
         return self._step_cache[ck]
+
+    def builds(self) -> int:
+        """Keys built by the cached step programs (one each: a plan key
+        fixes the batch's shapes)."""
+        return sum(p.builds for p in self._step_cache.values())
 
     # -- checkpointing -----------------------------------------------------
 
@@ -691,8 +763,7 @@ class Supervisor:
             self.manager.wait()
             if self.manager.latest_step() is not None:
                 return restore_state(self.manager, self.state, self.loader)
-        fresh = init_state(self.model, self.tcfg, self.device)
-        self.state.params, self.state.opt = fresh.params, fresh.opt
+        reset_state(self.state, self.model, self.tcfg, self.device)
         self.loader.state = LoaderState(step=0, seed=self.tcfg.seed)
         return 0
 
@@ -774,8 +845,7 @@ class Supervisor:
         if self.state.residual is not None:
             # EF residuals accumulate per-topology quantization error —
             # never reuse them across a resize
-            self.state.residual = compression.init_residuals(
-                self.state.params)
+            compression.reset_residuals(self.state.residual)
             rec["ef_reset"] = True
         resume = self._restore()
         rec.update(resume_step=resume, steps_lost=at - resume,
@@ -826,9 +896,8 @@ class Supervisor:
             fn = self._step_fn(step, pods, n, keys, scheds)
             if step + 1 < total:
                 self._prefetch(self.loader.peek_seqlens(), pods, n, speeds)
-            s = self.state
-            out, dt = ex.timed_call(fn, s.params, s.opt, s.residual, batch)
-            s.params, s.opt, s.residual, loss, gnorm = out
+            (loss, gnorm), dt = ex.timed_call(
+                functools.partial(fn, held=held(self.state)), batch)
             self.monitor.observe(
                 step, health_mod.per_worker_times(dt, nt, skew_vec))
             ev = self.monitor.maybe_replan(step)
@@ -934,13 +1003,12 @@ class Supervisor:
             self._prewarm.join()
             self._prewarm = None
         m0 = self.plan_cache.stats.misses
-        c0 = len(self.compiled_at)
+        c0, b0 = len(self.compiled_at), self.builds()
         self.pods, self.n = self.p0, self.n0
         self.monitor.resize(
             topology=health_mod.FleetTopology(self.p0, self.n0))
         if self.state.residual is not None:
-            self.state.residual = compression.init_residuals(
-                self.state.params)
+            compression.reset_residuals(self.state.residual)
         keys_cached = all(
             self._group_key(self.loader.peek_seqlens(), self.p0, self.n0,
                             m, None) in self.plan_cache
@@ -950,6 +1018,7 @@ class Supervisor:
             "rejoin_ms": (time.perf_counter() - t0) * 1e3,
             "plan_keys_cached": keys_cached,
             "plan_misses_before": m0, "compiles_before": c0,
+            "builds_before": b0,
             "prewarm": self._prewarm_info})
         if self.verbose:
             print(f"[supervisor] pod rejoin at step {step}: fleet back to "
@@ -1173,7 +1242,9 @@ def main(argv=None) -> Trainer | Supervisor:
     if isinstance(trainer, Supervisor):
         print(f"health: {len(out['events'])} event(s), "
               f"{len(out['recoveries'])} recover(ies), "
-              f"{out['compiles']} step closures built")
+              f"{out['compiles']} compiles")
+    else:
+        print(f"step programs: {len(trainer.compiled_at)} compiles")
     print("done.")
     return trainer
 

@@ -24,25 +24,29 @@ def init_residuals(params):
 
 
 def compress_grads(grads, residuals, fmt: wire.WireFormat = wire.WIRE_BF16):
-    """Returns ``(compressed grads, new residuals)``.  ``fmt`` must be a
-    scale-free wire format."""
+    """Returns ``(compressed grads, residuals)``, the new residuals written
+    into ``residuals`` (a step program holds them: the reference donates
+    them to its jitted step).  ``fmt`` must be a scale-free wire
+    format."""
     fmt = wire.coerce_wire(fmt)
     if fmt.scale_bytes:
         raise ValueError(
             f"EF-DCN compression needs a reducible (scale-free) wire "
             f"format, got {fmt} — per-group scales cannot be all-reduced")
+
     def one(g, r):
         g32 = g.to(torch.float32) + r
         gc, _ = wire.encode(g32, fmt)
-        return gc, g32 - wire.decode(gc, None, fmt, torch.float32)
+        with torch.no_grad():
+            r.copy_(g32 - wire.decode(gc, None, fmt, torch.float32))
+        return gc
+    return tree_map(one, grads, residuals), residuals
 
-    pairs = tree_map(one, grads, residuals)
 
-    def split(tree, i):
-        if isinstance(tree, dict):
-            return {k: split(v, i) for k, v in tree.items()}
-        return tree[i]
-    return split(pairs, 0), split(pairs, 1)
+def reset_residuals(residuals) -> None:
+    """Zero the residuals in place (a resize never reuses them)."""
+    with torch.no_grad():
+        tree_map(lambda r: r.zero_(), residuals)
 
 
 def decompress_grads(comp):
