@@ -196,6 +196,27 @@ Phases, each reported on its own line with its wall:
              the bf16 and int8 wires' gradient error against the f32
              wire's and their round bytes ratios, held to the
              reference's gates.  No phase here writes a checkpoint.
+9. ranks  — FCP across processes: the training CLI's plain loop under
+             ``python -m torch.distributed.run --standalone
+             --nproc-per-node 2`` with ``--dist-backend gloo --device
+             cuda:0`` (two ranks share the card, each holding 2 of the
+             4x1 mesh's 4 workers; its ships across ranks and its
+             reductions go through gloo, staged through the host; every
+             step eager), StableLM at full width and RANKS_LAYERS deep,
+             in one torchrun (``repro_torch.launch.ranks``, which runs the
+             CLI in each rank): 3 fused steps, its bf16 step-0 loss held to
+             BF16_FLOORS noise floors of the one-process stacked run of the
+             same arguments (``train_loss_check``), kernels 1, 3 and 4
+             launched in each rank (its counters), and each rank's bytes
+             on the wire each step equal to their pricing
+             (``wire.rank_wire_bytes``); the same with ``--attn-impl
+             pallas`` for one step (kernels 2, 5 and 6); at 4 layers, f32,
+             every leaf's summed gradient across the two ranks against
+             the stacked run's at TOL_GRAD, fused and pallas.  Then the
+             CLI in this process as the one rank of an NCCL group, 2
+             steps.  Each run's wall, each rank's step walls (and their
+             seconds in the ships and the sums) and peak memory, beside
+             the one-process eager run's.
 
 The line before the card's line is a JSON object with one entry per
 kernel, its StableLM main-path row at the top (kernel 2's at decode) and
@@ -3427,6 +3448,250 @@ def llama_phase(fa, ex, trainlib, dev, pcfg, scfg, plain_step) -> tuple:
     return served, trained, extra
 
 
+RANKS = 2                       # gloo ranks on the one card
+RANKS_LAYERS = 4                # of 24
+RANKS_WHY = ("depth cut for the run's time: every step runs eagerly, its "
+             "ships across ranks and its gradient sum through gloo's "
+             "loopback TCP (at 8 of 24 layers a step took 6.8-7.7 s, 5.7-7.1 "
+             "s of it in the ships and the sums, and the phase 157-212 s on "
+             "an H100 80GB HBM3 host at 700 W); two ranks on one card each "
+             "hold the whole model and its AdamW state; the layers kept are "
+             "at full width (d 2048, 32 heads of 64)")
+RANKS_GRAD_LAYERS = 4           # the f32 gradient check
+RANKS_ARGV = TRAIN_ARGV + ["--override", f"n_layers={RANKS_LAYERS}"]
+RANKED_FLAGS = ["--dist-backend", "gloo", "--device", "cuda:0"]
+RANKS_TIMEOUT = 420             # seconds a torchrun may take
+
+
+def torchrun(nproc: int, argv: list, what: str) -> float:
+    """``python -m torch.distributed.run --standalone`` of ``nproc``
+    ranks running ``argv`` (``-m module ...``) from the repository root
+    (the training CLI's ranks: ``repro_torch.launch.ranks``, which load
+    the kernels this process built: ``kernels/build.py``'s stamp);
+    raises with the ranks' last output on a failure.  Returns its wall."""
+    env = dict(os.environ,
+               PYTHONPATH=os.path.join(ROOT, "src") + (
+                   os.pathsep + os.environ["PYTHONPATH"]
+                   if os.environ.get("PYTHONPATH") else ""))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", *argv]
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=RANKS_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"ranks {what}: no end after {RANKS_TIMEOUT} "
+                             f"s") from e
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"ranks {what}: exit {out.returncode}\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
+    return wall
+
+
+def rank_reports(out_dir: str, nproc: int) -> list:
+    reps = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reps.append(json.load(f))
+    return reps
+
+
+def nccl_one_rank(fa, trainlib, argv: list) -> dict:
+    """The training CLI in this process as the one rank of an NCCL group
+    (torchrun's environment set around it): its trainer's report."""
+    import socket
+    import torch
+    from repro_torch.runtime import wire
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(fa)
+    wire.reset_wire_stats()
+    t0 = time.perf_counter()
+    try:
+        tr = trainlib.main(argv + ["--dist-backend", "nccl", "--device",
+                                   "cuda"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    report = tr.report(wall)
+    del tr
+    release()
+    return {"wall_s": wall, "reports": [report]}
+
+
+def ranks_pricing(trainlib, argv, steps: int, nproc: int) -> list:
+    """Each rank's bytes on the wire for each of the first ``steps``
+    batches of ``argv``'s stream, priced from the plans a one-process run
+    makes (``wire.rank_wire_bytes``): every layer's forward ships
+    twice (the forward, and its recompute under remat), its backward
+    once."""
+    from repro_torch.runtime import wire
+    tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
+    try:
+        cfg, pcfg = tr.cfg, tr.pcfg
+        nh, nkv = cfg.padded_heads(1)
+        in_b = trainlib.param_dtype_bytes(cfg)
+        out_b = 2 if pcfg.attn_out_bf16 else 4
+        priced = []
+        for _ in range(steps):
+            b = tr.loader.next()
+            spec = trainlib.build_schedule(cfg, pcfg, b.seqlens, tr.n_cp,
+                                           tr.tpw, mask=tr.group_masks[0]
+                                           ).spec
+            row = []
+            for r in range(nproc):
+                fwd, bwd = wire.rank_wire_bytes(
+                    spec, wire.Ranks(nproc, r, "gloo"), nh, nkv,
+                    cfg.head_dim, in_b, out_b)
+                row.append(cfg.n_layers * (2 * fwd + bwd))
+            priced.append(row)
+    finally:
+        tr.close()
+    del tr
+    release()
+    return priced
+
+
+def hold_ranked(tag: str, run: dict, kernels: tuple, priced: list | None,
+                loss_ref: dict | None, card: str) -> dict:
+    """A ranked run's checks: finite losses the same on every rank, each
+    kernel of its path launched in each rank, each rank's bytes on the
+    wire each step equal to ``priced``, and its step-0 loss within
+    BF16_FLOORS noise floors of the one-process run's (``loss_ref``)."""
+    reps = run["reports"]
+    losses = [[x["loss"] for x in r["records"]] for r in reps]
+    if not (all(np.isfinite(losses[0])) and all(x == losses[0]
+                                                 for x in losses)):
+        raise AssertionError(f"ranks {tag}: losses {losses}")
+    for r in reps:
+        for name in kernels:
+            if r["launches"][name] <= 0:
+                raise AssertionError(f"ranks {tag}: {name} never launched "
+                                     f"in rank {r['rank']}")
+    sent = [[x["sent_bytes"] for x in r["records"]] for r in reps]
+    if priced is not None:
+        want = [[row[r] for row in priced[:len(sent[r])]]
+                for r in range(len(reps))]
+        if sent != want:
+            raise AssertionError(f"ranks {tag}: bytes on the wire {sent} "
+                                 f"against their pricing {want}")
+    out = {"wall_s": run["wall_s"], "losses": losses[0],
+           "step_ms": [[x["ms"] for x in r["records"]] for r in reps],
+           "ship_s": [[x["ship_s"] for x in r["records"]] for r in reps],
+           "reduce_s": [[x["reduce_s"] for x in r["records"]]
+                        for r in reps],
+           "peak_mem_gib": [r["peak_mem_gib"] for r in reps],
+           "sent_bytes": sent,
+           "launches": [{n: r["launches"][n] for n in kernels}
+                        for r in reps],
+           "backend": reps[0]["backend"],
+           "frames": [r["frames"] for r in reps]}
+    if loss_ref is not None:
+        diff = abs(losses[0][0] - loss_ref["kernels"])
+        out["step0_vs_stacked"] = {"ranked": losses[0][0],
+                                   "stacked": loss_ref["kernels"],
+                                   "diff": diff,
+                                   "noise_floor": loss_ref["noise_floor"]}
+        if not diff <= BF16_FLOORS * loss_ref["noise_floor"]:
+            raise AssertionError(
+                f"ranks {tag}: step-0 loss {losses[0][0]} against the "
+                f"stacked run's {loss_ref['kernels']}: {diff:.3e} > "
+                f"{BF16_FLOORS} x the noise floor "
+                f"{loss_ref['noise_floor']:.3e}")
+    def rounded(key, n):
+        return [[round(x, n) for x in r] for r in out[key]]
+    log(f"  ranks {tag}: wall {out['wall_s']:.1f} s, step ms per rank "
+        f"{rounded('step_ms', 1)} (in the ships across ranks s "
+        f"{rounded('ship_s', 2)}, in the sums over the ranks s "
+        f"{rounded('reduce_s', 2)}), peak GiB "
+        f"per rank {[round(x, 2) for x in out['peak_mem_gib']]}, bytes on "
+        f"the wire per rank and step {sent}; on {card}")
+    return out
+
+
+def stacked_eager_steps(trainlib, argv, steps: int) -> dict:
+    """The one-process stacked run of ``argv``, every step eager
+    (``EagerSteps``, as the ranked steps run): the walls, losses and peak
+    the ranked runs are set beside."""
+    import torch
+    tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
+    tr._program = EagerSteps()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        recs = tr.run(steps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        tr.close()
+    del tr
+    release()
+    return {"step_ms": [r.ms for r in recs], "losses": [r.loss for r in recs],
+            "peak_mem_gib": peak}
+
+
+def ranks_phase(fa, trainlib, dev, card: str) -> dict:
+    """Phase 9 (module docstring): one torchrun of two gloo ranks for the
+    fused run, the pallas run and the gradient check
+    (``repro_torch.launch.ranks``), then the one-rank NCCL run here."""
+    import shutil
+    release()
+    out = {"depth": {"n_layers": RANKS_LAYERS, "why": RANKS_WHY}}
+    out["stacked_bf16_step0_loss"] = ref = timed(
+        "ranks stacked loss check", lambda: train_loss_check(
+            trainlib, dev, RANKS_ARGV))
+    out["stacked_eager"] = st = timed(
+        "ranks stacked eager steps", lambda: stacked_eager_steps(
+            trainlib, RANKS_ARGV, 3))
+    log(f"  ranks stacked (one process, eager): step ms "
+        f"{[round(x, 1) for x in st['step_ms']]}, losses {st['losses']}, "
+        f"peak {st['peak_mem_gib']:.2f} GiB; on {card}")
+    priced = ranks_pricing(trainlib, RANKS_ARGV, 3, RANKS)
+    out_dir = os.path.join(BUILD, "ranks")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    wall = torchrun(RANKS, [
+        "-m", "repro_torch.launch.ranks", "--out", out_dir, "--runs",
+        "fused:3,pallas:1", "--grad-layers", str(RANKS_GRAD_LAYERS), "--",
+        *RANKS_ARGV, *RANKED_FLAGS], "gloo")
+    out["torchrun_wall_s"] = wall
+    log(f"  ranks torchrun (2 gloo ranks: fused, pallas, gradient check): "
+        f"wall {wall:.1f} s")
+    for impl, kernels, loss_ref in (("fused", PATH_KERNELS["fused"], ref),
+                                    ("pallas", PATH_KERNELS["pallas"], None)):
+        reps = rank_reports(os.path.join(out_dir, impl), RANKS)
+        out[impl] = hold_ranked(
+            f"gloo {impl}", {"wall_s": reps[0]["wall_s"], "reports": reps},
+            kernels, priced, loss_ref, card)
+    with open(os.path.join(out_dir, "grads.json")) as f:
+        grads = json.load(f)
+    for impl in ("fused", "pallas"):
+        r = grads[impl]
+        if not (r["finite"] and r["max_leaf_err"] <= TOL_GRAD):
+            raise AssertionError(
+                f"ranks f32 gradients ({impl}, {RANKS_GRAD_LAYERS} layers) "
+                f"against the stacked run: max leaf err "
+                f"{r['max_leaf_err']:.3e} > {TOL_GRAD}")
+    out["grad_check_f32"] = grads
+    log(f"  ranks f32 gradients vs stacked: {json.dumps(grads)}")
+    nccl = [x for x in RANKS_ARGV]
+    nccl[nccl.index("--steps") + 1] = "2"
+    out["nccl_one_rank"] = hold_ranked("nccl one rank", nccl_one_rank(
+        fa, trainlib, nccl), PATH_KERNELS["fused"], None, ref, card)
+    return out
+
+
 def release() -> None:
     """Free what a phase left on the card before the next one measures its
     peak: reference cycles first (the serve phase's spied method, a
@@ -3570,7 +3835,8 @@ def check_tensor_cores(counts: dict) -> None:
 
 
 # what ``--phases`` may name (the build always runs)
-PHASES = ("kernels", "serve", "train", "rest", "pods", "multimodal", "llama")
+PHASES = ("kernels", "serve", "train", "rest", "pods", "multimodal", "llama",
+          "ranks")
 
 
 def parse_phases(argv) -> tuple:
@@ -3611,6 +3877,9 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
 
+    # the build is made and timed here from the checkout's sources,
+    # whatever an earlier run left in build/kernels
+    build.STAMP.unlink(missing_ok=True)
     secs = build.LIBRARIES.build()
     log(f"phase build: ok {secs:.2f}s (each source's nvcc: " + ", ".join(
         f"{n} {t:.1f}s" for n, t in build.LIBRARIES.source_seconds.items())
@@ -3885,6 +4154,16 @@ def main() -> int:
         log(f"phase llama3: ok {time.perf_counter() - t0:.2f}s on {card}")
         log(f"  card memory: {json.dumps(card_memory())}")
 
+    # phase 9: FCP across processes (two gloo ranks on the card, and a
+    # one-rank NCCL group)
+    ranked = None
+    if "ranks" in phases:
+        t0 = time.perf_counter()
+        ranked = ranks_phase(fa, trainlib, dev, card)
+        log(f"phase ranks: ok {time.perf_counter() - t0:.2f}s on {card} "
+            f"{json.dumps(ranked)}")
+        log(f"  card memory: {json.dumps(card_memory())}")
+
     # the serving loop's programs against its eager methods, every served
     # configuration side by side
     pod_served = ([("stablelm pods 2x2x2", pods["serve"]["full_depth_bf16"])]
@@ -3946,6 +4225,12 @@ def main() -> int:
                                "shapes": []}
             kernels.append(seen[r["name"]])
         seen[r["name"]]["shapes"].append(entry)
+    # the ranked path's own counts: each rank's launches over its run
+    for k in kernels:
+        for tag in ("fused", "pallas"):
+            if k["name"] in ranked[tag]["launches"][0]:
+                k["launches_ranks"] = [x[k["name"]]
+                                       for x in ranked[tag]["launches"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,13 +22,18 @@ import torch
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """The device an entry point runs on.  ``"cuda"`` (the default)
-    raises when no CUDA device is present — the port never falls back
-    to the CPU on its own; callers that want the CPU (the tests) say
-    so with ``device="cpu"``."""
+    raises when no CUDA device is present, and ``"cuda:N"`` when card N
+    is not — the port never falls back to the CPU or another card on
+    its own; callers that want the CPU (the tests) say so with
+    ``device="cpu"``."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch entry points run on a CUDA device by default and "
             "none is available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
+    if dev.type == "cuda" and (dev.index or 0) >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"no CUDA device {dev} (this machine has "
+            f"{torch.cuda.device_count()})")
     return dev

@@ -10,10 +10,10 @@ recast for PyTorch on stacked workers).
   ``StaticSpec`` and ``plan_key``).
 * **static-argument lint** — every type that keys the plan cache or the
   memoized executor tables (``ExecConfig``, ``StaticSpec`` and its
-  members, ``MaskSpec``, ``WireFormat``: ``schedule_tables`` and the
-  train loops' step caches look them up) must be a frozen dataclass and
-  hashable, or a lookup dies (or misses) in whatever path first passes
-  one.
+  members, ``MaskSpec``, ``WireFormat``, ``Ranks``: ``schedule_tables``
+  and the train loops' step caches look them up) must be a frozen
+  dataclass and hashable, or a lookup dies (or misses) in whatever path
+  first passes one.
 * **ship-bypass lint** — cross-worker data moves only through
   ``runtime/wire.py``: no other module touches its private ``_ship`` /
   ``_Ship`` (which skip the wire format's codec and its differentiable
@@ -140,13 +140,14 @@ def static_arg_samples() -> list[tuple[type, Callable[[], object]]]:
     from ..core.executor import ExecConfig
     from ..core.schedule import CommGroup, CommRound, StaticSpec
     from ..masks import MaskSpec
-    from ..runtime.wire import WireFormat
+    from ..runtime.wire import Ranks, WireFormat
 
     group = CommGroup(perm=((0, 1),), rows=1)
     return [
         (MaskSpec, MaskSpec),
         (WireFormat, WireFormat),
         (ExecConfig, ExecConfig),
+        (Ranks, lambda: Ranks(2, 1, "gloo")),
         (CommGroup, lambda: group),
         (CommRound, lambda: CommRound(groups=(group,))),
         (StaticSpec, lambda: StaticSpec(

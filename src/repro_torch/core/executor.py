@@ -67,6 +67,17 @@ the same n-worker schedule on its own frames, ships never cross a pod,
 and one launch of each kernel still covers every frame.  The replicated
 block metadata (``blk_seg``/``blk_pos``) is shared: every pod packs the
 same composition.
+
+**Ranks.**  ``schedule_tables(sched, device, ranks=r)`` in a process
+group of R ranks returns this rank's rows of every per-worker table (its
+frames, ``Ranks.share``) and all of the replicated ones: the reference's
+``P(cp_axis)`` against ``P()`` split.  :func:`fcp_attention` then runs
+on the rank's frames with local indices everywhere, and hands each ship
+the plan's global pairs (``runtime/wire.ship`` moves the pairs that
+cross ranks through ``torch.distributed``).  The overlap loop, the
+schedule layout and :func:`fcp_reshuffle` refuse a rank split for now
+(ROADMAP Queue A).  ``runtime.wire.rank_wire_bytes`` prices what a
+rank sends.
 """
 
 from __future__ import annotations
@@ -133,12 +144,13 @@ def pod_perm(perm: tuple, n: int, pods: int) -> tuple:
                  for s, d in perm)
 
 
-def schedule_tables(sched: Schedule, device, pods: int = 1) -> dict:
+def schedule_tables(sched: Schedule, device, pods: int = 1,
+                    ranks: wirelib.Ranks = wirelib.STACKED) -> dict:
     """Device tables for :func:`fcp_attention`, memoized on the schedule
-    (per device and pod count): plan-cache hits return the same
-    ``Schedule``, so repeated batches reuse the uploaded tables.
-    ``pods`` > 1 tiles every per-worker table over the pods (module
-    docstring).
+    (per device, pod count and rank split): plan-cache hits return the
+    same ``Schedule``, so repeated batches reuse the uploaded tables.
+    ``pods`` > 1 tiles every per-worker table over the pods; ``ranks`` in
+    a process group keeps this rank's frames of them (module docstring).
 
     Beyond the raw :class:`PlanArrays`, the memo holds what the kernels
     read per run, sliced contiguous once: the run's step tables and the
@@ -151,20 +163,28 @@ def schedule_tables(sched: Schedule, device, pods: int = 1) -> dict:
     pods = int(pods)
     if pods < 1:
         raise ValueError(f"pods must be >= 1, got {pods}")
+    if ranks.grouped and pods > 1:
+        raise ValueError("pods across ranks are not supported yet (ROADMAP "
+                         "Queue A: the Supervisor and pods across ranks)")
     memo = sched._device_tables
     if memo is None:
         memo = sched._device_tables = {}
-    key = (str(device), pods)
+    spec, arr = sched.spec, sched.arrays
+    frames = ranks.share(spec.n_workers * pods)
+    key = (str(device), pods, ranks)
     if key in memo:
         return memo[key]
-    spec, arr = sched.spec, sched.arrays
     if pods > 1:
         arr = dataclasses.replace(arr, **{
             f.name: np.tile(getattr(arr, f.name),
                             (pods,) + (1,) * (getattr(arr, f.name).ndim - 1))
             for f in dataclasses.fields(arr) if f.name not in _SHARED})
+    if frames != (0, spec.n_workers * pods):
+        arr = dataclasses.replace(arr, **{
+            f.name: getattr(arr, f.name)[frames[0]:frames[1]]
+            for f in dataclasses.fields(arr) if f.name not in _SHARED})
     t = plan_tables(arr, device)
-    N = spec.n_workers * pods
+    N = frames[1] - frames[0]
     wk = torch.arange(N, device=device)
     t["q_seg"] = t["blk_seg"][t["sched_blk"].long()]      # [N, SL, bs]
     t["q_pos"] = t["blk_pos"][t["sched_blk"].long()]
@@ -204,6 +224,7 @@ def schedule_tables(sched: Schedule, device, pods: int = 1) -> dict:
     t["runs"] = runs
     t["workers"] = wk[:, None]
     t["pods"] = pods
+    t["ranks"], t["frames"] = ranks, frames
     memo[key] = t
     return t
 
@@ -211,15 +232,22 @@ def schedule_tables(sched: Schedule, device, pods: int = 1) -> dict:
 def _check_frames(n_frames: int, tpw: int, spec: StaticSpec, tables: dict,
                   what: str) -> int:
     """The pod count of ``n_frames`` stacked frames against the plan's
-    workers and the tables' pods."""
-    pods = tables["pods"]
-    if (n_frames != spec.n_workers * pods
-            or tpw != spec.slots * spec.block_size):
+    workers, the tables' pods and the frames this rank holds."""
+    pods, (lo, hi), ranks = tables["pods"], tables["frames"], tables["ranks"]
+    if n_frames != hi - lo or tpw != spec.slots * spec.block_size:
+        held = (f", frames {lo}-{hi - 1} on rank {ranks.rank} of "
+                f"{ranks.size}" if ranks.grouped else "")
         raise ValueError(
             f"{what} does not match the plan ({pods} pod(s) x "
             f"{spec.n_workers} workers x {spec.slots * spec.block_size} "
-            f"tokens)")
+            f"tokens{held})")
     return pods
+
+
+def _refuse_ranks(tables: dict, what: str) -> None:
+    if tables["ranks"].grouped:
+        raise ValueError(f"{what} across ranks is not supported yet "
+                         f"(ROADMAP Queue A)")
 
 
 def _gather_rows(buf: torch.Tensor, idx: torch.Tensor,
@@ -278,13 +306,19 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
     fmt = spec.wire
     t = tables
     wk = t["workers"]
+    ranks = t["ranks"]
+    if spec.overlap and spec.n_rounds > 0:
+        _refuse_ranks(t, "the double-buffered round loop (--overlap)")
+    if layout == "sched":
+        _refuse_ranks(t, "the layer pipeline (layout='sched')")
     # in-place writes only when no gradient flows (module docstring)
     inplace = not (torch.is_grad_enabled()
                    and (q.requires_grad or k.requires_grad
                         or v.requires_grad))
 
     def ship(payload, perm):
-        return wirelib.ship(payload, pod_perm(perm, n, pods), fmt)
+        # global pairs; this rank's frames (the tables' local rows)
+        return wirelib.ship(payload, pod_perm(perm, n, pods), fmt, ranks)
 
     # stream layout -> [N, slots, heads, bs, d] (head-leading kernel layout)
     def frame(x, h):
@@ -456,6 +490,7 @@ def fcp_reshuffle(x: torch.Tensor, tables: dict, *, spec: StaticSpec,
     bs, slots = spec.block_size, spec.slots
     N, tpw, C = x.shape
     pods = _check_frames(N, tpw, spec, tables, f"x {tuple(x.shape)}")
+    _refuse_ranks(tables, "the layer-pipelined reshuffle (fcp_reshuffle)")
     t, wk = tables, tables["workers"]
     inplace = not (torch.is_grad_enabled() and x.requires_grad)
     xf = x.reshape(N, slots, 1, bs, C)

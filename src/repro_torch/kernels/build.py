@@ -6,15 +6,20 @@ root; a source with two entry points (``SPLIT``) compiles once per entry
 (``-DFCP_ENTRY=1``, ``2``), all at once, and its two objects link into
 the one library.  The interface is plain C: every pointer and the stream travel as
 ``c_void_p``, and each entry point returns ``cudaGetLastError()``.
-The libraries are rebuilt from the sources the first time a process
-asks for them, so a stale build is never loaded.  Building through
-``torch.utils.cpp_extension`` is avoided on purpose: sources that
-include PyTorch's headers take minutes to compile, these take seconds.
+The first time a process asks for the libraries it loads the ones in
+``build/kernels`` if their stamp, the digest of everything that goes into
+them (every file of ``csrc``, the flags, ``nvcc``'s path and its
+``--version``), is that of the checkout; else it rebuilds them all and
+writes the stamp after the last one, so a stale build is never loaded
+(the ranks of a ``torchrun`` load what their parent built).  Building through ``torch.utils.cpp_extension`` is avoided on purpose:
+sources that include PyTorch's headers take minutes to compile, these
+take seconds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -25,6 +30,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+STAMP = BUILD_DIR / "stamp"       # the digest the libraries were built at
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -34,6 +40,18 @@ SOURCES = ("fused_flash_fwd", "flash_attention_fwd", "fused_flash_bwd_dq",
 # the sources whose two entry points compile apart (their nvcc took
 # 41-43 s and 59-71 s whole on an H100 host, the others 21-32 s)
 SPLIT = ("flash_attention_fwd", "flash_attention_bwd")
+
+
+def sources_digest(nvcc: str) -> str:
+    """The build's identity: every file of ``csrc``, the flags, and the
+    compiler (``nvcc``'s path and what its ``--version`` prints)."""
+    version = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, check=True).stdout
+    h = hashlib.sha256(repr((NVCC_FLAGS, SPLIT, SOURCES, nvcc,
+                             version)).encode())
+    for f in sorted(CSRC.iterdir()):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return h.hexdigest()
 
 
 def nvcc_path() -> str:
@@ -70,6 +88,12 @@ class _Libraries:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
         t0 = time.perf_counter()
+        digest = sources_digest(nvcc)
+        if (STAMP.exists() and STAMP.read_text() == digest
+                and all((BUILD_DIR / f"lib{n}.so").exists()
+                        for n in SOURCES)):
+            self.build_seconds = time.perf_counter() - t0
+            return
 
         def private(suffix):
             # compile to a private name, then rename: concurrent builders
@@ -116,6 +140,7 @@ class _Libraries:
         for w in workers:
             w.join()
         failed = []
+        STAMP.unlink(missing_ok=True)
         for name, tmp in tmps.items():
             if oks.get(name):
                 os.replace(tmp, BUILD_DIR / f"lib{name}.so")
@@ -126,6 +151,9 @@ class _Libraries:
             raise RuntimeError(
                 "nvcc failed for " + ", ".join(failed) + ":\n"
                 + "\n".join(self.build_log[n] for n in failed))
+        tmp = private(".stamp")
+        Path(tmp).write_text(digest)
+        os.replace(tmp, STAMP)
         self.build_seconds = time.perf_counter() - t0
 
     def get(self, name: str) -> ctypes.CDLL:

@@ -12,9 +12,18 @@ frames, pod-major (frame ``p * D + w`` is worker ``w`` of pod ``p``, as
 every pod runs the same D-worker FCP plan on its own D frames: the
 reference's frames shard over ``("pod", "data")`` with the schedule
 tables replicated over ``pod``.
+
+**Ranks.**  Under a ``torch.distributed`` process group of R ranks
+(``ranks``, a :class:`~repro_torch.runtime.wire.Ranks`), rank r holds
+the frames ``[r·D/R, (r+1)·D/R)`` of the data axis on its own device
+(:attr:`StackedMesh.frames`); R = D is the reference's layout, one
+worker per device.  R must divide D, and a pod axis under ranks is
+refused (ROADMAP Queue A: the Supervisor and pods across ranks).
 """
 
 from __future__ import annotations
+
+from ..runtime.wire import STACKED, Ranks
 
 
 class StackedMesh:
@@ -23,7 +32,7 @@ class StackedMesh:
     ``jax.sharding.Mesh.shape`` does.  Without ``axes``, two sizes name
     ``("data", "model")`` and three ``("pod", "data", "model")``."""
 
-    def __init__(self, shape, axes=None):
+    def __init__(self, shape, axes=None, ranks: Ranks = STACKED):
         shape = tuple(int(s) for s in shape)
         if axes is None:
             axes = (("data", "model") if len(shape) == 2
@@ -35,18 +44,42 @@ class StackedMesh:
             raise ValueError(f"duplicate mesh axes {axes}")
         self.axis_names = axes
         self.shape = dict(zip(axes, shape))
+        self.ranks = ranks
+        if ranks.grouped:
+            if "pod" in self.shape:
+                raise ValueError(
+                    "a pod axis across ranks is not supported yet (ROADMAP "
+                    "Queue A: the Supervisor and pods across ranks)")
+            if self.shape.get("data", 1) % ranks.size:
+                raise ValueError(
+                    f"{ranks.size} ranks do not divide the data axis "
+                    f"({self.shape.get('data', 1)} CP workers)")
+
+    def with_ranks(self, ranks: Ranks) -> "StackedMesh":
+        """The same axes split over ``ranks``."""
+        return StackedMesh(tuple(self.shape.values()), self.axis_names,
+                           ranks)
+
+    @property
+    def frames(self) -> tuple[int, int]:
+        """The frame range ``[lo, hi)`` of :func:`stacked_frames` this
+        process holds (all of them without a process group)."""
+        return self.ranks.share(stacked_frames(self))
 
     @property
     def pods(self) -> int:
         return self.shape.get("pod", 1)
 
     def __repr__(self) -> str:
+        if self.ranks.grouped:
+            return f"StackedMesh({self.shape}, {self.ranks})"
         return f"StackedMesh({self.shape})"
 
 
 def stacked_frames(mesh) -> int:
     """The stacked CP frames of a mesh: pods x data workers (the
-    reference shards prefill and training frames over both)."""
+    reference shards prefill and training frames over both), over all
+    ranks."""
     return mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
 
 

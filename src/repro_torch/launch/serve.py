@@ -36,6 +36,7 @@ from ..configs.base import (ModelConfig, ParallelConfig, apply_overrides,
 from ..core import executor as ex
 from ..models import Model
 from ..models.registry import RECURRENT
+from ..runtime import wire
 from .train import (build_schedule, make_fcp_attn_fn,  # noqa: F401
                     param_dtype_bytes)
 
@@ -189,6 +190,11 @@ def main(argv=None):
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
     args = p.parse_args(argv)
+    env = wire.launch_env()
+    if env is not None and env["size"] > 1:
+        raise ValueError("serving across ranks is not supported yet "
+                         "(ROADMAP Queue A: serving and decode across "
+                         "ranks); run the serve CLI in one process")
     dev = resolve_device(args.device)
 
     from .mesh import parse_mesh

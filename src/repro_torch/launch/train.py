@@ -31,6 +31,23 @@ gradient reduction is the loss over all P·D frames; with
 ``TrainConfig.grad_compression`` its gradient tree takes the
 error-feedback bf16 compression, as the reference's does.
 
+**Across processes.**  Under ``torchrun`` (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``) the plain :class:`Trainer` joins a process group of R
+ranks (``--dist-backend nccl``, the default, or ``gloo``) and rank r
+holds the frames ``[r·D/R, (r+1)·D/R)`` of the ``DxM`` mesh's data axis
+on its own device (``--device cuda`` is ``cuda:LOCAL_RANK``).  Every
+rank draws the same global batch and plans the same schedule; it
+computes on its own frames (``core.executor`` ships the pairs that cross
+ranks through ``runtime/wire``), its loss is its frames' summed token
+loss over the whole batch's token count, and the step sums the loss and
+the gradients over the ranks in one flat bucket before the compression
+and AdamW, as the reference's gradients arrive reduced over its data
+axis.  The weights and moments are replicated: every rank updates the
+same bytes (``wire.agree`` checks the parameters at the start and each
+new plan key).  Rank 0 prints the records and writes the checkpoints.
+The Supervisor, pods, ``--overlap``, ``--layer-pipeline`` and the
+non-dense families are refused across ranks (ROADMAP Queue A).
+
 ``--attn-impl`` takes the reference's four names (``core.executor``):
 ``fused`` (the default here: CUDA kernels 1, 3 and 4), ``pallas``
 (kernels 2, 5 and 6), and ``fused_xla`` / ``xla`` (the same groupings
@@ -64,6 +81,7 @@ from ..core import executor as ex
 from ..core import plan_cache as pc
 from ..core.schedule import Schedule, make_schedule
 from ..data.loader import Batch, LoaderState, SyntheticLoader
+from ..kernels import flash_attention as fa
 from ..masks import MaskSpec, coerce_mask, parse_mask
 from ..models import Model
 from ..optimizer import adamw, schedules
@@ -71,18 +89,21 @@ from ..runtime import compression
 from ..runtime import elastic
 from ..runtime import graphs
 from ..runtime import health as health_mod
+from ..runtime import wire as wirelib
 from .mesh import StackedMesh, parse_mesh
 
 
 def make_fcp_attn_fn(sched: Schedule, device, pcfg: ParallelConfig,
-                     impl: str = "fused", pods: int = 1) -> Callable:
+                     impl: str = "fused", pods: int = 1,
+                     ranks: wirelib.Ranks = wirelib.STACKED) -> Callable:
     """``attn(q, k, v)`` over ``[F, T, H, D]`` frames through the FCP
     executor on stacked workers (frame = worker; ``F = pods x`` the
-    plan's workers, pod-major), with the executor impl ``impl``.
+    plan's workers, pod-major, or this rank's share of them under
+    ``ranks``), with the executor impl ``impl``.
     ``pcfg.attention_impl`` is not read: the copied ``ParallelConfig``
     defaults it to the reference's ``"xla"``, and the port's default is
     the kernels."""
-    tables = ex.schedule_tables(sched, device, pods)
+    tables = ex.schedule_tables(sched, device, pods, ranks)
     cfg_exec = ex.ExecConfig(
         impl=impl,
         out_dtype="bfloat16" if pcfg.attn_out_bf16 else None)
@@ -278,7 +299,8 @@ def restore_state(manager: CheckpointManager, state: TrainState,
 def value_and_grad(model: Model, pcfg: ParallelConfig, attn_fn):
     """``fn(params, batch) -> (loss, grads)``: the model loss and its
     gradient for every parameter leaf (``torch.autograd.grad``; leaves
-    that do not require grad yet are switched on)."""
+    that do not require grad yet are switched on).  On a rank's frames
+    both are this rank's share, to be summed over the ranks."""
     remat = pcfg.remat_policy if pcfg.remat else False
 
     def fn(params, batch):
@@ -299,15 +321,23 @@ def build_train_step(model: Model, mesh, pcfg: ParallelConfig,
     residual, loss, gnorm)``; the parameters, moments and residuals are
     updated in place (``optimizer.adamw``, ``compression.compress_grads``)
     and returned, the reference's donated buffers.
-    ``mesh`` is kept for the reference's signature: on stacked workers
-    nothing is sharded."""
+    On stacked workers nothing is sharded.  A ``mesh`` whose ``ranks``
+    form a process group sums the loss and the gradients over the ranks
+    (one flat bucket per dtype, in leaf order) before the compression and
+    AdamW: the reference's gradients arrive reduced over the data axis,
+    and every rank then clips by the same global norm."""
     loss_and_grads = value_and_grad(model, pcfg, attn_fn)
+    ranks = getattr(mesh, "ranks", wirelib.STACKED)
 
     def train_step(params, opt, residual, batch):
         lr = schedules.warmup_cosine(
             opt.step, peak_lr=tcfg.lr, warmup_steps=tcfg.warmup_steps,
             total_steps=tcfg.total_steps)
         loss, grads = loss_and_grads(params, batch)
+        if ranks.grouped:
+            summed = wirelib.all_sum([loss] + adamw.tree_leaves(grads),
+                                     ranks)
+            loss, grads = summed[0], adamw.tree_unflatten(grads, summed[1:])
         if tcfg.grad_compression:
             # bf16 error-feedback compression (runtime/compression.py)
             grads, residual = compression.compress_grads(grads, residual)
@@ -332,13 +362,16 @@ def step_on(train_step, state: TrainState):
 
 
 def batch_arrays(b: Batch, cfg: ModelConfig, device="cuda",
-                 rng: np.random.Generator | None = None) -> dict:
+                 rng: np.random.Generator | None = None,
+                 frames: tuple[int, int] | None = None) -> dict:
     """A loader batch as tensors on ``device``.  A multimodal config
     (``frontend_dim``) gets the reference's front-end stub: the first
     ``min(256, T)`` positions of each frame are patches, drawn by numpy
     from ``rng`` (``default_rng(0)`` when none is given, as the reference
     draws them, so both packages see the same patches on every step),
-    and carry no next-token loss."""
+    and carry no next-token loss.  ``frames=(lo, hi)`` keeps a rank's
+    frames, and the whole batch's token count as ``loss_denom``
+    (``Model.loss``)."""
     out = {
         "tokens": torch.from_numpy(np.asarray(b.tokens)).to(device),
         "labels": torch.from_numpy(np.asarray(b.labels)).to(device),
@@ -358,6 +391,11 @@ def batch_arrays(b: Batch, cfg: ModelConfig, device="cuda",
         out["frontend_mask"] = torch.from_numpy(mask).to(device)
         out["loss_mask"] = out["loss_mask"] * torch.from_numpy(
             1.0 - mask.astype(np.float32)).to(device)
+    if frames is not None:
+        lo, hi = frames
+        denom = torch.clamp(torch.sum(out["loss_mask"]), min=1.0)
+        out = {k: v[lo:hi] for k, v in out.items()}
+        out["loss_denom"] = denom
     return out
 
 
@@ -377,11 +415,13 @@ def route_layers(cfg: ModelConfig, layer_masks, group_masks, fn_of_mask):
 
 def attention_closures(cfg: ModelConfig, pcfg: ParallelConfig,
                        layer_masks, group_masks, scheds, device,
-                       impl: str, pods: int = 1):
+                       impl: str, pods: int = 1,
+                       ranks: wirelib.Ranks = wirelib.STACKED):
     """The attention argument of the model for a batch's plans (over
-    ``pods`` pods of the plans' workers): the layer-pipelined entries
-    under ``pcfg.layer_pipeline``, else one FCP closure per mask group
-    routed to its layers; None for an attention-free model."""
+    ``pods`` pods of the plans' workers, or ``ranks``'s share of them):
+    the layer-pipelined entries under ``pcfg.layer_pipeline``, else one
+    FCP closure per mask group routed to its layers; None for an
+    attention-free model."""
     if not cfg.uses_attention:
         return None
     if pcfg.layer_pipeline:
@@ -389,7 +429,35 @@ def attention_closures(cfg: ModelConfig, pcfg: ParallelConfig,
                                        device, impl, pods)
     return route_layers(
         cfg, layer_masks, group_masks,
-        lambda m: make_fcp_attn_fn(scheds[m], device, pcfg, impl, pods))
+        lambda m: make_fcp_attn_fn(scheds[m], device, pcfg, impl, pods,
+                                   ranks))
+
+
+def refuse_ranked(what: str, item: str) -> None:
+    """Refuse ``what`` across ranks, naming the ROADMAP Queue A item that
+    will take it; nothing runs it stacked instead."""
+    raise ValueError(f"{what} is not supported across ranks yet (ROADMAP "
+                     f"Queue A: {item})")
+
+
+def check_ranked(cfg: ModelConfig, pcfg: ParallelConfig, mesh_shape: dict,
+                 size: int) -> None:
+    """Raise, before the process group is joined, for a run this slice
+    does not take across ``size`` ranks: it takes the plain loop of a
+    dense model on a ``DxM`` mesh whose D the ranks divide."""
+    n_cp = mesh_shape.get("data", 1)
+    if "pod" in mesh_shape:
+        refuse_ranked("a pod mesh", "the Supervisor and pods across ranks")
+    if pcfg.overlap:
+        refuse_ranked("--overlap", "--overlap with asynchronous P2P")
+    if pcfg.layer_pipeline:
+        refuse_ranked("--layer-pipeline", "the layer pipeline")
+    if cfg.family != "dense":
+        refuse_ranked(f"a non-dense family ({cfg.family})",
+                      "the MoE, SSM, hybrid and multimodal families")
+    if n_cp % size:
+        raise ValueError(f"{size} ranks do not divide the data axis "
+                         f"({n_cp} CP workers)")
 
 
 @dataclasses.dataclass
@@ -401,6 +469,9 @@ class StepRecord:
     ms: float                       # wall, the device synchronized
     n_workers: int = 1              # CP workers per pod
     pods: int = 1
+    sent_bytes: int = 0             # this rank's bytes on the wire
+    ship_s: float = 0.0             # host s in its ships across ranks
+    reduce_s: float = 0.0           # host s in its sums over the ranks
 
 
 class Trainer:
@@ -415,15 +486,31 @@ class Trainer:
     (default ``"fused"``: the kernels on the card).  With
     ``checkpoint_dir`` it saves ``{"params", "opt"}`` and the loader
     state every ``pcfg.checkpoint_every`` steps, and a new trainer on
-    the same directory resumes from the newest committed step."""
+    the same directory resumes from the newest committed step.
+
+    With ``dist_backend`` the trainer joins ``torchrun``'s process group
+    (``runtime/wire.join``) and holds its rank's frames of the data axis
+    (module docstring); ``close`` leaves the group if the trainer joined
+    it (a caller that joined first keeps it for its next trainer)."""
 
     def __init__(self, cfg: ModelConfig, pcfg: ParallelConfig,
                  tcfg: TrainConfig, mesh: StackedMesh, *,
                  tokens_per_worker: int, dist: str, fresh: bool = False,
                  device="cuda", log_every: int = 1,
-                 attn_impl: str = "fused", checkpoint_dir=None):
+                 attn_impl: str = "fused", checkpoint_dir=None,
+                 dist_backend: str | None = None):
         self.device = resolve_device(device)
         self.attn_impl = ex.ExecConfig(impl=attn_impl).impl
+        self.ranks = wirelib.STACKED
+        self._leave = False
+        if dist_backend is not None:
+            env = wirelib.launch_env()
+            check_ranked(cfg, pcfg, mesh.shape, env["size"] if env else 1)
+            self._leave = not wirelib.in_group()
+            self.ranks = wirelib.join(dist_backend, self.device)
+            mesh = mesh.with_ranks(self.ranks)
+        # a rank's frames of the batch (None: all of them, stacked)
+        self.frames = mesh.frames if self.ranks.grouped else None
         self.cfg, self.pcfg, self.tcfg, self.mesh = cfg, pcfg, tcfg, mesh
         self.n_cp = mesh.shape.get("data", 1)
         self.pods = mesh.shape.get("pod", 1)
@@ -455,6 +542,11 @@ class Trainer:
         self.start = 0
         if self.manager is not None and self.manager.latest_step() is not None:
             self.start = restore_state(self.manager, self.state, self.loader)
+        if self.ranks.grouped:
+            # replicated weights: every rank starts from the same bytes
+            wirelib.agree("parameters", wirelib.digest(
+                adamw.tree_leaves(self.state.params)), self.ranks,
+                self.device)
 
     @property
     def next_step(self) -> int:
@@ -468,8 +560,12 @@ class Trainer:
         return key, build
 
     def _program(self, name: str, fn) -> graphs.Program:
-        """A step program in the loop's graph pool."""
-        return graphs.Program(name, fn, self.device, self._pool)
+        """A step program in the loop's graph pool.  Across ranks it runs
+        its ``fn`` eagerly (one build per key all the same): gloo's ops
+        cannot be captured in a CUDA graph, and a capture of NCCL's has
+        not been verified on one card (ROADMAP Queue A: NCCL capture)."""
+        return graphs.Program(name, fn, self.device, self._pool,
+                              capture=not self.ranks.grouped)
 
     def step_fn(self, b: Batch, prefetch: bool = True) -> graphs.Program:
         """The step program of batch ``b``'s plan (planned and built, or
@@ -487,9 +583,12 @@ class Trainer:
                 self.planner.prefetch(*self._plan_of(nxt, m))
         key = tuple(keys)
         if key not in self.step_cache:
+            if self.ranks.grouped:
+                wirelib.agree("plan key", repr(key).encode(), self.ranks,
+                              self.device)
             attn = attention_closures(self.cfg, self.pcfg, self.layer_masks,
                                       self.group_masks, scheds, self.device,
-                                      self.attn_impl, self.pods)
+                                      self.attn_impl, self.pods, self.ranks)
             self.step_cache[key] = self._program("train_step", step_on(
                 build_train_step(self.model, self.mesh, self.pcfg, self.tcfg,
                                  attn), self.state))
@@ -506,26 +605,35 @@ class Trainer:
     def step(self) -> StepRecord:
         t = self.next_step
         b = self.loader.next()
-        batch = batch_arrays(b, self.cfg, self.device)
+        batch = batch_arrays(b, self.cfg, self.device, frames=self.frames)
         fn = self.step_fn(b, prefetch=t + 1 < self.tcfg.total_steps)
         s = self.state
+        w0 = wirelib.wire_stats()
         t0 = time.perf_counter()
         loss, gnorm = fn(batch, held=held(s))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        rec = StepRecord(t, float(loss), float(gnorm),
-                         (time.perf_counter() - t0) * 1e3, self.n_cp,
-                         self.pods)
+        ms = (time.perf_counter() - t0) * 1e3
+        w1 = wirelib.wire_stats()
+        rec = StepRecord(t, float(loss), float(gnorm), ms, self.n_cp,
+                         self.pods,
+                         *(w1[k] - w0[k] for k in ("sent_bytes", "ship_s",
+                                                   "reduce_s")))
         self.history.append(rec)
-        if t % self.log_every == 0:
+        if t % self.log_every == 0 and self.ranks.rank == 0:
             print(f"step {t:5d}  loss {rec.loss:.4f}  gnorm "
                   f"{rec.gnorm:.3f}  {rec.ms:.1f} ms", flush=True)
         every = max(int(self.pcfg.checkpoint_every), 1)
         if self.manager is not None and (t + 1) % every == 0:
-            # the host copy now, the file IO on a thread
-            self.manager.save(t, {"params": s.params, "opt": s.opt},
-                              extra={"loader": self.loader.state.to_dict()},
-                              blocking=False)
+            # every rank holds the same state: rank 0 writes it, once
+            # every rank has finished the step
+            wirelib.barrier(self.ranks)
+            if self.ranks.rank == 0:
+                # the host copy now, the file IO on a thread
+                self.manager.save(
+                    t, {"params": s.params, "opt": s.opt},
+                    extra={"loader": self.loader.state.to_dict()},
+                    blocking=False)
         return rec
 
     def run(self, total_steps: int) -> list[StepRecord]:
@@ -538,6 +646,25 @@ class Trainer:
         self.planner.shutdown()
         if self.manager is not None:
             self.manager.wait()
+        if self.ranks.grouped:
+            wirelib.barrier(self.ranks)
+            if self._leave:
+                wirelib.leave()
+
+    def report(self, wall_s: float) -> dict:
+        """This rank's run as a JSON-able dict: its records, the kernels'
+        launch counters, its traffic on the wire and its device's peak
+        memory (all still readable after :meth:`close`)."""
+        cuda = self.device.type == "cuda"
+        return {"rank": self.ranks.rank, "ranks": self.ranks.size,
+                "backend": self.ranks.backend, "device": str(self.device),
+                "frames": list(self.mesh.frames),
+                "records": [dataclasses.asdict(r) for r in self.history],
+                "compiled_at": list(self.compiled_at),
+                "launches": {f.__name__: f.launches for f in fa.COUNTED},
+                "wire": wirelib.wire_stats(), "wall_s": wall_s,
+                "peak_mem_gib": (torch.cuda.max_memory_allocated(
+                    self.device) / 2**30 if cuda else None)}
 
 
 # --------------------------------------------------------------------------
@@ -1168,7 +1295,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-every", type=int, default=1)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
-                        "PyTorch versions of the kernels)")
+                        "PyTorch versions of the kernels).  Under torchrun"
+                        " cuda is cuda:LOCAL_RANK; two ranks share a card"
+                        " only when given one (cuda:0), and only over"
+                        " gloo")
+    p.add_argument("--dist-backend", default="nccl",
+                   choices=list(wirelib.BACKENDS),
+                   help="the process group's backend under torchrun (the"
+                        " plain loop of a dense model, its CP workers"
+                        " split over the ranks); nothing falls back to"
+                        " another backend")
     return p
 
 
@@ -1188,7 +1324,11 @@ def trainer_from_args(args: argparse.Namespace) -> Trainer | Supervisor:
                           f"reference CLI's parity and has no effect here",
                           stacklevel=2)
     mesh = parse_mesh(args.mesh)
-    device = resolve_device(args.device)
+    env = wirelib.launch_env()
+    dev_spec = args.device
+    if env is not None:
+        dev_spec = ranked_device(args.dist_backend, args.device, env)
+    device = resolve_device(dev_spec)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = apply_overrides(cfg, args.override)
     pcfg = ParallelConfig(block_size=args.block_size,
@@ -1213,7 +1353,20 @@ def trainer_from_args(args: argparse.Namespace) -> Trainer | Supervisor:
                           checkpoint_every=args.checkpoint_every)
     tcfg = TrainConfig(lr=args.lr, warmup_steps=2, total_steps=args.steps)
     n_cp, tp = mesh.shape["data"], mesh.shape["model"]
-    if args.supervised and cfg.uses_attention and n_cp > 1 and tp == 1:
+    supervised = (args.supervised and cfg.uses_attention and n_cp > 1
+                  and tp == 1)
+    if env is not None:
+        if supervised:
+            refuse_ranked("the Supervisor", "the Supervisor and pods across "
+                          "ranks; pass --no-supervised for the plain loop")
+        return Trainer(cfg, pcfg, tcfg, mesh,
+                       tokens_per_worker=args.tokens_per_worker,
+                       dist=args.dist, fresh=args.fresh_stream,
+                       device=device, log_every=args.log_every,
+                       attn_impl=args.attn_impl,
+                       checkpoint_dir=args.checkpoint_dir,
+                       dist_backend=args.dist_backend)
+    if supervised:
         return Supervisor(cfg, pcfg, tcfg, n_workers=n_cp,
                           tokens_per_worker=args.tokens_per_worker,
                           pods=mesh.pods, dist=args.dist,
@@ -1227,6 +1380,26 @@ def trainer_from_args(args: argparse.Namespace) -> Trainer | Supervisor:
                    checkpoint_dir=args.checkpoint_dir)
 
 
+def ranked_device(backend: str, device: str, env: dict) -> str:
+    """The device of this rank under ``torchrun``: ``cuda`` is
+    ``cuda:LOCAL_RANK``.  NCCL takes one card per rank: two local ranks on
+    one named card, or on the CPU, are refused (nothing falls back to
+    gloo)."""
+    dev = torch.device(device)
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("NCCL needs a CUDA device per rank; use "
+                         "--dist-backend gloo for ranks on the CPU")
+    if backend == "nccl" and dev.index is not None and env["local_size"] > 1:
+        raise ValueError(
+            f"NCCL cannot run two ranks on one device ({device} for all "
+            f"{env['local_size']} local ranks): give each rank its own card"
+            f" (--device cuda is cuda:LOCAL_RANK) or use --dist-backend "
+            f"gloo")
+    if dev.type == "cuda" and dev.index is None:
+        return f"cuda:{env['local_rank']}"
+    return device
+
+
 def main(argv=None) -> Trainer | Supervisor:
     args = parse_args(argv)
     trainer = trainer_from_args(args)
@@ -1234,6 +1407,8 @@ def main(argv=None) -> Trainer | Supervisor:
         out = trainer.run(args.steps)
     finally:
         trainer.close()
+    if isinstance(trainer, Trainer) and trainer.ranks.rank != 0:
+        return trainer
     s = trainer.plan_cache.stats
     print(f"plan cache: {s.hits} hits / {s.misses} misses "
           f"(hit rate {s.hit_rate:.2f}), "

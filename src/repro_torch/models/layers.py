@@ -166,17 +166,26 @@ def _nll_sum(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum((lz - gold) * mask)
 
 
+def _token_count(mask: torch.Tensor, denom) -> torch.Tensor:
+    return torch.clamp(torch.sum(mask), min=1.0) if denom is None else denom
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor, vocab_size: int) -> torch.Tensor:
+                  mask: torch.Tensor, vocab_size: int,
+                  denom: torch.Tensor | None = None) -> torch.Tensor:
     """Masked token-mean cross entropy; logits may be vocab-padded (the
-    padding columns are excluded from the partition function)."""
-    return _nll_sum(logits, labels, mask, vocab_size) / torch.clamp(
-        torch.sum(mask), min=1.0)
+    padding columns are excluded from the partition function).  With
+    ``denom`` (a rank's share of the frames: the whole batch's token
+    count) it is this share's summed loss over ``denom``, and the sum
+    over the ranks is the batch's mean."""
+    return _nll_sum(logits, labels, mask, vocab_size) / _token_count(
+        mask, denom)
 
 
 def chunked_cross_entropy(features: torch.Tensor, head_fn, labels,
                           mask, vocab_size: int,
-                          chunk: int = 4096) -> torch.Tensor:
+                          chunk: int = 4096,
+                          denom: torch.Tensor | None = None) -> torch.Tensor:
     """Masked CE without materializing full ``[T, V]`` logits: a loop over
     token chunks of the unembedding + loss (the reference's
     ``lax.scan``).  Each chunk runs under a non-reentrant
@@ -184,7 +193,8 @@ def chunked_cross_entropy(features: torch.Tensor, head_fn, labels,
     and recomputes one chunk's logits at a time; without it the loop
     would save every chunk's f32 logits.
 
-    features: ``[F, T, d]``; ``head_fn(x [n, d]) -> logits [n, v]``."""
+    features: ``[F, T, d]``; ``head_fn(x [n, d]) -> logits [n, v]``;
+    ``denom`` as in :func:`cross_entropy`."""
     f, t, d = features.shape
     flat = features.reshape(f * t, d)
     lab = labels.reshape(f * t)
@@ -202,4 +212,4 @@ def chunked_cross_entropy(features: torch.Tensor, head_fn, labels,
         else:
             part = piece(flat[sl], lab[sl], msk[sl])
         num = num + part
-    return num / torch.clamp(torch.sum(msk), min=1.0)
+    return num / _token_count(msk, denom)

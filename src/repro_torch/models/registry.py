@@ -146,14 +146,19 @@ class Model:
 
     def loss(self, params, batch: dict, attn_fn=None, remat=False,
              chunked: bool = False, chunk: int = 4096) -> torch.Tensor:
+        """The token-mean loss; a batch that holds one rank's frames
+        carries the whole batch's token count as ``loss_denom``, and the
+        loss is then this rank's share of the mean."""
+        denom = batch.get("loss_denom")
         if chunked:
             feats = self.features(params, batch, attn_fn, remat)
             return layers.chunked_cross_entropy(
                 feats, self.head_fn(params), batch["labels"],
-                batch["loss_mask"], self.cfg.vocab_size, chunk)
+                batch["loss_mask"], self.cfg.vocab_size, chunk, denom)
         logits = self.forward(params, batch, attn_fn, remat)
         return layers.cross_entropy(logits, batch["labels"],
-                                    batch["loss_mask"], self.cfg.vocab_size)
+                                    batch["loss_mask"], self.cfg.vocab_size,
+                                    denom)
 
     def param_count(self, params) -> int:
         def count(t):

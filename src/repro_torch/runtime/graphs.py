@@ -30,7 +30,9 @@ program checks.
   node count (on the CPU the first call's seconds only).
 * **On the CPU** nothing is captured: the first call of a key is its
   build, and every call runs ``fn`` on the static buffers and copies its
-  result into the static outputs, so the same buffer plumbing runs.
+  result into the static outputs, so the same buffer plumbing runs.  A
+  program made with ``capture=False`` does the same on the card (the
+  training step across ranks: ``launch/train.Trainer`` says why).
 
 **Outputs** are the key's static outputs: valid until this program next
 runs, or until any program sharing its memory pool replays.
@@ -179,9 +181,11 @@ class Program:
     (module docstring).  ``builds`` counts the keys built, the
     counterpart of a jitted function's ``_cache_size()``."""
 
-    def __init__(self, name: str, fn, device, pool=None):
+    def __init__(self, name: str, fn, device, pool=None,
+                 capture: bool = True):
         self.name, self.fn = name, fn
         self.device = torch.device(device)
+        self.capture = capture and self.device.type == "cuda"
         self.pool = pool                # None, a graph pool handle or a Pool
         self._entries: dict = {}
         self._held: tuple | None = None
@@ -223,7 +227,7 @@ class Program:
         bufs = _map(inputs, lambda x: torch.empty(
             x.shape, dtype=x.dtype, device=self.device).copy_(
                 x, non_blocking=True))
-        if self.device.type != "cuda":
+        if not self.capture:
             t0 = time.perf_counter()
             e = self._entries[key] = _Entry(bufs, self.fn(*bufs))
             self.build_log.append({"eager_s": time.perf_counter() - t0,

@@ -18,13 +18,33 @@ byte-identical schedules).  The codec is PyTorch:
   cotangent through the reversed partial permutation in the same wire
   format, as the reference's ``custom_vjp`` does — exact for ``f32``,
   the same bounded error as the forward for ``bf16``/``int8``.
+
+**Across processes.**  Under a ``torch.distributed`` process group of
+R ranks (:class:`Ranks`), rank r holds the r-th of R equal contiguous
+shares of the plan's frames, and :func:`ship` takes that rank's payloads
+with the plan's global ``(src, dst)`` pairs: a pair with both ends on
+the rank stays the index copy, a pair that crosses ranks is encoded,
+sent with ``dist.batch_isend_irecv`` (one batch a ship, every rank
+posting its ops in the plan's pair order) and decoded on arrival, its
+int8 scales travelling beside the payload.  gloo moves host memory, so
+under gloo a CUDA payload is staged through a host tensor; NCCL takes
+CUDA tensors as they are.  The reductions a ranked train step needs
+(:func:`all_sum`), the agreement checks (:func:`agree`, :func:`digest`),
+the barrier and joining the group live here too: this is the only
+module of the port that calls ``torch.distributed``
+(``analysis/lints.py``).  :func:`wire_stats` counts the bytes a rank
+puts on the wire.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
+import time
 
 import torch
+import torch.distributed as dist
 
 KINDS = ("f32", "bf16", "int8")
 
@@ -166,38 +186,312 @@ def decode(payload: torch.Tensor, scales: torch.Tensor | None,
 
 
 # --------------------------------------------------------------------------
-# the stacked-worker transport
+# ranks: the stacked frames split over a process group
 # --------------------------------------------------------------------------
 
-def _ship(x: torch.Tensor, perm, fmt: WireFormat) -> torch.Tensor:
+BACKENDS = ("nccl", "gloo")
+
+
+@dataclasses.dataclass(frozen=True)
+class Ranks:
+    """This process's place in a ``torch.distributed`` process group:
+    ``size`` ranks, this one ``rank``, over ``backend``.  ``backend=None``
+    is no group: the stacked transport, every frame in this process.
+    Hashable: keys the memoized executor tables."""
+
+    size: int = 1
+    rank: int = 0
+    backend: str | None = None
+
+    def __post_init__(self):
+        if not 0 <= self.rank < self.size:
+            raise ValueError(f"rank {self.rank} of {self.size}")
+        if self.backend is None and self.size != 1:
+            raise ValueError("ranks without a process group")
+        if self.backend is not None and self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r} "
+                             f"(expected one of {BACKENDS})")
+
+    @property
+    def grouped(self) -> bool:
+        return self.backend is not None
+
+    def share(self, n_frames: int) -> tuple[int, int]:
+        """The frame range ``[lo, hi)`` this rank holds of ``n_frames``."""
+        if n_frames % self.size:
+            raise ValueError(f"{self.size} ranks do not divide "
+                             f"{n_frames} frames")
+        per = n_frames // self.size
+        return self.rank * per, (self.rank + 1) * per
+
+
+STACKED = Ranks()
+
+
+def launch_env() -> dict | None:
+    """``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``), or None outside it."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    size = int(os.environ["WORLD_SIZE"])
+    rank = int(os.environ.get("RANK", 0))
+    return {"rank": rank, "size": size,
+            "local_rank": int(os.environ.get("LOCAL_RANK", rank)),
+            "local_size": int(os.environ.get("LOCAL_WORLD_SIZE", size))}
+
+
+def join(backend: str, device) -> Ranks:
+    """Join the process group ``torchrun``'s environment names (its
+    ``MASTER_ADDR`` / ``MASTER_PORT``), unless this process already has.
+    NCCL needs a CUDA device; nothing falls back to another backend."""
+    env = launch_env()
+    if env is None:
+        raise RuntimeError("no process group: RANK and WORLD_SIZE are not "
+                           "set (start the ranks with torchrun)")
+    device = torch.device(device)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} "
+                         f"(expected one of {BACKENDS})")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("NCCL needs a CUDA device (use --dist-backend gloo "
+                         "on the CPU)")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method="env://",
+                                rank=env["rank"], world_size=env["size"])
+    if dist.get_backend() != backend:
+        raise RuntimeError(f"the process group runs {dist.get_backend()}, "
+                           f"not {backend}")
+    return Ranks(dist.get_world_size(), dist.get_rank(), backend)
+
+
+def in_group() -> bool:
+    """Whether this process has joined a process group."""
+    return dist.is_initialized()
+
+
+def leave() -> None:
+    """Leave the process group (if this process is in one)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _host(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in host memory (pinned when it comes from the card, so the
+    copies each way run at the link's rate; the caching host allocator
+    keeps such a buffer until the copies that use it are done)."""
+    if not x.is_cuda:
+        return x.contiguous()
+    return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+
+
+def barrier(ranks: Ranks) -> None:
+    """Wait until every rank has come here (nothing without a group)."""
+    if ranks.grouped:
+        dist.barrier()
+
+
+def all_sum(tensors, ranks: Ranks) -> list[torch.Tensor]:
+    """Each tensor summed over the ranks: one flat bucket per dtype, the
+    tensors in the order given (every rank passes the same order), one
+    ``all_reduce`` each.  Returns views of the summed buckets; without a
+    group, the tensors themselves."""
+    tensors = list(tensors)
+    if not ranks.grouped:
+        return tensors
+    t0 = time.perf_counter()
+    out = list(tensors)
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+        # gloo moves host memory: the bucket goes through the host whole
+        buf = _host(flat) if ranks.backend == "gloo" else flat
+        dist.all_reduce(buf)
+        if buf is not flat:
+            flat.copy_(buf, non_blocking=True)
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[off:off + n].view(tensors[i].shape)
+            off += n
+    _STATS["reduce_s"] += time.perf_counter() - t0
+    return out
+
+
+def digest(tensors) -> bytes:
+    """A digest of the tensors' bytes, computed where they lie: each
+    tensor's 32-bit words summed in 64-bit integers weighted by their
+    position, per chunk (exact, so every rank's device gives the same
+    number for the same bytes), folded with its shape and dtype."""
+    h = hashlib.sha256()
+    for t in tensors:
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        if b.numel() % 4:
+            b = torch.cat([b, b.new_zeros(4 - b.numel() % 4)])
+        words = b.view(torch.int32)
+        h.update(f"{tuple(t.shape)} {t.dtype}".encode())
+        for chunk in words.split(1 << 24):
+            w = torch.arange(1, chunk.numel() + 1, dtype=torch.int64,
+                             device=chunk.device)
+            h.update(int((chunk.long() * w).sum()).to_bytes(
+                8, "little", signed=True))
+    return h.digest()
+
+
+def agree(what: str, data: bytes, ranks: Ranks, device) -> None:
+    """Raise unless every rank passes the same ``data`` (an all-gather of
+    its hash)."""
+    if not ranks.grouped:
+        return
+    dev = torch.device(device) if ranks.backend == "nccl" else "cpu"
+    mine = int.from_bytes(hashlib.sha256(data).digest()[:8], "little",
+                          signed=True)
+    got = [torch.zeros(1, dtype=torch.int64, device=dev)
+           for _ in range(ranks.size)]
+    dist.all_gather(got, torch.tensor([mine], dtype=torch.int64,
+                                      device=dev))
+    hashes = [int(x) for x in got]
+    if len(set(hashes)) != 1:
+        raise RuntimeError(f"the ranks disagree on the {what} (hashes "
+                           f"{hashes})")
+
+
+_STATS = {"ships": 0, "messages": 0, "sent_bytes": 0, "recv_bytes": 0,
+          "ship_s": 0.0, "reduce_s": 0.0}
+
+
+def wire_stats() -> dict:
+    """This process's cross-rank traffic since :func:`reset_wire_stats`:
+    ship calls across ranks, messages posted, bytes sent and received
+    (payloads plus int8 scales), and the host seconds spent in the ships
+    that crossed ranks and in :func:`all_sum` (their staging and waits
+    included; a host clock: under NCCL the device may still be moving
+    the data when a call returns)."""
+    return dict(_STATS)
+
+
+def reset_wire_stats() -> None:
+    for k in _STATS:
+        _STATS[k] = type(_STATS[k])(0)
+
+
+def rank_wire_bytes(spec, ranks: Ranks, n_q_heads: int, n_kv_heads: int,
+                    head_dim: int, in_bytes: float,
+                    out_bytes: float = 4.0) -> tuple[float, float]:
+    """The bytes ``ranks``'s rank puts on the wire in one FCP attention
+    call on ``spec``'s plan, ``(forward, backward)``, the sent bytes
+    :func:`wire_stats` should count: each ship group's pairs that leave
+    this rank (forward) or arrive at it (the backward sends those back),
+    ``rows`` blocks each, at ``core.cost_model``'s prices of a block.
+    The reshuffle ships q, k and v (``in_bytes`` a value), the rounds k
+    and v, the restore o (``out_bytes``: f32, or the executor's
+    ``out_dtype``)."""
+    from ..core import cost_model as cm     # which imports this module
+    bs = spec.block_size
+    qkv = cm.qkv_wire_block_bytes(spec.wire, bs, n_q_heads, n_kv_heads,
+                                  head_dim, in_bytes)
+    o = cm.o_wire_block_bytes(spec.wire, bs, n_q_heads, head_dim, out_bytes)
+    kv = cm.kv_wire_block_bytes(spec.wire, bs, n_kv_heads, head_dim,
+                                in_bytes)
+    lo, hi = ranks.share(spec.n_workers)
+    fwd = bwd = 0.0
+
+    def price(perm, rows, block_bytes):
+        nonlocal fwd, bwd
+        for s, d in perm:
+            if (lo <= s < hi) != (lo <= d < hi):
+                if lo <= s < hi:
+                    fwd += rows * block_bytes
+                else:
+                    bwd += rows * block_bytes
+
+    for rnd in spec.resh_rounds:
+        for g in rnd.groups:
+            price(g.perm, g.rows, qkv)
+            price(tuple((d, s) for s, d in g.perm), g.rows, o)
+    for rnd in spec.comm_rounds:
+        for g in rnd.groups:
+            price(g.perm, g.rows, kv)
+    return fwd, bwd
+
+
+# --------------------------------------------------------------------------
+# the transport
+# --------------------------------------------------------------------------
+
+def _ship(x: torch.Tensor, perm, fmt: WireFormat,
+          ranks: Ranks | None) -> torch.Tensor:
+    """``x``'s frames along the global pairs ``perm``: all of the frames
+    without a group (every pair an index copy), else this rank's share
+    of them, in order.  Receive buffers take their shapes from ``x``'s
+    (every frame's payload has the same shape): no shape travels at run
+    time."""
+    ranks = ranks or STACKED
+    t0 = time.perf_counter()
+    n, me = x.shape[0], ranks.rank
+    lo = me * n
     payload, scales = encode(x, fmt, (-2, -1))
-    recv = torch.zeros_like(payload)
-    recv_scales = None if scales is None else torch.zeros_like(scales)
+    parts = [payload] if scales is None else [payload, scales]
+    # gloo moves host memory: a ship with a pair across ranks takes its
+    # payloads through the host whole, one copy each way; NCCL moves the
+    # device's
+    stage = ranks.backend == "gloo" and any(
+        (s // n == me) != (d // n == me) for s, d in perm)
+    parts = [_host(p) if stage else p.contiguous() for p in parts]
+    recvs = [torch.zeros(p.shape, dtype=p.dtype, device=p.device,
+                         pin_memory=stage and x.is_cuda) for p in parts]
+    ops, sent, got = [], 0, 0
     for s, d in perm:
-        recv[d] = payload[s]
-        if scales is not None:
-            recv_scales[d] = scales[s]
-    return decode(recv, recv_scales, fmt, x.dtype)
+        rs, rd = s // n, d // n
+        if rs == me and rd == me:
+            for src, dst in zip(parts, recvs):
+                dst[d - lo] = src[s - lo]
+        elif rs == me:
+            for src in parts:
+                ops.append(dist.P2POp(dist.isend, src[s - lo], rd))
+                sent += src[s - lo].nbytes
+        elif rd == me:
+            for dst in recvs:
+                ops.append(dist.P2POp(dist.irecv, dst[d - lo], rs))
+                got += dst[d - lo].nbytes
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        _STATS["ships"] += 1
+        _STATS["messages"] += len(ops)
+        _STATS["sent_bytes"] += sent
+        _STATS["recv_bytes"] += got
+    if stage:
+        recvs = [r.to(x.device, non_blocking=True) for r in recvs]
+    if ops:
+        _STATS["ship_s"] += time.perf_counter() - t0
+    return decode(recvs[0], recvs[1] if scales is not None else None, fmt,
+                  x.dtype)
 
 
 class _Ship(torch.autograd.Function):
     """The quantized formats are not differentiable elementwise (round /
     truncate), so the whole hop is one Function, as in the reference:
-    autograd through ``encode`` would give another gradient."""
+    autograd through ``encode`` would give another gradient.  Across
+    ranks the backward's ships match up because every rank's graph is the
+    same, so autograd runs their backwards in the same order."""
 
     @staticmethod
-    def forward(ctx, x, perm, fmt):
-        ctx.perm, ctx.fmt = perm, fmt
-        return _ship(x, perm, fmt)
+    def forward(ctx, x, perm, fmt, ranks):
+        ctx.perm, ctx.fmt, ctx.ranks = perm, fmt, ranks
+        return _ship(x, perm, fmt, ranks)
 
     @staticmethod
     def backward(ctx, g):
         rev = tuple((d, s) for s, d in ctx.perm)
-        return _ship(g.contiguous(), rev, ctx.fmt), None, None
+        return _ship(g.contiguous(), rev, ctx.fmt, ctx.ranks), None, None, None
 
 
-def ship(x: torch.Tensor, perm, fmt: WireFormat = WIRE_F32
-         ) -> torch.Tensor:
+def ship(x: torch.Tensor, perm, fmt: WireFormat = WIRE_F32,
+         ranks: Ranks | None = None) -> torch.Tensor:
     """Move worker payloads along a partial permutation.
 
     ``x``: ``[N, rows, heads, bs, D]`` — one payload per stacked
@@ -206,8 +500,12 @@ def ship(x: torch.Tensor, perm, fmt: WireFormat = WIRE_F32
     ``decode(encode(x[src]))``, workers no pair names hold zeros.
     Quantized formats carry one scale per (worker, row, head) — never
     across workers, whose payloads are separate messages.  The gradient
-    travels the reversed permutation in the same format."""
+    travels the reversed permutation in the same format.
+
+    With ``ranks`` in a process group, ``x`` is this rank's share of the
+    frames (``N / R`` of them) and ``perm`` names global frames (module
+    docstring)."""
     perm = tuple((int(s), int(d)) for s, d in perm)
     if torch.is_grad_enabled() and x.requires_grad:
-        return _Ship.apply(x, perm, fmt)
-    return _ship(x, perm, fmt)
+        return _Ship.apply(x, perm, fmt, ranks)
+    return _ship(x, perm, fmt, ranks)

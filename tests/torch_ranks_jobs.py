@@ -1,0 +1,335 @@
+"""The jobs the ranks of ``tests/test_torch_ranks.py`` run.
+
+Each rank is a spawned process that joins a gloo process group on
+localhost through the port's own ``runtime/wire.join`` (torchrun's
+environment variables, set here), runs one job on the CPU and saves its
+result for the test process to read.  Nothing here imports JAX or the
+reference package: the spawned ranks import only this module and the
+port.  :func:`run` gives every group one deadline, so a hung rank fails
+its test instead of holding the run.
+"""
+
+import dataclasses
+import json
+import multiprocessing as mp
+import os
+import socket
+import time
+import traceback
+
+import numpy as np
+import torch
+
+# the executor cases: the layout of tests/test_torch_train.py's
+N, TPW, BS, H, KH, D = 4, 64, 16, 4, 2, 32
+SEQLENS = [90, 50, 40, 30, 26, 20]
+EXEC_CASES = [(impl, mask, coalesce) for impl in ("fused_xla", "xla")
+              for mask in ("causal", "swa:24") for coalesce in (1, 4)]
+# the ship cases: partial permutations over 4 frames, pairs inside and
+# across every split
+PERMS = (((0, 2), (1, 0), (3, 1), (2, 3)), ((0, 1), (2, 0), (1, 3)),
+         ((3, 2),), ((1, 2), (2, 1), (0, 3), (3, 0)))
+SHIP_SHAPE = (N, 3, 2, 4, 8)        # [frames, rows, heads, bs, D]
+FORMATS = ("f32", "bf16", "int8")
+WIRES = ("f32", "bf16", "int8")
+# the train step: tests/test_torch_train.py's smoke case, f32
+ARCH, STEP_TPW, STEP_BS = "stablelm_1_6b", 128, 32
+TCFG = dict(lr=1e-3, warmup_steps=1, total_steps=3)
+
+
+def loader_kw(cfg) -> dict:
+    return dict(dist="real_world", n_frames=N, tokens_per_worker=STEP_TPW,
+                vocab_size=cfg.vocab_size, seed=0)
+
+
+def smoke_cfg():
+    from repro_torch.configs.base import smoke_config
+    return dataclasses.replace(smoke_config(ARCH), param_dtype="float32")
+
+
+def ship_inputs(seed: int = 0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=SHIP_SHAPE).astype(np.float32)
+    g = rng.normal(size=SHIP_SHAPE).astype(np.float32)
+    x[1, 2] = 0.0                       # an all-zero group (int8 scale 0)
+    return x, g
+
+
+def ship_case(x, g, perm, fmt, ranks=None):
+    """``ship`` forward and backward: the received payloads and the
+    gradient of ``sum(out * g)`` (global arrays, or a rank's share)."""
+    from repro_torch.runtime import wire
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = wire.ship(xt, perm, wire.WireFormat(fmt), ranks)
+    (dx,) = torch.autograd.grad((y * torch.from_numpy(g)).sum(), xt)
+    return y.detach().numpy(), dx.numpy()
+
+
+def exec_inputs(seed: int = 0):
+    rng = np.random.default_rng(seed)
+    qkv = [rng.normal(size=(N, TPW, h, D)).astype(np.float32)
+           for h in (H, KH, KH)]
+    cot = rng.normal(size=(N, TPW, H, D)).astype(np.float32)
+    return qkv, cot
+
+
+def exec_case(impl, mask, coalesce, ranks):
+    """FCP attention forward and backward on ``ranks``'s frames: o and
+    dq, dk, dv (a rank's share, or all frames without a group)."""
+    from repro_torch.core import executor as ex
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.runtime import wire
+    ranks = ranks or wire.STACKED
+    sched = make_schedule(SEQLENS, N, TPW, BS, n_q_heads=H, n_kv_heads=KH,
+                          head_dim=D, mask=mask, coalesce=coalesce)
+    lo, hi = ranks.share(N)
+    qkv, cot = exec_inputs()
+    xs = [torch.from_numpy(x[lo:hi]).requires_grad_(True) for x in qkv]
+    o = ex.fcp_attention(*xs, ex.schedule_tables(sched, "cpu", 1, ranks),
+                         spec=sched.spec, cfg=ex.ExecConfig(impl=impl))
+    g = torch.autograd.grad((o * torch.from_numpy(cot[lo:hi])).sum(), xs)
+    return [o.detach().numpy()] + [x.numpy() for x in g]
+
+
+def step_parts(cfg, np_params, ranks, wire_fmt="f32"):
+    """The model, mesh, batch, attention closure and parameters of the
+    smoke train step on ``ranks``'s frames."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data import SyntheticLoader
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.models import Model
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.runtime import wire
+    ranks = ranks or wire.STACKED
+    pcfg = ParallelConfig(block_size=STEP_BS, attention_impl="fused_xla",
+                          comm_dtype=wire_fmt)
+    mesh = StackedMesh((N, 1)).with_ranks(ranks)
+    b = SyntheticLoader(**loader_kw(cfg)).next()
+    sched = T.build_schedule(cfg, pcfg, b.seqlens, N, STEP_TPW)
+    masks = T.layer_mask_specs(cfg, pcfg)
+    attn = T.attention_closures(cfg, pcfg, masks, [masks[0]],
+                                {masks[0]: sched}, "cpu", "fused_xla", 1,
+                                ranks)
+    batch = T.batch_arrays(b, cfg, "cpu",
+                           frames=mesh.frames if ranks.grouped else None)
+    return (Model(cfg), mesh, pcfg, batch, attn,
+            params_from_numpy(np_params, "cpu"), sched)
+
+
+def step_grads(cfg, np_params, ranks=None):
+    """Step-0 loss and gradient leaves (summed over the ranks)."""
+    from repro_torch.launch import train as T
+    from repro_torch.optimizer import adamw
+    from repro_torch.runtime import wire
+    model, _, pcfg, batch, attn, params, _ = step_parts(cfg, np_params,
+                                                        ranks)
+    loss, grads = T.value_and_grad(model, pcfg, attn)(params, batch)
+    out = wire.all_sum([loss] + adamw.tree_leaves(grads),
+                       ranks or wire.STACKED)
+    return float(out[0]), [g.numpy() for g in out[1:]]
+
+
+def step_log(cfg, np_params, ranks=None, steps: int = 3):
+    """Three train steps on the first batch: (loss, gnorm) each and the
+    parameter leaves after them."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train as T
+    from repro_torch.optimizer import adamw
+    model, mesh, pcfg, batch, attn, params, _ = step_parts(cfg, np_params,
+                                                           ranks)
+    step = T.build_train_step(model, mesh, pcfg, TrainConfig(**TCFG), attn)
+    opt, log = adamw.init(params), []
+    for _ in range(steps):
+        params, opt, _, loss, gnorm = step(params, opt, None, batch)
+        log.append((float(loss), float(gnorm)))
+    return log, [p.detach().numpy() for p in adamw.tree_leaves(params)]
+
+
+def step_bytes(cfg, np_params, ranks, wire_fmt):
+    """The bytes this rank sends in one train step under ``wire_fmt``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train as T
+    from repro_torch.optimizer import adamw
+    from repro_torch.runtime import wire
+    model, mesh, pcfg, batch, attn, params, _ = step_parts(
+        cfg, np_params, ranks, wire_fmt)
+    step = T.build_train_step(model, mesh, pcfg, TrainConfig(**TCFG), attn)
+    wire.reset_wire_stats()
+    step(params, adamw.init(params), None, batch)
+    return wire.wire_stats()
+
+
+def trainer(ranks, checkpoint_dir=None):
+    """The CLI's plain Trainer over the ranks (random seeded weights),
+    checkpointing every step into ``checkpoint_dir`` when given."""
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import StackedMesh
+    return T.Trainer(smoke_cfg(), ParallelConfig(block_size=STEP_BS,
+                                                 checkpoint_every=1),
+                     TrainConfig(**TCFG), StackedMesh((N, 1)),
+                     tokens_per_worker=STEP_TPW, dist="real_world",
+                     device="cpu", log_every=10**6, attn_impl="fused_xla",
+                     checkpoint_dir=checkpoint_dir,
+                     dist_backend="gloo" if ranks is not None else None)
+
+
+def param_leaves(tr) -> list:
+    from repro_torch.optimizer import adamw
+    return [p.detach().numpy().copy()
+            for p in adamw.tree_leaves(tr.state.params)]
+
+
+def trainer_run(ranks, steps: int = 3):
+    """The plain Trainer over the ranks: its records and its parameter
+    leaves after ``steps`` steps."""
+    tr = trainer(ranks)
+    try:
+        recs = tr.run(steps)
+    finally:
+        tr.close()
+    return ([(r.loss, r.gnorm) for r in recs], tr.compiled_at,
+            param_leaves(tr))
+
+
+def checkpoint_resume(ranks, checkpoint_dir):
+    """Two steps of the ranked Trainer checkpointing each step (rank 0
+    writes, every rank shares the directory), then a new ranked Trainer
+    on the directory: the step it resumes at, the parameters the first
+    ended with and the ones the second restored, and the second's next
+    step's (loss, gnorm)."""
+    first = trainer(ranks, checkpoint_dir)
+    try:
+        first.run(2)
+    finally:
+        first.close()
+    again = trainer(ranks, checkpoint_dir)
+    try:
+        start, restored = again.start, param_leaves(again)
+        rec = again.run(3)[0]
+    finally:
+        again.close()
+    return {"start": start, "saved": param_leaves(first),
+            "restored": restored, "next": (rec.loss, rec.gnorm)}
+
+
+RANKS_MODULE_ARGV = ["--arch", ARCH, "--smoke", "--mesh", f"{N}x1", "--dist",
+               "real_world", "--block-size", "64", "--tokens-per-worker",
+               "256", "--device", "cpu", "--dist-backend", "gloo",
+               "--no-supervised"]
+
+
+def ranks_module_run(ranks, out_dir):
+    """``repro_torch.launch.ranks`` (the checks the card's smoke runs):
+    two CLI runs and the gradient check; each rank's reports and rank
+    0's gradient check.  It leaves the group at its end."""
+    from repro_torch.launch import ranks as ranks_mod
+    ranks_mod.main(["--out", out_dir, "--runs", "fused_xla:2,xla:1",
+                    "--grad-layers", "2", "--", *RANKS_MODULE_ARGV])
+    out = {}
+    for impl in ("fused_xla", "xla"):
+        with open(os.path.join(out_dir, impl,
+                               f"rank{ranks.rank}.json")) as f:
+            out[impl] = json.load(f)
+    if ranks.rank == 0:
+        with open(os.path.join(out_dir, "grads.json")) as f:
+            out["grads"] = json.load(f)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the jobs
+# --------------------------------------------------------------------------
+
+def job_ships(ranks):
+    lo, hi = ranks.share(N)
+    x, g = ship_inputs()
+    return {(p, fmt): ship_case(x[lo:hi], g[lo:hi], perm, fmt, ranks)
+            for p, perm in enumerate(PERMS) for fmt in FORMATS}
+
+
+def job_two(ranks, params_path):
+    """Everything the two-rank tests hold: the ships, the executor
+    cases, the train step's gradients, steps and wire bytes, the plain
+    Trainer, its checkpoint and resume, and ``launch/ranks.py`` (last:
+    it leaves the group)."""
+    cfg = smoke_cfg()
+    np_params = torch.load(params_path, weights_only=False)
+    out = {"ships": job_ships(ranks),
+           "exec": {c: exec_case(*c, ranks) for c in EXEC_CASES},
+           "grads": step_grads(cfg, np_params, ranks),
+           "steps": step_log(cfg, np_params, ranks),
+           "bytes": {w: step_bytes(cfg, np_params, ranks, w)
+                     for w in WIRES}}
+    out["trainer"] = trainer_run(ranks)
+    out["checkpoint"] = checkpoint_resume(ranks, os.path.join(
+        os.path.dirname(params_path), "checkpoints"))
+    out["ranks_module"] = ranks_module_run(ranks, os.path.join(
+        os.path.dirname(params_path), "ranks_module"))
+    return out
+
+
+JOBS = {"ships": job_ships, "two": job_two}
+
+
+def _child(rank, size, port, job, kwargs, out_dir):
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(size),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(size))
+    torch.set_num_threads(1)
+    from repro_torch.runtime import wire
+    path = os.path.join(out_dir, f"rank{rank}.pt")
+    try:
+        out = JOBS[job](wire.join("gloo", "cpu"), **kwargs)
+        torch.save(out, path)
+    except BaseException:
+        with open(path + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        wire.leave()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run(size: int, job: str, out_dir, timeout: float = 120.0,
+        **kwargs) -> list:
+    """Spawn ``size`` ranks running ``job``; their results in rank order.
+    Fails (and kills every rank) when one fails or the group outlives
+    ``timeout`` seconds."""
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_child, daemon=True,
+                         args=(r, size, port, job, kwargs, str(out_dir)))
+             for r in range(size)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"ranks of {job!r} still running "
+                                     f"after {timeout} s")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    errs = []
+    for r, p in enumerate(procs):
+        if p.exitcode != 0:
+            err = os.path.join(str(out_dir), f"rank{r}.pt.err")
+            errs.append(f"rank {r} exit {p.exitcode}: " + (
+                open(err).read() if os.path.exists(err) else ""))
+    if errs:
+        raise AssertionError("\n".join(errs))
+    return [torch.load(os.path.join(str(out_dir), f"rank{r}.pt"),
+                       weights_only=False) for r in range(size)]
