@@ -216,7 +216,21 @@ Phases, each reported on its own line with its wall:
              CLI in this process as the one rank of an NCCL group, 2
              steps.  Each run's wall, each rank's step walls (and their
              seconds in the ships and the sums) and peak memory, beside
-             the one-process eager run's.
+             the one-process eager run's.  In the same torchrun the serve
+             CLI across the two ranks on a 4x2 mesh (SERVE_RANKS: each
+             rank 2 of the 4 prefill frames), ``--kind decode`` (each rank
+             4 of the 8 slots) and ``--kind long`` (each rank half of every
+             slot's 12,288 cache positions, the decode merge across the
+             ranks), every program eager: 0 programs built after warmup
+             and a plan-cache hit on every batch on each rank, kernels 1
+             and 2 launched in each, each rank's bytes in the prefill
+             ships, the inserts and the merges equal to their pricing, the
+             plan keys and tokens the same on both, and each prefill
+             batch's and the first decode step's logits within
+             BF16_FLOORS noise floors of the one-process loop's on the
+             same weights and stream (``serve_stacked``, eager; tokens
+             that agree are counted); then ``--kind long`` here as a
+             one-rank NCCL group, held the same way.
 
 The line before the card's line is a JSON object with one entry per
 kernel, its StableLM main-path row at the top (kernel 2's at decode) and
@@ -1904,18 +1918,29 @@ def programs_train_line(tag: str, r: dict, card: str) -> str:
 
 
 def train_loss_check(trainlib, dev, argv) -> dict:
+    """:func:`train_loss_values`, held to BF16_FLOORS x its noise floor."""
+    out = train_loss_values(trainlib, dev, argv)
+    if not out["diff"] <= BF16_FLOORS * out["noise_floor"]:
+        raise AssertionError(
+            f"bf16 step-0 loss kernels vs plain differ by {out['diff']:.3e}"
+            f" > {BF16_FLOORS} x the bf16 noise floor "
+            f"{out['noise_floor']:.3e}")
+    return out
+
+
+def train_loss_values(trainlib, dev, argv) -> dict:
     """The bf16 step-0 loss, kernels (fused) against plain (fused_xla), on
     the same weights and batch (same seed: a new trainer starts where the
-    main path started), held to BF16_FLOORS x its noise floor.  The floor
-    is a null test: the plain path with each attention output moved by
-    the kernel's own deviation from it under random signs, the largest of
-    LOSS_NULL_DRAWS.  A deviation that is noise (a summation order) moves
-    the loss like these draws; a biased one moves it more.  Its size is
-    held by the kernel checks and the f32 gradient check.  The serve
-    phase's floor (one f32 ulp, largest of three) is reported only: as a
-    loss floor it ranged from 8.1e-5 to 5.7e-4 over four runs on an H100
-    80GB HBM3 (700 W), with the kernel loss bitwise the same in each,
-    since the plain path's scatter-adds are not reproducible."""
+    main path started), and its noise floor: a null test, the plain path
+    with each attention output moved by the kernel's own deviation from
+    it under random signs, the largest of LOSS_NULL_DRAWS.  A deviation
+    that is noise (a summation order) moves the loss like these draws; a
+    biased one moves it more.  Its size is held by the kernel checks and
+    the f32 gradient check.  The serve phase's floor (one f32 ulp,
+    largest of three) is reported only.  The kernels and the plain path
+    (its sums sorted, ``fused_flash_fwd_plain``) give the same bytes run
+    after run, and the draws are seeded, so every number here is too
+    (``scripts/chip_loss_floor.py`` repeats it)."""
     import torch
     tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
     try:
@@ -1953,14 +1978,9 @@ def train_loss_check(trainlib, dev, argv) -> dict:
     release()
     diff = abs(loss["fused"] - loss["fused_xla"])
     floor = max(abs(x) for x in null)
-    out = {"kernels": loss["fused"], "plain": loss["fused_xla"],
-           "diff": diff, "noise_floor": floor, "null_draws": null,
-           "one_ulp_floor": max(abs(x) for x in ulp), "one_ulp_draws": ulp}
-    if not diff <= BF16_FLOORS * floor:
-        raise AssertionError(
-            f"bf16 step-0 loss kernels vs plain differ by {diff:.3e} > "
-            f"{BF16_FLOORS} x the bf16 noise floor {floor:.3e}")
-    return out
+    return {"kernels": loss["fused"], "plain": loss["fused_xla"],
+            "diff": diff, "noise_floor": floor, "null_draws": null,
+            "one_ulp_floor": max(abs(x) for x in ulp), "one_ulp_draws": ulp}
 
 
 def replay_vs_eager(fa, trainlib, dev, argv) -> dict:
@@ -3460,7 +3480,30 @@ RANKS_WHY = ("depth cut for the run's time: every step runs eagerly, its "
 RANKS_GRAD_LAYERS = 4           # the f32 gradient check
 RANKS_ARGV = TRAIN_ARGV + ["--override", f"n_layers={RANKS_LAYERS}"]
 RANKED_FLAGS = ["--dist-backend", "gloo", "--device", "cuda:0"]
-RANKS_TIMEOUT = 420             # seconds a torchrun may take
+RANKS_TIMEOUT = 600             # seconds a torchrun may take
+# serving across the ranks: cell 1's setting (block 512, 2,048 prefill
+# tokens a worker, a 4x2 mesh) at RANKS_LAYERS deep, 16 new tokens a
+# request; per kind the requests and the serve CLI's own arguments
+SERVE_RANKS_ARGV = ["--arch", "stablelm_1_6b", "--mesh", "4x2",
+                    "--override", f"n_layers={RANKS_LAYERS}",
+                    "--block-size", "512", "--prefill-tokens-per-worker",
+                    "2048", "--tokens", "16"]
+SERVE_RANKS = {
+    # 8 slots (4 a rank), 64-2,048-token prompts
+    "decode": (8, ["--slots", "8", "--cache-len", "4096", "--prompt-min",
+                   "64", "--prompt-len", "2048", "--seed", "0"]),
+    # 2 slots, the cache's 12,288 positions 6,144 a rank; seed 5 draws
+    # prompts of 6,170, 6,994, 2,187 and 7,012 tokens: three span both
+    # ranks' prefill frames (4,096 tokens a rank) and caches
+    "long": (4, ["--slots", "2", "--cache-len", "12288", "--prompt-min",
+                 "2048", "--prompt-len", "8192", "--seed", "5"]),
+}
+SERVE_NULL_DRAWS = 3            # draws of the serving logits' noise floor
+SERVE_RANKS_WHY = ("requests cut from phase 3's 16 to 8 (decode) and 4 "
+                   "(long) for the run's time: a ranked loop runs every "
+                   "program eagerly, its prefill ships and inserts through "
+                   "gloo's loopback TCP, and its warmup builds every "
+                   "bucket from 32 to 4,096 (decode) or 8,192 (long)")
 
 
 def torchrun(nproc: int, argv: list, what: str) -> float:
@@ -3642,11 +3685,243 @@ def stacked_eager_steps(trainlib, argv, steps: int) -> dict:
             "peak_mem_gib": peak}
 
 
+def serve_ranks_args(kind: str, extra: list):
+    """The serve CLI's arguments of phase 9's ``kind`` run."""
+    from repro_torch.launch import serve as S
+    n, argv = SERVE_RANKS[kind]
+    return S.parse_args(SERVE_RANKS_ARGV + argv + extra + [
+        "--kind", kind, "--requests", str(n)])
+
+
+def serve_stacked(kind: str, dev) -> dict:
+    """The yardstick of a ranked serving run: the one-process stacked loop
+    of the same arguments, every program eager (``EagerPrograms``, as the
+    ranked ones run), in this process: its report (tokens, walls, peak),
+    its recorded logits (``ServingLoop.record``), and the logits' noise
+    floors at its first prefill batch and its first decode step: a null
+    test, as ``train_loss_check``'s, the plain path with each attention
+    output moved by the kernel's own deviation from it under random
+    signs, against the plain path (the largest of SERVE_NULL_DRAWS)."""
+    import torch
+    from repro_torch.launch import serve as S
+    args = serve_ranks_args(kind, ["--device", "cuda:0"])
+    release()
+    loop, _ = S.loop_from_args(args)
+    loop._program = EagerPrograms(dev)
+    first, state = [], {}
+    inner_prefill, inner_step = loop._prefill_and_insert, loop._dispatch_step
+
+    def spy_prefill(reqs, free):
+        if loop.record is not None and not first:
+            first.append((reqs[0].bucket, list(reqs)))
+        return inner_prefill(reqs, free)
+
+    def spy_step():
+        if loop.record is not None and not state:
+            state.update(tok=loop.state["tok"].clone(),
+                         pos=loop.state["pos"].clone(),
+                         cache={k: c.clone() for k, c in loop.cache.items()})
+        return inner_step()
+    loop._prefill_and_insert, loop._dispatch_step = spy_prefill, spy_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    report = S.serve(loop, args, record=True)
+    report["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def flipped(kern, plain):
+        def attn(*a):
+            o = plain(*a)
+            sign = torch.randint(0, 2, o.shape, generator=g, device=dev)
+            return o + (kern(*a) - o) * (2 * sign - 1).to(o.dtype)
+        return attn
+    E, reqs = first[0]
+    batch, last = loop.assemble(E, reqs)
+    rows = list(range(len(reqs)))
+
+    def prefill(attn):
+        step = S.build_prefill_step(loop.model, attn, loop.budget // E, E,
+                                    ragged=True)
+        return step(loop.params, batch, last)[0][rows].float()
+    fcp = {impl: S.make_fcp_attn_fn(loop._schedule_for(E), dev, loop.pcfg,
+                                    impl) for impl in ("fused", "fused_xla")}
+    plain = prefill(fcp["fused_xla"])
+    floor_prefill = max(_nerr(prefill(flipped(fcp["fused"],
+                                              fcp["fused_xla"])), plain)
+                        for _ in range(SERVE_NULL_DRAWS))
+    dec = {impl: S.build_decode_fns(loop.model.cfg, loop.mesh, kind, impl)
+           for impl in ("fused", "fused_xla")}
+    held = [r["slots"] for r in loop.record if r["phase"] == "decode"][0]
+
+    def decode(attn):
+        cache = {k: c.clone() for k, c in state["cache"].items()}
+        lg, _ = loop.model.decode_step(loop.params, state["tok"],
+                                       state["pos"], cache, attn,
+                                       dec["fused"][1])
+        return lg[held].float()
+    plain_d = decode(dec["fused_xla"][0])
+    floor_decode = max(_nerr(decode(flipped(dec["fused"][0],
+                                            dec["fused_xla"][0])), plain_d)
+                       for _ in range(SERVE_NULL_DRAWS))
+    out = {"report": report, "record": loop.record,
+           "floors": {"prefill": floor_prefill, "decode": floor_decode}}
+    del loop, state, batch, plain, plain_d
+    release()
+    return out
+
+
+def hold_serve_ranked(tag: str, reps: list, records: list, ref: dict,
+                      card: str) -> dict:
+    """A ranked serving run's checks against its stacked yardstick
+    (``serve_stacked``): 0 programs built after warmup and a plan-cache
+    hit on every prefill batch on every rank; kernels 1 and 2 launched in
+    each rank; each rank's bytes in the prefill ships, the inserts and the
+    merges equal to their host pricing; the plan keys and the tokens the
+    same on every rank; each prefill batch's last-token logits and the
+    first decode step's, on the rank that holds them, within BF16_FLOORS
+    noise floors of the stacked loop's.  The tokens that agree with the
+    stacked loop's are counted, not held (bf16 argmax near-ties may
+    flip)."""
+    for r in reps:
+        pcs = r["plan_cache"]
+        if r["recompiles"] != 0 or pcs["misses"] or \
+                pcs["hits"] != r["prefill_batches"]:
+            raise AssertionError(
+                f"ranks serve {tag}: rank {r['ranks']['rank']} recompiles "
+                f"{r['recompiles']}, plan cache {pcs} over "
+                f"{r['prefill_batches']} batches")
+        for name in ("fused_flash_fwd", "flash_attention_fwd"):
+            if r["launches"][name] <= 0:
+                raise AssertionError(f"ranks serve {tag}: {name} never "
+                                     f"launched in rank {r['ranks']['rank']}")
+        rk = r["ranks"]
+        for what in ("prefill_ship_bytes", "insert_bytes", "merge_bytes"):
+            if rk[what] != rk[what + "_priced"]:
+                raise AssertionError(
+                    f"ranks serve {tag}: rank {rk['rank']} {what} "
+                    f"{rk[what]} against their pricing "
+                    f"{rk[what + '_priced']}")
+    for key in ("plan_keys", "tokens"):
+        if any(r[key] != reps[0][key] for r in reps):
+            raise AssertionError(f"ranks serve {tag}: the ranks' {key} "
+                                 f"differ")
+    want = ref["report"]["tokens"]
+    got = {int(k): v for k, v in reps[0]["tokens"].items()}
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"ranks serve {tag}: requests {sorted(got)} "
+                             f"against the stacked loop's {sorted(want)}")
+    agree = sum(a == b for k in want for a, b in zip(got[k], want[k]))
+    total = sum(len(v) for v in want.values())
+    stk = {}
+    for e in ref["record"]:
+        for i, key in enumerate(e.get("rids", e.get("slots"))):
+            stk[e["phase"], key] = e["logits"][i]
+    errs = {"prefill": [], "decode": []}
+    for rec in records:
+        for e in rec:
+            for i, key in enumerate(e.get("rids", e.get("slots"))):
+                errs[e["phase"]].append(_nerr(e["logits"][i],
+                                              stk[e["phase"], key]))
+    worst = {k: max(v, default=0.0) for k, v in errs.items()}
+    for k in errs:
+        floor = ref["floors"][k]
+        if not errs[k] or worst[k] > BF16_FLOORS * floor:
+            raise AssertionError(
+                f"ranks serve {tag}: {k} logits against the stacked loop's "
+                f"{worst[k]:.3e} over {len(errs[k])} rows > {BF16_FLOORS} x "
+                f"the noise floor {floor:.3e}")
+    stacked = ref["report"]
+    out = {"run_wall_s": [r["run_wall_s"] for r in reps],
+           "stream_wall_s": [r["wall_s"] for r in reps],
+           "sustained_tok_s": [r["sustained_tok_s"] for r in reps],
+           "stacked_eager_wall_s": stacked["wall_s"],
+           "stacked_eager_tok_s": stacked["sustained_tok_s"],
+           "stacked_peak_mem_gib": stacked["peak_mem_gib"],
+           "warmup_s": [r["warmup_s"] for r in reps],
+           "prefill_batches": reps[0]["prefill_batches"],
+           "decode_steps": reps[0]["decode_steps"],
+           "prefill_ms_p50": [r["prefill_ms"]["p50"] for r in reps],
+           "decode_ms_p50": [r["decode_ms"]["p50"] for r in reps],
+           "peak_mem_gib": [r["peak_mem_gib"] for r in reps],
+           "ranks": [r["ranks"] for r in reps],
+           "launches": [{n: r["launches"][n] for n in (
+               "fused_flash_fwd", "flash_attention_fwd")} for r in reps],
+           "logits_err": worst, "logits_rows": {k: len(v)
+                                                for k, v in errs.items()},
+           "noise_floors": ref["floors"],
+           "tokens_agreeing": f"{agree} of {total}"}
+    log(f"  ranks serve {tag}: stream wall s "
+        f"{[round(x, 2) for x in out['stream_wall_s']]} ({[round(x, 1) for x in out['sustained_tok_s']]} tok/s) against "
+        f"the stacked eager loop's {stacked['wall_s']:.2f} s "
+        f"({stacked['sustained_tok_s']:.1f} tok/s); per rank bytes moved at"
+        f" inserts {[x['insert_bytes'] for x in out['ranks']]} "
+        f"({[round(x['insert_s'], 3) for x in out['ranks']]} s), sent in "
+        f"merges {[x['merge_bytes'] for x in out['ranks']]} "
+        f"({[round(x['merge_s'], 3) for x in out['ranks']]} s), in the "
+        f"prefill ships {[x['prefill_ship_bytes'] for x in out['ranks']]} "
+        f"({[round(x['prefill_ship_s'], 3) for x in out['ranks']]} s); "
+        f"peak GiB {[round(x, 2) for x in out['peak_mem_gib']]} (stacked "
+        f"{stacked['peak_mem_gib']:.2f}); logits err {worst} (floors "
+        f"{ref['floors']}); tokens agreeing {out['tokens_agreeing']}; on "
+        f"{card}")
+    return out
+
+
+def nccl_serve_one_rank(fa, kind: str) -> tuple[dict, list]:
+    """The serve CLI's loop in this process as the one rank of an NCCL
+    group (torchrun's environment set around it): its report (as
+    ``launch/ranks.serve_run`` writes one) and its recorded logits."""
+    import socket
+    import torch
+    from repro_torch.launch import serve as S
+    from repro_torch.runtime import wire
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(fa)
+    wire.reset_wire_stats()
+    args = serve_ranks_args(kind, ["--dist-backend", "nccl", "--device",
+                                   "cuda"])
+    t0 = time.perf_counter()
+    try:
+        loop, joined = S.loop_from_args(args)
+        try:
+            report = S.serve(loop, args, record=True)
+        finally:
+            wire.barrier(loop.ranks)
+            if joined:
+                wire.leave()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    import hashlib
+    report.update(
+        run_wall_s=time.perf_counter() - t0, launches=read_counters(fa),
+        plan_keys=sorted(hashlib.sha256(repr(k).encode()).hexdigest()[:16]
+                         for k in loop.plan_cache.keys()),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    record = loop.record
+    del loop
+    release()
+    return json.loads(json.dumps(report)), record
+
+
 def ranks_phase(fa, trainlib, dev, card: str) -> dict:
     """Phase 9 (module docstring): one torchrun of two gloo ranks for the
-    fused run, the pallas run and the gradient check
-    (``repro_torch.launch.ranks``), then the one-rank NCCL run here."""
+    fused run, the pallas run, the gradient check and the serving runs
+    (``repro_torch.launch.ranks``), then the one-rank NCCL runs here."""
     import shutil
+    import torch
     release()
     out = {"depth": {"n_layers": RANKS_LAYERS, "why": RANKS_WHY}}
     out["stacked_bf16_step0_loss"] = ref = timed(
@@ -3659,15 +3934,23 @@ def ranks_phase(fa, trainlib, dev, card: str) -> dict:
         f"{[round(x, 1) for x in st['step_ms']]}, losses {st['losses']}, "
         f"peak {st['peak_mem_gib']:.2f} GiB; on {card}")
     priced = ranks_pricing(trainlib, RANKS_ARGV, 3, RANKS)
+    stacked = {}
+    for kind in SERVE_RANKS:
+        stacked[kind] = timed(f"ranks stacked serve {kind}",
+                              lambda: serve_stacked(kind, dev))
     out_dir = os.path.join(BUILD, "ranks")
     shutil.rmtree(out_dir, ignore_errors=True)
+    serve_runs = []
+    for kind, (n, argv) in SERVE_RANKS.items():
+        serve_runs += ["--serve", " ".join(
+            [f"{kind}:{n}", *SERVE_RANKS_ARGV, *argv, *RANKED_FLAGS])]
     wall = torchrun(RANKS, [
         "-m", "repro_torch.launch.ranks", "--out", out_dir, "--runs",
-        "fused:3,pallas:1", "--grad-layers", str(RANKS_GRAD_LAYERS), "--",
-        *RANKS_ARGV, *RANKED_FLAGS], "gloo")
+        "fused:3,pallas:1", "--grad-layers", str(RANKS_GRAD_LAYERS),
+        *serve_runs, "--", *RANKS_ARGV, *RANKED_FLAGS], "gloo")
     out["torchrun_wall_s"] = wall
-    log(f"  ranks torchrun (2 gloo ranks: fused, pallas, gradient check): "
-        f"wall {wall:.1f} s")
+    log(f"  ranks torchrun (2 gloo ranks: fused, pallas, gradient check, "
+        f"serving {', '.join(SERVE_RANKS)}): wall {wall:.1f} s")
     for impl, kernels, loss_ref in (("fused", PATH_KERNELS["fused"], ref),
                                     ("pallas", PATH_KERNELS["pallas"], None)):
         reps = rank_reports(os.path.join(out_dir, impl), RANKS)
@@ -3689,6 +3972,19 @@ def ranks_phase(fa, trainlib, dev, card: str) -> dict:
     nccl[nccl.index("--steps") + 1] = "2"
     out["nccl_one_rank"] = hold_ranked("nccl one rank", nccl_one_rank(
         fa, trainlib, nccl), PATH_KERNELS["fused"], None, ref, card)
+    out["serve"] = {"requests_why": SERVE_RANKS_WHY,
+                    "settings": {k: SERVE_RANKS_ARGV + v[1]
+                                 for k, v in SERVE_RANKS.items()}}
+    for kind in SERVE_RANKS:
+        d = os.path.join(out_dir, f"serve_{kind}")
+        reps = rank_reports(d, RANKS)
+        records = [torch.load(os.path.join(d, f"rank{r}_logits.pt"))
+                   for r in range(RANKS)]
+        out["serve"][kind] = hold_serve_ranked(f"gloo {kind}", reps, records,
+                                               stacked[kind], card)
+    rep, rec = nccl_serve_one_rank(fa, "long")
+    out["serve"]["nccl_one_rank_long"] = hold_serve_ranked(
+        "nccl one rank long", [rep], [rec], stacked["long"], card)
     return out
 
 
@@ -4225,12 +4521,15 @@ def main() -> int:
                                "shapes": []}
             kernels.append(seen[r["name"]])
         seen[r["name"]]["shapes"].append(entry)
-    # the ranked path's own counts: each rank's launches over its run
+    # the ranked paths' own counts: each rank's launches over each run
+    # that runs the kernel (training fused or pallas, the serving runs)
+    ranked_runs = {"train " + t: ranked[t] for t in ("fused", "pallas")}
+    ranked_runs.update({"serve " + t: ranked["serve"][t] for t in (
+        *SERVE_RANKS, "nccl_one_rank_long")})
     for k in kernels:
-        for tag in ("fused", "pallas"):
-            if k["name"] in ranked[tag]["launches"][0]:
-                k["launches_ranks"] = [x[k["name"]]
-                                       for x in ranked[tag]["launches"]]
+        k["launches_ranks"] = {tag: [x[k["name"]] for x in r["launches"]]
+                               for tag, r in ranked_runs.items()
+                               if k["name"] in r["launches"][0]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -51,7 +51,9 @@ the same bytes (``tests/test_torch_train.py``).
 Also provides ``cp_decode_attention`` / ``cp_cache_update``: decode
 against a KV cache whose sequence dim is split into shards; the
 per-shard partials merge with a plain reduction over the shard dim (the
-reference's pmax/psum).
+reference's pmax/psum).  With the shards split over ranks (``ranks=``)
+each rank attends its own and the partials are gathered across ranks
+(``runtime/wire.gather``) before the same reduction.
 
 For the layer-pipelined reshuffle, ``fcp_attention(...,
 layout="sched")`` takes q/k/v already in the schedule layout and returns
@@ -533,7 +535,9 @@ def timed_call(fn, *args):
 # --------------------------------------------------------------------------
 
 def cp_decode_attention(q, k_cache, v_cache, lengths, *, n_shards: int = 1,
-                        cfg: ExecConfig = ExecConfig()) -> torch.Tensor:
+                        cfg: ExecConfig = ExecConfig(),
+                        ranks: wirelib.Ranks = wirelib.STACKED
+                        ) -> torch.Tensor:
     """One-token decode against a cache split into ``n_shards`` sequence
     shards.  q: ``[B, HQ, D]``; k/v_cache: ``[B, S, KH, D]``; lengths:
     ``[B]`` valid cache lengths.  Returns o ``[B, HQ, D]`` f32.
@@ -541,30 +545,50 @@ def cp_decode_attention(q, k_cache, v_cache, lengths, *, n_shards: int = 1,
     Each shard attends over its own S range (one kernel launch covers
     every (slot, shard) pair as a batch row); the per-shard partials
     merge with a flash reduction over the shard dim — the reference's
-    pmax/psum across the sequence axes."""
+    pmax/psum across the sequence axes.
+
+    ``ranks`` is the process group the sequence shards are split over
+    (``--kind long``: the cache's sequence over the data and model axes,
+    the data axis over the ranks): the cache is then this rank's
+    ``n_shards / R`` shards, positions ``[r·S, (r+1)·S)`` of the whole,
+    and the partials of every rank are gathered (``wire.gather``) and
+    merged in shard order on each, so every rank ends with the same
+    bytes.  A batch split over the ranks (``--kind decode``) needs no
+    group here: each rank passes its own slots."""
     B, S, KH, D = k_cache.shape
-    if S % n_shards:
+    if n_shards % ranks.size:
+        raise ValueError(f"{ranks.size} ranks do not divide {n_shards} "
+                         f"cache shards")
+    n_loc = n_shards // ranks.size
+    if S % n_loc:
         raise ValueError(f"cache length {S} not divisible into "
-                         f"{n_shards} shards")
-    shard_len = S // n_shards
+                         f"{n_loc} shards")
+    shard_len = S // n_loc
     # The cache is read in its own layout through strides: [B*n, KH,
     # shard_len, D] below is a view, not a copy.  The reference's
     # kb.transpose(1, 0, 2) (src/repro/core/executor.py:487) is free
     # under XLA, but in eager PyTorch a transposed copy would move the
     # whole cache once per layer per token.
-    kc = k_cache.view(B * n_shards, shard_len, KH, D).transpose(1, 2)
-    vc = v_cache.view(B * n_shards, shard_len, KH, D).transpose(1, 2)
+    kc = k_cache.view(B * n_loc, shard_len, KH, D).transpose(1, 2)
+    vc = v_cache.view(B * n_loc, shard_len, KH, D).transpose(1, 2)
     pos_k = torch.arange(S, dtype=torch.int32, device=q.device)
+    if ranks.rank:
+        pos_k = pos_k + ranks.rank * S          # this rank's positions
     seg_k = torch.where(pos_k[None] < lengths[:, None], 0, -1)
-    seg_k = seg_k.to(torch.int32).view(B * n_shards, shard_len)
-    pos_k = pos_k.view(n_shards, shard_len).repeat(B, 1)
+    seg_k = seg_k.to(torch.int32).view(B * n_loc, shard_len)
+    pos_k = pos_k.view(n_loc, shard_len).repeat(B, 1)
     zero = torch.zeros((1,), dtype=torch.int32, device=q.device)
-    qq = q[:, None].expand(B, n_shards, *q.shape[1:])
-    qq = qq.reshape(B * n_shards, q.shape[1], 1, D)
+    qq = q[:, None].expand(B, n_loc, *q.shape[1:])
+    qq = qq.reshape(B * n_loc, q.shape[1], 1, D)
     o, lse = ops.block_attention(qq, kc, vc, zero, zero, seg_k, pos_k,
                                  mask=False, impl=cfg.kernel_impl)
-    o = o.view(B, n_shards, -1, D)
-    lse = lse.view(B, n_shards, -1)
+    o = o.view(B, n_loc, -1, D)
+    lse = lse.view(B, n_loc, -1)
+    if ranks.grouped:
+        # every rank's shards, in shard order: [B, n_shards, HQ, D + 1]
+        part = wirelib.gather(torch.cat([o, lse[..., None]], dim=-1),
+                              ranks, dim=1)
+        o, lse = part[..., :D], part[..., D]
     # flash merge across sequence shards (numerically exact)
     m = lse.amax(dim=1, keepdim=True)
     w = torch.exp(lse - m)
@@ -573,15 +597,22 @@ def cp_decode_attention(q, k_cache, v_cache, lengths, *, n_shards: int = 1,
     return num / torch.clamp(den, min=1e-37)[..., None]
 
 
-def cp_cache_update(cache, new, pos):
+def cp_cache_update(cache, new, pos,
+                    ranks: wirelib.Ranks = wirelib.STACKED):
     """Write one token per row into a ``[B, S, KH, D]`` cache, **in
     place** (and return it).  new: ``[B, KH, D]``; pos: ``[B]``.
 
     On stacked shards the reference's per-shard masked write collapses
     into one masked row write: the row at ``pos`` takes ``new`` when
     ``0 <= pos < S`` and keeps its bytes otherwise (an overrun drops
-    the write, as no shard owns it)."""
+    the write, as no shard owns it).  With the sequence split over
+    ``ranks`` (``cp_decode_attention``) the cache holds positions
+    ``[r·S, (r+1)·S)`` and only the rank that owns ``pos`` writes, at
+    ``pos - r·S``; a position past the last rank's is dropped the same
+    way."""
     B, S = cache.shape[:2]
+    if ranks.rank:
+        pos = pos - ranks.rank * S
     rows = torch.arange(B, device=cache.device)
     lp = pos.clamp(0, S - 1).long()
     in_range = ((pos >= 0) & (pos < S))[:, None, None]

@@ -292,8 +292,12 @@ def fused_flash_fwd_plain(step_q, step_kv, qs, kxt, vxt, q_seg, q_pos,
                            reduce="amax")
     w_a = torch.exp(a_l - m)
     w_p = torch.exp(lse_p - m[flat])
-    den = w_a.index_add(0, flat, w_p)
-    num = (a_o * w_a[..., None]).index_add(0, flat, o_p * w_p[..., None])
+    # index_put's accumulate sorts the indices and sums each slot's
+    # partials in one order (index_add's CUDA atomics do not), so the
+    # plain version gives the same bytes run after run
+    den = w_a.index_put((flat,), w_p, accumulate=True)
+    num = (a_o * w_a[..., None]).index_put((flat,), o_p * w_p[..., None],
+                                           accumulate=True)
     # visited slots take the merge, the others keep their bytes (a mask,
     # not ``torch.unique``: no host sync or copy, so a CUDA graph can
     # capture it)
@@ -424,7 +428,7 @@ def fused_flash_bwd_dq_plain(step_q, step_kv, qs, kxt, vxt, q_seg, q_pos,
                              k_seg, k_pos, lse, go, delta, *, mask=True,
                              scale: float | None = None):
     """Plain PyTorch version of :func:`fused_flash_bwd_dq`: the per-step
-    dq of every step, summed into its q slot (one ``index_add``)."""
+    dq of every step, summed into its q slot (one sorted ``index_put``)."""
     batched = qs.ndim == 5
     args = [step_q, step_kv, qs, kxt, vxt, q_seg, q_pos, k_seg, k_pos, lse,
             go, delta]
@@ -440,8 +444,8 @@ def fused_flash_bwd_dq_plain(step_q, step_kv, qs, kxt, vxt, q_seg, q_pos,
     ni = torch.arange(N, device=qs.device)[:, None]
     flat = (ni * SL + step_q.long()).reshape(-1)
     dq = torch.zeros((N * SL, H, bs, D), dtype=torch.float32,
-                     device=qs.device).index_add(
-        0, flat, dq_s.reshape(-1, H, bs, D))
+                     device=qs.device).index_put(
+        (flat,), dq_s.reshape(-1, H, bs, D), accumulate=True)
     dq = dq.view(N, SL, H, bs, D)
     return dq if batched else dq[0]
 
@@ -523,8 +527,9 @@ def fused_flash_bwd_dkv_plain(bwd_q, bwd_kv, qs, kxt, vxt, q_seg, q_pos,
     out = []
     for x in (dk_s, dv_s):
         y = torch.zeros((N * EX, KH, bs, D), dtype=torch.float32,
-                        device=qs.device).index_add(
-            0, flat, x.reshape(-1, KH, bs, D)).view(N, EX, KH, bs, D)
+                        device=qs.device).index_put(
+            (flat,), x.reshape(-1, KH, bs, D), accumulate=True
+        ).view(N, EX, KH, bs, D)
         out.append(y if batched else y[0])
     return out[0], out[1]
 

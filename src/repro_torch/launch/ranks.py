@@ -1,5 +1,6 @@
-"""The training CLI across ranks, checked: its runs under each executor
-impl, and its first step's gradients against one process's.
+"""The training and serving CLIs across ranks, checked: the training
+runs under each executor impl, the first step's gradients against one
+process's, and serving runs of each cache layout.
 
 Run it under ``torchrun`` from the repository root, with the training
 CLI's arguments for a ranked run (``launch/train.py``)::
@@ -29,15 +30,34 @@ then:
   computes the whole batch's loss and gradients there, and writes per
   impl both losses and the worst leaf's error (``max |ranked - stacked|
   / max |stacked|``) to ``DIR/grads.json``.  The AdamW moments are
-  dropped first: no step is taken.
+  dropped first: no step is taken;
+* runs the serve CLI (``launch/serve.py``) once for each ``--serve
+  "KIND:REQUESTS ARGS"`` (ARGS the serve CLI's own, in one string), with
+  ``--kind KIND --requests REQUESTS``: its warmup and its stream, with
+  the kernels' launch counters, the wire's statistics and the peak from
+  0 before it; each rank writes the report (``launch/serve.serve``: the
+  tokens of every request, the programs built after warmup, the rank's
+  bytes measured and priced; ``wall_s`` the stream's, ``run_wall_s``
+  the loop's construction, warmup and stream) to
+  ``DIR/serve_<KIND>/rank<r>.json`` and
+  the last-token logits of each prefill batch's rows it holds and of the
+  stream's first decode step (``ServingLoop.record``) to
+  ``rank<r>_logits.pt`` beside it.
+
+Every run shares the one process group, so one ``torchrun`` takes them
+all (a torchrun per run cost the card's smoke about 100 s of start-up).
+Serving alone (``--runs ''``, no ARGS after ``--``) takes the group's
+backend and device from the first ``--serve``'s arguments.
 """
 
 from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
 import json
 import os
+import shlex
 import time
 
 import torch
@@ -46,6 +66,7 @@ from .. import resolve_device
 from ..kernels import flash_attention as fa
 from ..optimizer import adamw
 from ..runtime import wire as wirelib
+from . import serve as S
 from . import train as T
 from .mesh import parse_mesh
 
@@ -119,6 +140,32 @@ def grad_check(train_argv: list, impls: list, n_layers: int) -> dict | None:
     return out
 
 
+def serve_run(spec: str, out: str, device: torch.device) -> None:
+    """One ``--serve`` run (module docstring)."""
+    head, *argv = shlex.split(spec)
+    kind, requests = head.split(":")
+    args = S.parse_args(argv + ["--kind", kind, "--requests", requests])
+    _fresh(device)
+    t0 = time.perf_counter()
+    loop, _ = S.loop_from_args(args)
+    report = S.serve(loop, args, record=True)
+    report.update(
+        run_wall_s=time.perf_counter() - t0, device=str(device),
+        launches={f.__name__: f.launches for f in fa.COUNTED},
+        wire=wirelib.wire_stats(),
+        plan_keys=sorted(hashlib.sha256(repr(k).encode()).hexdigest()[:16]
+                         for k in loop.plan_cache.keys()),
+        peak_mem_gib=(torch.cuda.max_memory_allocated(device) / 2**30
+                      if device.type == "cuda" else None))
+    run_dir = os.path.join(out, f"serve_{kind}")
+    os.makedirs(run_dir, exist_ok=True)
+    r = loop.ranks.rank
+    with open(os.path.join(run_dir, f"rank{r}.json"), "w") as f:
+        json.dump(report, f)
+    torch.save(loop.record, os.path.join(run_dir, f"rank{r}_logits.pt"))
+    wirelib.barrier(loop.ranks)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--out", required=True)
@@ -126,17 +173,28 @@ def main(argv=None) -> None:
                    help="comma-separated impl:steps, one CLI run each")
     p.add_argument("--grad-layers", type=int, default=0,
                    help="the gradient check's depth (0: no check)")
+    p.add_argument("--serve", action="append", default=[],
+                   metavar="'KIND:REQUESTS ARGS'",
+                   help="a serving run: its cache layout and request "
+                        "count, then the serve CLI's arguments (one "
+                        "string; repeatable)")
     p.add_argument("train_argv", nargs=argparse.REMAINDER)
     args = p.parse_args(argv)
     train_argv = [x for x in args.train_argv if x != "--"]
-    targs = T.parse_args(train_argv)
+    runs = [run.split(":") for run in args.runs.split(",") if run]
+    if train_argv:
+        targs = T.parse_args(train_argv)
+    elif args.serve and not (runs or args.grad_layers):
+        targs = S.parse_args(shlex.split(args.serve[0])[1:])
+    else:
+        raise SystemExit("the training runs need the training CLI's "
+                         "arguments after --")
     env = wirelib.launch_env()
     if env is None:
         raise SystemExit("run it under torchrun (no process group)")
     device = resolve_device(T.ranked_device(targs.dist_backend,
                                             targs.device, env))
     ranks = wirelib.join(targs.dist_backend, device)
-    runs = [run.split(":") for run in args.runs.split(",")]
     try:
         for impl, steps in runs:
             _fresh(device)
@@ -155,6 +213,8 @@ def main(argv=None) -> None:
             if out is not None:
                 with open(os.path.join(args.out, "grads.json"), "w") as f:
                     json.dump(out, f)
+        for spec in args.serve:
+            serve_run(spec, args.out, device)
     finally:
         wirelib.barrier(ranks)
         wirelib.leave()

@@ -40,6 +40,27 @@
   ``prefill_fn(E, impl)``, ``_insert_rows`` and ``_fresh_rows``.
 * :class:`LatencyStats` — per-request queue/prefill/decode p50/p99 and
   sustained tokens/sec, on ``time.perf_counter``.
+
+**Across processes.**  On a mesh whose ranks form a process group
+(``StackedMesh.with_ranks``; ``launch/serve.py`` under ``torchrun``)
+every rank runs the same host loop — the same queue, buckets, slot
+choices and plan keys, since the host mirrors every slot's counters
+deterministically — and holds only its share (:class:`RankLayout`): its
+frames of each packed prefill batch, and of the decode cache and state
+the rows ``launch/serve.cache_share`` gives it (its slots under
+``decode``; every slot, and its range of the sequence, under ``long``,
+where each decode step merges the ranks' partials).  A batch's insert
+moves each prompt's cache rows and its first token from the ranks that
+computed them to the ranks that hold the slot (``wire.move`` over
+:func:`insert_tables`, priced by :func:`insert_wire_bytes`); a finished
+slot's tokens are moved from its owner to every rank.  The weights are
+checked alike at the start (``wire.agree`` on a digest) and each new
+bucket's plan key when it is built.  Every program runs uncaptured
+(``graphs.Program(capture=False)``: gloo's ops cannot be captured, and
+NCCL capture is ROADMAP Queue A item 4.7) with the same builds and
+compile counts as stacked.  ``report()["ranks"]`` holds the rank's
+bytes (measured and priced) and host seconds in the prefill ships, the
+inserts' moves and the decode merges.
 """
 
 from __future__ import annotations
@@ -61,7 +82,9 @@ from ..launch import serve as servelib
 from ..launch.mesh import stacked_frames
 from ..models import Model
 from ..models.registry import RECURRENT, dense_attn_fn
+from ..optimizer.adamw import tree_leaves
 from . import graphs
+from . import wire as wirelib
 
 
 class QueueFull(RuntimeError):
@@ -217,6 +240,105 @@ class _SlotMeta:
 
 
 # --------------------------------------------------------------------------
+# across ranks: who holds what, the insert's moves and their prices
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RankLayout:
+    """How a loop's work splits over ``size`` ranks: each holds
+    ``tokens`` of a packed prefill batch (its frames; rank r the range
+    from ``r * tokens``), and of the decode cache ``slots`` slots and
+    ``positions`` positions of each (``launch/serve.cache_share``: under
+    ``decode`` the slots are split and every rank holds every position,
+    under ``long`` every rank holds every slot and the positions are
+    split)."""
+
+    size: int
+    kind: str
+    tokens: int
+    slots: int
+    positions: int
+
+    def owners(self, slot: int) -> tuple:
+        """The ranks that hold ``slot``'s state."""
+        if self.kind == "long":
+            return tuple(range(self.size))
+        return (slot // self.slots,)
+
+    def local_slot(self, slot: int, rank: int) -> int:
+        return slot if self.kind == "long" else slot - rank * self.slots
+
+
+def insert_tables(lay: RankLayout, E: int, slots, last) -> tuple:
+    """The ``wire.move`` tables of one prefill batch's insert (the same on
+    every rank): ``(kv, first)``.  Row i of the batch (stream tokens
+    ``[i·E, (i+1)·E)``) fills positions ``[0, E)`` of slot ``slots[i]``;
+    ``kv`` moves those rows from the ranks that computed them into the
+    rows ``local slot · positions + local position`` of the ranks that
+    hold them (a ``[L, slots · positions, KH, D]`` view of the cache).
+    ``first`` moves row i's first generated token (its argmax, on the
+    rank that holds the row's last token ``i·E + last[i]``) into every
+    owner's ``local slot``."""
+    kv, first = [], []
+    T, P = lay.tokens, lay.positions
+    for i, slot in enumerate(slots):
+        p = 0
+        while p < E:
+            t = i * E + p
+            src = t // T
+            n = min(E - p, (src + 1) * T - t)
+            if lay.kind == "long":
+                dst = p // P
+                n = min(n, (dst + 1) * P - p)
+                row = slot * P + p - dst * P
+            else:
+                dst = slot // lay.slots
+                row = lay.local_slot(slot, dst) * P + p
+            kv.append((src, dst, t - src * T, row, n))
+            p += n
+        holder = (i * E + int(last[i])) // T
+        first += [(holder, o, i, lay.local_slot(slot, o), 1)
+                  for o in lay.owners(slot)]
+    return kv, first
+
+
+def insert_wire_bytes(lay: RankLayout, rank: int, E: int, slots, last,
+                      kv_row_bytes: int) -> int:
+    """The bytes ``rank`` sends in one batch's insert, counted from the
+    layout alone (not from :func:`insert_tables`): of each row's stream
+    tokens it holds, those whose cache rows another rank holds
+    (``kv_row_bytes`` a token: k and v over the layers), and 4 bytes (an
+    int32 token) to every other owner of a slot whose row's last token it
+    holds."""
+    T, P = lay.tokens, lay.positions
+    lo, hi = rank * T, (rank + 1) * T
+    sent = 0
+    for i, slot in enumerate(slots):
+        a, b = max(i * E, lo), min((i + 1) * E, hi)
+        if a < b:
+            if lay.kind == "long":
+                pa, pb = a - i * E, b - i * E
+                mine = max(0, min(pb, (rank + 1) * P) - max(pa, rank * P))
+                sent += (pb - pa - mine) * kv_row_bytes
+            elif rank not in lay.owners(slot):
+                sent += (b - a) * kv_row_bytes
+        if lo <= i * E + int(last[i]) < hi:
+            sent += 4 * sum(o != rank for o in lay.owners(slot))
+    return sent
+
+
+def merge_wire_bytes(lay: RankLayout, n_layers: int, n_heads: int,
+                     head_dim: int, n_shards: int) -> int:
+    """The bytes a rank sends in one decode step's merges: under ``long``
+    every layer gathers each rank's f32 partials ``[slots, n_shards / R,
+    heads, head_dim + 1]`` (o and lse); under ``decode`` nothing."""
+    if lay.kind != "long" or lay.size == 1:
+        return 0
+    share = lay.slots * (n_shards // lay.size) * n_heads * (head_dim + 1) * 4
+    return n_layers * share * (lay.size - 1)
+
+
+# --------------------------------------------------------------------------
 # the serving loop
 # --------------------------------------------------------------------------
 
@@ -245,6 +367,12 @@ class ServingLoop:
         self.pcfg, self.scfg = pcfg, scfg
         cfg = model.cfg
         axis_sizes = dict(mesh.shape)
+        self.ranks = getattr(mesh, "ranks", wirelib.STACKED)
+        if self.ranks.grouped:
+            servelib.check_ranked(cfg, scfg, axis_sizes, self.ranks.size)
+            if pcfg.overlap:
+                servelib.refuse_ranked("--overlap", "--overlap with "
+                                       "asynchronous P2P")
         # prefill frames stack over the same axes as training batches
         self.n_cp = stacked_frames(mesh)
         self.tpw = int(scfg.prefill_tokens_per_worker)
@@ -288,13 +416,36 @@ class ServingLoop:
                 f"decode_slots {B} must be a multiple of the "
                 f"{batch_axis!r} mesh axis ({axis_sizes[batch_axis]})")
         self.params = params
-        self.cache = model.init_cache(B, scfg.cache_len, self.device)
-        self.state = self._init_state(B)
+        # this rank's slots and cache positions (all of both, stacked)
+        self.share = servelib.cache_share(mesh, scfg.kind, B,
+                                          scfg.cache_len)
+        (s0, s1), (p0, p1) = self.share
+        self.cache = model.init_cache(s1 - s0, p1 - p0, self.device)
+        self.state = self._init_state(s1 - s0)
         self._slots: list[_SlotMeta | None] = [None] * B
+        # across ranks: the RankLayout and this rank's stream tokens
+        self.layout = self._tokens = None
+        if self.ranks.grouped:
+            f0, f1 = mesh.frames
+            self.layout = RankLayout(self.ranks.size, scfg.kind,
+                                     (f1 - f0) * self.tpw, s1 - s0, p1 - p0)
+            self._tokens = (f0 * self.tpw, f1 * self.tpw)
+            # each insert's first generated token, moved to the slot's
+            # owners
+            self._first = torch.zeros((s1 - s0,), dtype=torch.int32,
+                                      device=self.device)
+            # replicated weights: every rank starts from the same bytes
+            wirelib.agree("parameters", wirelib.digest(
+                tree_leaves(params)), self.ranks, self.device)
         self._prefill_fns: dict = {}        # (E, impl) -> prefill step
+        self._scheds: dict = {}             # E -> its last batch's plan
         self._programs: dict = {}           # name -> graphs.Program
         self._pool = None                   # prefill + insert graph pool
         self.last_logits = None             # decode logits (tests)
+        # a list: each prefill batch's held last-token logits and the
+        # first decode step's after each reset_counters() go there
+        # (on the host; for checks against another loop)
+        self.record: list | None = None
         self.reset_counters()
 
     # -- counters / introspection -----------------------------------------
@@ -306,6 +457,14 @@ class ServingLoop:
         self.prefill_rows = 0
         self.prefill_rows_real = 0
         self.decode_steps = 0
+        # across ranks: this rank's bytes (measured and priced) and host
+        # seconds in the prefill ships, the inserts' moves, the decode
+        # merges and the fetches of finished tokens
+        self.wire = {k: 0 for k in (
+            "prefill_ship_bytes", "prefill_ship_bytes_priced",
+            "insert_bytes", "insert_bytes_priced", "merge_bytes",
+            "merge_bytes_priced", "fetch_bytes")}
+        self.wire.update(prefill_ship_s=0.0, insert_s=0.0, merge_s=0.0)
 
     def compile_counts(self) -> dict[str, int]:
         """Programs built per program (the reference's per-jitted-function
@@ -319,16 +478,21 @@ class ServingLoop:
         """The program ``name`` (made at its first use around ``fn``).
         The decode program keeps a graph memory pool of its own; the
         prefill and insert programs share one (``graphs`` pool rule: a
-        prefill's outputs are inserted before another of them runs)."""
+        prefill's outputs are inserted before another of them runs).
+        Across ranks a program runs its ``fn`` uncaptured (one build per
+        key all the same): gloo's ops cannot be captured in a CUDA graph,
+        and a capture of NCCL's is ROADMAP Queue A item 4.7."""
         prog = self._programs.get(name)
         if prog is None:
             pool = None
-            if self.device.type == "cuda" and name != "loop_step":
+            capture = not self.ranks.grouped
+            if capture and self.device.type == "cuda" and \
+                    name != "loop_step":
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
                 pool = self._pool
-            prog = self._programs[name] = graphs.Program(name, fn,
-                                                         self.device, pool)
+            prog = self._programs[name] = graphs.Program(
+                name, fn, self.device, pool, capture=capture)
         return prog
 
     def n_active(self) -> int:
@@ -408,13 +572,16 @@ class ServingLoop:
 
     def _insert_args(self, row: int, slot: int, pos0: int, first_tail: int,
                      has_tail: bool, tail_row: np.ndarray, tail_len: int,
-                     max_new: int) -> torch.Tensor:
+                     max_new: int, own: bool | None = None) -> torch.Tensor:
         """One insert's arguments as one int32 vector (the reference's
         traced scalars; ``_unpack`` reads it on the device), pinned on the
-        card, so the program's copy does not wait on the device."""
+        card, so the program's copy does not wait on the device.  Across
+        ranks ``slot`` is the local slot and ``own`` (whether this rank
+        holds it) ends the vector."""
         a = np.concatenate([np.array(
             [row, slot, pos0, first_tail, int(has_tail), tail_len,
-             max_new], np.int32), tail_row.astype(np.int32)])
+             max_new], np.int32), tail_row.astype(np.int32),
+            np.array([int(own)] if own is not None else [], np.int32)])
         t = torch.from_numpy(a)
         return t.pin_memory() if self.device.type == "cuda" else t
 
@@ -424,11 +591,14 @@ class ServingLoop:
         max_new), each ``[1]``, and the tail row of ``_insert_args``."""
         return tuple(args[i:i + 1] for i in range(7)) + (args[7:],)
 
-    def _write_slot(self, args: torch.Tensor, first: torch.Tensor) -> None:
+    def _write_slot(self, args: torch.Tensor, first: torch.Tensor,
+                    own: torch.Tensor | None = None) -> None:
         """The slot state of one insert, from its argument vector and the
         first generated token ``first`` (``[1]``): a slot with a tail
         feeds its first tail token and has generated nothing; one without
-        feeds ``first``, already generated."""
+        feeds ``first``, already generated.  With ``own`` (``[1]`` bool,
+        across ranks) a rank that does not hold the slot keeps its
+        bytes."""
         st = self.state
         _, slot, pos0, tail0, has_tail, tail_len, max_new, tail_row = \
             self._unpack(args)
@@ -436,15 +606,24 @@ class ServingLoop:
         gen0 = torch.where(has_tail, 0, 1).to(torch.int32)
         gen_row = torch.zeros_like(st["gen_buf"][:1])
         gen_row[:, 0] = torch.where(has_tail, 0, first)
-        st["tok"].index_copy_(0, slot, torch.where(has_tail, tail0, first))
-        st["pos"].index_copy_(0, slot, pos0)
-        st["active"].index_copy_(0, slot, gen0 < max_new)
-        st["tail_buf"].index_copy_(0, slot, tail_row[None])
-        st["tail_idx"].index_fill_(0, slot, 0)
-        st["tail_len"].index_copy_(0, slot, tail_len)
-        st["gen_buf"].index_copy_(0, slot, gen_row)
-        st["gen_idx"].index_copy_(0, slot, gen0)
-        st["max_new"].index_copy_(0, slot, max_new)
+
+        def put(name, value):
+            if own is not None:
+                old = st[name].index_select(0, slot)
+                value = torch.where(own.view((1,) * old.ndim), value, old)
+            st[name].index_copy_(0, slot, value)
+        put("tok", torch.where(has_tail, tail0, first))
+        put("pos", pos0)
+        put("active", gen0 < max_new)
+        put("tail_buf", tail_row[None])
+        if own is None:
+            st["tail_idx"].index_fill_(0, slot, 0)
+        else:
+            put("tail_idx", torch.zeros_like(tail_len))
+        put("tail_len", tail_len)
+        put("gen_buf", gen_row)
+        put("gen_idx", gen0)
+        put("max_new", max_new)
 
     def _insert_rows(self, pcache: dict, plogits: torch.Tensor,
                      args: torch.Tensor) -> None:
@@ -461,6 +640,16 @@ class ServingLoop:
                              dim=-1).to(torch.int32)
         self._write_slot(args, first)
 
+    def _insert_moved(self, args: torch.Tensor) -> None:
+        """The eager insert across ranks (program ``insert_{E}``): the
+        slot state of one request, on every rank, from its argument
+        vector (``own`` last) and its first generated token, which the
+        batch's ``wire.move`` left in ``_first`` (its cache rows too).  A
+        rank that does not hold the slot writes nothing."""
+        own = args[-1:].bool()
+        slot = args[1:2].long()
+        self._write_slot(args[:-1], self._first.index_select(0, slot), own)
+
     def _fresh_rows(self, args: torch.Tensor) -> None:
         """The eager fresh insert (program ``fresh_insert``): the slot's
         cache rows are zeroed and the whole prompt teacher-forces from
@@ -473,19 +662,21 @@ class ServingLoop:
 
     # -- prefill -----------------------------------------------------------
 
-    def _schedule_for(self, E: int):
-        """Plan-cache-backed FCP schedule for bucket ``E`` — looked up
-        on every prefill batch, so the cache stats prove the reuse."""
+    def _plan_key(self, E: int):
         pcfg = self.pcfg
-        key = pc.prefill_plan_key(
+        return pc.prefill_plan_key(
             E, self.budget, self.n_cp, pcfg.block_size, mask=True,
             coalesce=pcfg.coalesce, locality=pcfg.locality,
             wire=pcfg.comm_dtype, in_dtype_bytes=pcfg.in_dtype_bytes,
             overlap=pcfg.overlap, extra=self._heads)
+
+    def _schedule_for(self, E: int):
+        """Plan-cache-backed FCP schedule for bucket ``E`` — looked up
+        on every prefill batch, so the cache stats prove the reuse."""
         comp = list(pc.prefill_composition(E, self.budget))
         return self.plan_cache.get_or_build(
-            key, lambda: servelib.build_schedule(
-                self.model.cfg, pcfg, comp, self.n_cp, self.tpw,
+            self._plan_key(E), lambda: servelib.build_schedule(
+                self.model.cfg, self.pcfg, comp, self.n_cp, self.tpw,
                 mask=True))
 
     @property
@@ -505,11 +696,16 @@ class ServingLoop:
         cfg = self.model.cfg
         Pn = self.budget // E
         sched = self._schedule_for(E) if self._uses_fcp else None
+        self._scheds[E] = sched
         if (E, impl) in self._prefill_fns:
             return self._prefill_fns[(E, impl)]
+        if self.ranks.grouped:
+            # every rank plans the bucket alike (the Trainer's check)
+            wirelib.agree("plan key", repr(self._plan_key(E)).encode(),
+                          self.ranks, self.device)
         if sched is not None:
             attn = servelib.make_fcp_attn_fn(sched, self.device, self.pcfg,
-                                             impl)
+                                             impl, ranks=self.ranks)
         elif cfg.uses_attention:
             # the dense escape hatch: one segment per packed sequence
             shape = (self.n_cp, self.tpw)
@@ -522,33 +718,43 @@ class ServingLoop:
         else:
             attn = None
         ragged = cfg.family not in RECURRENT
-        step = servelib.build_prefill_step(self.model, attn,
-                                           batch_size=Pn,
-                                           seq_len=E, ragged=ragged)
+        step = servelib.build_prefill_step(
+            self.model, attn, batch_size=Pn, seq_len=E, ragged=ragged,
+            tokens=self._tokens)
         fn = step if ragged else (
             lambda params, batch, last_idx=None: step(params, batch))
         self._prefill_fns[(E, impl)] = fn
         return fn
 
+    def _last_index(self, E: int, reqs: list[Request]) -> np.ndarray:
+        """Each row's last prompt token in the bucket (0 on filler rows)."""
+        last = np.zeros((self.budget // E,), np.int32)
+        for i, r in enumerate(reqs):
+            last[i] = r.prompt_len - 1 if r.mode == "pad" else E - 1
+        return last
+
     def assemble(self, E: int, reqs: list[Request]):
-        """(batch, last_idx) device tensors of one prefill batch."""
+        """(batch, last_idx) device tensors of one prefill batch: the
+        whole packed stream, or across ranks this rank's frames of it
+        (``last_idx`` names every row)."""
         Pn = self.budget // E
         toks = np.zeros((Pn, E), np.int32)
-        last = np.zeros((Pn,), np.int32)
         for i, r in enumerate(reqs):
             L = r.prompt_len
             if r.mode == "pad":
                 toks[i, :L] = r.prompt
-                last[i] = L - 1
             else:                          # chunk: first E tokens
                 toks[i] = r.prompt[:E]
-                last[i] = E - 1
         posf = np.tile(np.arange(E, dtype=np.int32), Pn)
         shape = (self.n_cp, self.tpw)      # stream is sequence-major
+        toks, posf = toks.reshape(shape), posf.reshape(shape)
+        if self.ranks.grouped:
+            f0, f1 = self.mesh.frames
+            toks, posf = toks[f0:f1], posf[f0:f1]
         dev = self.device
-        batch = {"tokens": torch.from_numpy(toks.reshape(shape)).to(dev),
-                 "positions": torch.from_numpy(posf.reshape(shape)).to(dev)}
-        return batch, torch.from_numpy(last).to(dev)
+        batch = {"tokens": torch.from_numpy(toks).to(dev),
+                 "positions": torch.from_numpy(posf).to(dev)}
+        return batch, torch.from_numpy(self._last_index(E, reqs)).to(dev)
 
     def _tail_arrays(self, req: Request, E: int):
         """(pos0, first_tail, has_tail, tail_row, tail_len) host-side."""
@@ -591,6 +797,7 @@ class ServingLoop:
         prefill = self._program(f"prefill_{E}", functools.partial(
             self.prefill_fn(E), self.params))
         batch, last = self.assemble(E, reqs)
+        w0 = wirelib.wire_stats()
         t0 = time.perf_counter()
         plogits, pcache = prefill(batch, last, held=self.params)
         self._sync()                       # one sync per BATCH (timing)
@@ -598,20 +805,114 @@ class ServingLoop:
         self.prefill_batches += 1
         self.prefill_rows += self.budget // E
         self.prefill_rows_real += len(reqs)
-        insert = self._program(f"insert_{E}", functools.partial(
-            self._insert_rows, pcache, plogits))
-        held = (self.state, self.cache, pcache, plogits)
+        if self.ranks.grouped:
+            self._count_ships(E, w0)
+            self._move_rows(E, reqs, free, plogits, pcache)
+            insert = self._program(f"insert_{E}", self._insert_moved)
+            held = (self.state, self._first)
+        else:
+            insert = self._program(f"insert_{E}", functools.partial(
+                self._insert_rows, pcache, plogits))
+            held = (self.state, self.cache, pcache, plogits)
+        if self.record is not None:
+            self._record_prefill(E, reqs, plogits)
         for i, (req, slot) in enumerate(zip(reqs, free)):
             pos0, ft, ht, tail_row, tl = self._tail_arrays(req, E)
-            # first generated token: argmax of the prefill's last-token
-            # logits — computed on the device, never synced to the host
-            insert(self._insert_args(i, slot, pos0, ft, ht, tail_row, tl,
-                                     req.max_new), held=held)
+            if self.ranks.grouped:
+                s0, s1 = self.share[0]
+                own = s0 <= slot < s1
+                args = self._insert_args(i, slot - s0 if own else 0, pos0,
+                                         ft, ht, tail_row, tl, req.max_new,
+                                         own)
+            else:
+                # first generated token: argmax of the prefill's
+                # last-token logits — computed on the device, never
+                # synced to the host
+                args = self._insert_args(i, slot, pos0, ft, ht, tail_row,
+                                         tl, req.max_new)
+            insert(args, held=held)
             req.queue_ms = (t0 - req.submit_t) * 1e3
             req.prefill_ms = dt_ms
             req.insert_t = time.perf_counter()
             self._slots[slot] = _SlotMeta(req, tail_len=tl,
                                           gen0=0 if ht else 1)
+
+    # -- across ranks --------------------------------------------------------
+
+    def _kv_row_bytes(self) -> int:
+        """Bytes of one cache token: k and v over the layers."""
+        k = self.cache["k"]
+        return 2 * k.shape[0] * k[0, 0, 0].numel() * k.element_size()
+
+    def _count_ships(self, E: int, w0: dict) -> None:
+        """A ranked prefill's ship bytes and seconds, beside their price
+        (``wire.rank_wire_bytes``: the forward over every layer)."""
+        w1 = wirelib.wire_stats()
+        cfg, w = self.model.cfg, self.wire
+        w["prefill_ship_bytes"] += w1["sent_bytes"] - w0["sent_bytes"]
+        w["prefill_ship_s"] += w1["ship_s"] - w0["ship_s"]
+        nh, nkv, dh = self._heads
+        fwd, _ = wirelib.rank_wire_bytes(
+            self._scheds[E].spec, self.ranks, nh, nkv, dh,
+            self.pcfg.in_dtype_bytes, 2 if self.pcfg.attn_out_bf16 else 4)
+        w["prefill_ship_bytes_priced"] += int(cfg.n_layers * fwd)
+
+    def _move_rows(self, E: int, reqs: list[Request], free: list[int],
+                   plogits: torch.Tensor, pcache: dict) -> None:
+        """One ranked batch's insert moves (``wire.move`` over
+        :func:`insert_tables`): each row's cache rows from the ranks that
+        computed them into the ranks that hold its slot's, and its first
+        generated token (the argmax of its last-token logits, on the rank
+        that holds that token) into ``_first`` on every owner."""
+        last = self._last_index(E, reqs)
+        kv, first = insert_tables(self.layout, E, free, last)
+        w0 = wirelib.wire_stats()
+        tok = torch.argmax(plogits, dim=-1).to(torch.int32)
+        names = ("k", "v")
+        lyr = self.cache["k"].shape[0]
+        dst = [self.cache[n].view(lyr, -1, *self.cache[n].shape[3:])
+               for n in names]
+        wirelib.move([pcache[n] for n in names], dst, kv, self.ranks, dim=1)
+        wirelib.move(tok, self._first, first, self.ranks)
+        w1 = wirelib.wire_stats()
+        w = self.wire
+        w["insert_bytes"] += w1["move_bytes"] - w0["move_bytes"]
+        w["insert_s"] += w1["move_s"] - w0["move_s"]
+        w["insert_bytes_priced"] += insert_wire_bytes(
+            self.layout, self.ranks.rank, E, free, last,
+            self._kv_row_bytes())
+
+    def _record_prefill(self, E: int, reqs: list[Request],
+                        plogits: torch.Tensor) -> None:
+        """``record`` the batch's last-token logits this rank holds."""
+        last = self._last_index(E, reqs)
+        t0, t1 = self._tokens or (0, self.budget)
+        rows = [i for i in range(len(reqs)) if t0 <= i * E + last[i] < t1]
+        self.record.append({
+            "phase": "prefill", "E": E,
+            "rids": [reqs[i].rid for i in rows],
+            "logits": plogits[rows].float().cpu()})
+
+    def _fetch_tokens(self, slots: list[int]) -> np.ndarray:
+        """``[B, max_new_tokens]`` on the host holding the generated
+        tokens of ``slots`` (across ranks moved from their owners into
+        every rank; the other rows zero)."""
+        st = self.state["gen_buf"]
+        if not self.ranks.grouped:
+            return st.cpu().numpy()
+        lay = self.layout
+        out = torch.zeros((len(self._slots), self._gen_cap),
+                          dtype=st.dtype, device=self.device)
+        table = []
+        for s in slots:
+            src = lay.owners(s)
+            for d in range(lay.size):
+                o = d if d in src else src[0]
+                table.append((o, d, lay.local_slot(s, o), s, 1))
+        w0 = wirelib.wire_stats()["move_bytes"]
+        wirelib.move(st, out, table, self.ranks)
+        self.wire["fetch_bytes"] += wirelib.wire_stats()["move_bytes"] - w0
+        return out.cpu().numpy()
 
     # -- scheduling rounds -------------------------------------------------
 
@@ -629,8 +930,26 @@ class ServingLoop:
             self._prefill_and_insert(reqs, take)
 
     def _dispatch_step(self) -> None:
+        w0 = wirelib.wire_stats()
         self.last_logits = self._program("loop_step", self._loop_step)(
             held=(self.params, self.state, self.cache))
+        if self.ranks.grouped:
+            w1, w = wirelib.wire_stats(), self.wire
+            w["merge_bytes"] += w1["merge_bytes"] - w0["merge_bytes"]
+            w["merge_s"] += w1["merge_s"] - w0["merge_s"]
+            cfg = self.model.cfg
+            w["merge_bytes_priced"] += merge_wire_bytes(
+                self.layout, cfg.n_layers, self._heads[0], self._heads[2],
+                self.mesh.shape.get("data", 1) * self.mesh.shape.get(
+                    "model", 1))
+        if self.record is not None and self.decode_steps == 0:
+            s0, s1 = self.share[0]
+            held = [s for s, m in enumerate(self._slots)
+                    if m is not None and not m.done and s0 <= s < s1]
+            self.record.append({
+                "phase": "decode", "slots": held,
+                "logits": self.last_logits[[s - s0 for s in held]]
+                .float().cpu()})
         self.decode_steps += 1
         for m in self._slots:
             if m is not None and not m.done:
@@ -642,7 +961,8 @@ class ServingLoop:
             return done
         # one transfer for every completion in this round — the only
         # device->host sync in the decode loop
-        gen = self.state["gen_buf"].cpu().numpy()
+        gen = self._fetch_tokens([s for s, m in enumerate(self._slots)
+                                  if m is not None and m.done])
         for slot, m in enumerate(self._slots):
             if m is None or not m.done:
                 continue
@@ -712,4 +1032,11 @@ class ServingLoop:
             "prefill_impl": self.prefill_impl,
             **s,
             "plan_cache": self.plan_cache.stats.to_dict(),
+            **({"ranks": {
+                "rank": self.ranks.rank, "size": self.ranks.size,
+                "backend": self.ranks.backend, "kind": self.scfg.kind,
+                "frames": list(self.mesh.frames),
+                "slots": list(self.share[0]),
+                "positions": list(self.share[1]),
+                **self.wire}} if self.ranks.grouped else {}),
         }

@@ -34,6 +34,13 @@ the barrier and joining the group live here too: this is the only
 module of the port that calls ``torch.distributed``
 (``analysis/lints.py``).  :func:`wire_stats` counts the bytes a rank
 puts on the wire.
+
+Serving across ranks adds two operations: :func:`move`, a reshard of
+row ranges along a host table (a prefill's cache rows and first tokens
+into the ranks that own the slots), priced by :func:`move_bytes`; and
+:func:`gather`, the all-gather the decode's cross-rank flash merge
+reads (every rank merges the same gathered partials in shard order, so
+every rank ends with the same bytes; ``runtime/serving`` prices both).
 """
 
 from __future__ import annotations
@@ -360,7 +367,9 @@ def agree(what: str, data: bytes, ranks: Ranks, device) -> None:
 
 
 _STATS = {"ships": 0, "messages": 0, "sent_bytes": 0, "recv_bytes": 0,
-          "ship_s": 0.0, "reduce_s": 0.0}
+          "ship_s": 0.0, "reduce_s": 0.0,
+          "moves": 0, "move_bytes": 0, "move_s": 0.0,
+          "merges": 0, "merge_bytes": 0, "merge_s": 0.0}
 
 
 def wire_stats() -> dict:
@@ -369,7 +378,10 @@ def wire_stats() -> dict:
     (payloads plus int8 scales), and the host seconds spent in the ships
     that crossed ranks and in :func:`all_sum` (their staging and waits
     included; a host clock: under NCCL the device may still be moving
-    the data when a call returns)."""
+    the data when a call returns); the :func:`move` calls that crossed
+    ranks, the bytes they sent and their seconds; the :func:`gather`
+    calls, the bytes each sent (its share, once to every other rank) and
+    their seconds."""
     return dict(_STATS)
 
 
@@ -509,3 +521,88 @@ def ship(x: torch.Tensor, perm, fmt: WireFormat = WIRE_F32,
     if torch.is_grad_enabled() and x.requires_grad:
         return _Ship.apply(x, perm, fmt, ranks)
     return _ship(x, perm, fmt, ranks)
+
+
+# --------------------------------------------------------------------------
+# row moves and the gathered merge (serving across ranks)
+# --------------------------------------------------------------------------
+
+def move(srcs, dsts, table, ranks: Ranks, dim: int = 0) -> None:
+    """Copy row ranges from ranks' ``srcs`` into ranks' ``dsts``, in
+    place: the reshard of token ranges a serving insert makes.
+
+    ``table`` holds ``(src rank, dst rank, src row, dst row, rows)``
+    entries, ranges along ``dim``, the same on every rank (a host table
+    each rank computes alike).  ``srcs`` and ``dsts`` are a tensor each,
+    or lists of tensors paired in order (every entry moves the same rows
+    of each pair; a pair has one dtype and the same shape apart from
+    ``dim``); no destination row is named twice.  An entry with both
+    ends on this rank is a local copy; one
+    that leaves it is sent and one that arrives is received, all in one
+    ``dist.batch_isend_irecv`` (every rank posting its ops in table
+    order), staged through the host under gloo.  Without a group every
+    entry must name rank 0: all of them are local copies."""
+    srcs = [srcs] if isinstance(srcs, torch.Tensor) else list(srcs)
+    dsts = [dsts] if isinstance(dsts, torch.Tensor) else list(dsts)
+    for x, y in zip(srcs, dsts):
+        if x.dtype != y.dtype:
+            raise ValueError(f"move of {x.dtype} rows into {y.dtype}")
+    if not ranks.grouped and any(s or d for s, d, *_ in table):
+        raise ValueError("a move across ranks without a process group")
+    t0 = time.perf_counter()
+    me, stage = ranks.rank, ranks.backend == "gloo"
+    ops, sent, landed = [], 0, []
+    for s, d, a, b, n in table:
+        if s == me and d == me:
+            for x, y in zip(srcs, dsts):
+                y.narrow(dim, b, n).copy_(x.narrow(dim, a, n))
+        elif s == me:
+            for x in srcs:
+                part = x.narrow(dim, a, n)
+                buf = _host(part) if stage else part.contiguous()
+                ops.append(dist.P2POp(dist.isend, buf, d))
+                sent += buf.nbytes
+        elif d == me:
+            for y in dsts:
+                part = y.narrow(dim, b, n)
+                buf = torch.empty(part.shape, dtype=part.dtype,
+                                  device="cpu" if stage else part.device,
+                                  pin_memory=stage and part.is_cuda)
+                ops.append(dist.P2POp(dist.irecv, buf, s))
+                landed.append((part, buf))
+    if not ops:
+        return
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    for part, buf in landed:
+        part.copy_(buf, non_blocking=True)
+    _STATS["moves"] += 1
+    _STATS["move_bytes"] += sent
+    _STATS["move_s"] += time.perf_counter() - t0
+
+
+def move_bytes(table, ranks: Ranks, row_bytes: int) -> int:
+    """The bytes ``ranks``'s rank sends in :func:`move` of ``table``:
+    the rows of each entry that leaves it, ``row_bytes`` a row (summed
+    over the tensors moved)."""
+    return sum(n * row_bytes for s, d, _, _, n in table
+               if s == ranks.rank and d != s)
+
+
+def gather(x: torch.Tensor, ranks: Ranks, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on all of them), concatenated along
+    ``dim`` in rank order (one ``all_gather``): every rank ends with the
+    same bytes, so a merge computed from them is the same on each.
+    Without a group, ``x`` itself."""
+    if not ranks.grouped:
+        return x
+    t0 = time.perf_counter()
+    buf = _host(x) if ranks.backend == "gloo" else x.contiguous()
+    parts = [torch.empty_like(buf) for _ in range(ranks.size)]
+    dist.all_gather(parts, buf)
+    out = torch.cat(parts, dim).to(x.device, non_blocking=True)
+    _STATS["merges"] += 1
+    # its share, once to every other rank
+    _STATS["merge_bytes"] += buf.nbytes * (ranks.size - 1)
+    _STATS["merge_s"] += time.perf_counter() - t0
+    return out

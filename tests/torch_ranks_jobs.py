@@ -270,7 +270,199 @@ def job_two(ranks, params_path):
     return out
 
 
-JOBS = {"ships": job_ships, "two": job_two}
+# --------------------------------------------------------------------------
+# serving across ranks (tests/test_torch_serve_ranks.py)
+# --------------------------------------------------------------------------
+
+# tests/multidevice/run_decode.py's cases: (B, S, HQ, KH, D, the mesh's
+# data and model sizes, batch split over the ranks, seed); the batch-split
+# case hands each rank its rows, the others split the sequence
+DECODE_CASES = {"batch": (8, 512, 4, 2, 32, 2, 4, True, 0),
+                "long": (1, 1024, 4, 4, 32, 2, 4, False, 1),
+                "model_only": (4, 256, 2, 1, 16, 1, 8, False, 2)}
+# a cache write: one row per slot, the last past the cache
+UPDATE_CASE = (6, 64, 2, 8)                  # B, S, KH, D
+MOVE_ROWS = 12                               # rows a rank holds
+# the serving loop: tests/multidevice/run_serve.py's budget (4 x 64) and
+# cache; the prompts are tests/test_torch_serving.py's LENS and one wider
+# than a rank's 128 prefill tokens
+SERVE_LENS = [5, 23, 64, 128, 200]
+SERVE_MESH = (4, 2)
+SERVE_NEW = 6
+
+
+def serve_config(kind: str) -> dict:
+    return dict(cache_len=320, decode_slots=4 if kind == "decode" else 2,
+                queue_depth=8, max_new_tokens=8,
+                prefill_tokens_per_worker=64, bucket_min=16, kind=kind)
+
+
+def serve_prompts(vocab: int) -> list:
+    rng = np.random.default_rng(3)
+    return [rng.integers(1, vocab, (L,)).astype(np.int32)
+            for L in SERVE_LENS]
+
+
+def decode_inputs(case):
+    B, S, HQ, KH, D, *_, seed = DECODE_CASES[case]
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, HQ, D)).astype(np.float32)
+    kc = rng.normal(size=(B, S, KH, D)).astype(np.float32)
+    vc = rng.normal(size=(B, S, KH, D)).astype(np.float32)
+    lengths = rng.integers(1, S + 1, size=(B,)).astype(np.int32)
+    return q, kc, vc, lengths
+
+
+def decode_case(case, ranks=None):
+    """``cp_decode_attention`` on ``ranks``'s share of a case (its rows,
+    or its sequence shards), or on all of it without a group."""
+    from repro_torch.core import executor as ex
+    from repro_torch.runtime import wire
+    ranks = ranks or wire.STACKED
+    B, S, *_, nd, nm, batch_split, _ = DECODE_CASES[case]
+    q, kc, vc, ln = (torch.from_numpy(x) for x in decode_inputs(case))
+    seq_ranks = wire.STACKED
+    n_shards = nm if batch_split else nd * nm
+    if batch_split:
+        lo, hi = ranks.share(B)
+        q, kc, vc, ln = q[lo:hi], kc[lo:hi], vc[lo:hi], ln[lo:hi]
+    else:
+        lo, hi = ranks.share(S)
+        kc, vc = kc[:, lo:hi], vc[:, lo:hi]
+        seq_ranks = ranks
+    return ex.cp_decode_attention(q, kc.contiguous(), vc.contiguous(), ln,
+                                  n_shards=n_shards,
+                                  cfg=ex.ExecConfig(impl="xla"),
+                                  ranks=seq_ranks).numpy()
+
+
+def update_inputs():
+    B, S, KH, D = UPDATE_CASE
+    rng = np.random.default_rng(5)
+    cache = rng.normal(size=(B, S, KH, D)).astype(np.float32)
+    new = rng.normal(size=(B, KH, D)).astype(np.float32)
+    pos = np.array([0, S // 2 - 1, S // 2, S - 1, 3, S], np.int32)
+    return cache, new, pos
+
+
+def update_case(ranks=None):
+    """``cp_cache_update`` on ``ranks``'s positions of the cache."""
+    from repro_torch.core import executor as ex
+    from repro_torch.runtime import wire
+    ranks = ranks or wire.STACKED
+    cache, new, pos = update_inputs()
+    lo, hi = ranks.share(cache.shape[1])
+    c = torch.from_numpy(cache[:, lo:hi].copy())
+    return ex.cp_cache_update(c, torch.from_numpy(new), torch.from_numpy(pos),
+                              ranks).numpy()
+
+
+def move_table(size: int, seed: int = 0) -> list:
+    """Row moves over ``size`` ranks of MOVE_ROWS rows each, every
+    destination row written once: runs of rows across ranks and inside
+    one, then each other row from a random source row, in random order."""
+    M = MOVE_ROWS
+    table = [(0, size - 1, 2, 0, 3), (size - 1, size - 1, 4, 8, 2),
+             (size - 1, 0, 0, 5, 4)]
+    done = {(size - 1) * M + r for r in (0, 1, 2, 8, 9)} | {5, 6, 7, 8}
+    rng = np.random.default_rng(seed)
+    for d in rng.permutation(size * M):
+        if int(d) in done:
+            continue
+        src = int(rng.integers(0, size * M))
+        table.append((src // M, int(d) // M, src % M, int(d) % M, 1))
+    return table
+
+
+def moved(src: np.ndarray, table) -> np.ndarray:
+    """The rows ``table`` moves, as one local gather over every rank's
+    rows."""
+    out, M = np.zeros_like(src), MOVE_ROWS
+    for s, d, a, b, n in table:
+        out[d * M + b:d * M + b + n] = src[s * M + a:s * M + a + n]
+    return out
+
+
+def move_inputs(size: int):
+    rng = np.random.default_rng(7)
+    return (rng.normal(size=(size * MOVE_ROWS, 3, 5)).astype(np.float32),
+            np.arange(size * MOVE_ROWS * 7, dtype=np.int32).reshape(-1, 7))
+
+
+def move_case(dtype_name, ranks):
+    """``wire.move`` of :func:`move_table` on this rank's rows: a pair of
+    tensors along dim 0 (its sent bytes and their price), then one along
+    dim 1."""
+    from repro_torch.runtime import wire
+    x, e = move_inputs(ranks.size)
+    x = torch.from_numpy(x).to(getattr(torch, dtype_name))
+    e = torch.from_numpy(e)
+    lo, hi = ranks.rank * MOVE_ROWS, (ranks.rank + 1) * MOVE_ROWS
+    a, f = x[lo:hi].clone(), e[lo:hi].clone()
+    b, g = torch.zeros_like(a), torch.zeros_like(f)
+    table = move_table(ranks.size)
+    wire.reset_wire_stats()
+    wire.move([a, f], [b, g], table, ranks)
+    sent = wire.wire_stats()["move_bytes"]
+    at = a.transpose(0, 1).contiguous()
+    bt = torch.zeros_like(at)
+    wire.move(at, bt, table, ranks, dim=1)
+    return {"dst": b.float().numpy(), "raw": b.view(torch.int16 if
+                                                    b.dtype == torch.bfloat16
+                                                    else torch.int32).numpy(),
+            "extra": g.numpy(), "dst_t": bt.transpose(0, 1).float().numpy(),
+            "sent": sent,
+            "priced": wire.move_bytes(table, ranks,
+                                      a[0].nbytes + f[0].nbytes)}
+
+
+def serve_loop(kind, np_params, mesh=SERVE_MESH, ranks=None):
+    """The port's ServingLoop on the f32 smoke weights (a rank's share
+    under ``ranks``)."""
+    from repro_torch.configs.base import ParallelConfig, ServeConfig
+    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.models import Model
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.runtime.serving import ServingLoop
+    m = StackedMesh(mesh)
+    if ranks is not None:
+        m = m.with_ranks(ranks)
+    return ServingLoop(Model(smoke_cfg()), params_from_numpy(np_params,
+                                                             "cpu"),
+                       m, ParallelConfig(block_size=16),
+                       ServeConfig(**serve_config(kind)), device="cpu",
+                       attn_impl="fused_xla")
+
+
+def serve_run(kind, np_params, mesh=SERVE_MESH, ranks=None):
+    """Warmup and the stream: every request's tokens, the programs built
+    after warmup and the report (its ``ranks`` bytes too)."""
+    loop = serve_loop(kind, np_params, mesh, ranks)
+    base = loop.warmup()
+    rep = loop.run(serve_prompts(smoke_cfg().vocab_size), max_new=SERVE_NEW)
+    return {"tokens": {r.rid: list(map(int, r.tokens))
+                       for r in loop.stats.finished},
+            "recompiles": (sum(loop.compile_counts().values())
+                           - sum(base.values())),
+            "counts": loop.compile_counts(), "report": rep}
+
+
+def job_serve(ranks, params_path=None):
+    """Everything the serving tests hold across ``ranks``: the decode
+    attention and cache write, the row moves and (given the weights) the
+    ranked loop under both kinds."""
+    out = {"decode": {c: decode_case(c, ranks) for c in DECODE_CASES},
+           "update": update_case(ranks),
+           "move": {d: move_case(d, ranks)
+                    for d in ("float32", "bfloat16")}}
+    if params_path is not None:
+        np_params = torch.load(params_path, weights_only=False)
+        out["loop"] = {k: serve_run(k, np_params, ranks=ranks)
+                       for k in ("decode", "long")}
+    return out
+
+
+JOBS = {"ships": job_ships, "two": job_two, "serve": job_serve}
 
 
 def _child(rank, size, port, job, kwargs, out_dir):
