@@ -230,7 +230,21 @@ Phases, each reported on its own line with its wall:
              BF16_FLOORS noise floors of the one-process loop's on the
              same weights and stream (``serve_stacked``, eager; tokens
              that agree are counted); then ``--kind long`` here as a
-             one-rank NCCL group, held the same way.
+             one-rank NCCL group, held the same way.  In the same torchrun
+             the Supervisor's drills across the two ranks
+             (RANKED_DRILLS, ``launch/drills.py`` on a ranked Supervisor:
+             StableLM at full width, f32, DRILL_LAYERS deep, block 512,
+             2,048 tokens a worker): the kill drill at R = D = 2 on a 2x1
+             mesh (worker 1 lost at step 3: rank 1 idles, rank 0 restores
+             and replays) and the pod drill on a 2x2x1 mesh, one pod a
+             rank (pod 1 lost at step 3, rank 1 idles, and rejoins at step
+             5 from rank 0's broadcast state), each drill's limits held on
+             every rank (at most DRILL_EVERY steps lost, the replay within
+             1e-6, at the rejoin no plan miss and no step program built,
+             the rejoined rank's parameters the survivor's digest),
+             kernels 1, 3 and 4 launched in each rank; every rank's
+             fleet and own step walls, its bytes and seconds in the ships,
+             the sums and the broadcast, and each drill's seconds printed.
 
 The line before the card's line is a JSON object with one entry per
 kernel, its StableLM main-path row at the top (kernel 2's at decode) and
@@ -3481,6 +3495,23 @@ RANKS_GRAD_LAYERS = 4           # the f32 gradient check
 RANKS_ARGV = TRAIN_ARGV + ["--override", f"n_layers={RANKS_LAYERS}"]
 RANKED_FLAGS = ["--dist-backend", "gloo", "--device", "cuda:0"]
 RANKS_TIMEOUT = 600             # seconds a torchrun may take
+# the Supervisor's drills across the two ranks: phase 5's kill drill on a
+# 2x1 mesh (one worker a rank) and phase 6's pod drill on 2x2x1 (one pod a
+# rank), at their totals, fail step and checkpoint cadence
+RANKED_DRILLS = f"kill@2x1:{DRILL_TOTAL},pod@2x2x1:{POD_DRILL_TOTAL}"
+RANKED_DRILL_ARGV = [
+    "--drills", RANKED_DRILLS, "--drill-args",
+    f"--override n_layers={DRILL_LAYERS} --override param_dtype=float32 "
+    f"--checkpoint-every {DRILL_EVERY}"]
+RANKED_DRILL_WHY = (
+    "phases 5's and 6's settings (DRILL_WHY: steps cut from the reference "
+    "runner's 12, 1 layer, 5.5 GB checkpoints): the kill drill 5 steps and "
+    "the pod drill 7, worker 1 or pod 1 lost at step 3, checkpoints every "
+    "2 steps, the pod rejoining at step 5 (launch/ranks.py's FAIL_STEP "
+    "and REJOIN_STEP); both fail in round 2 (FAIL_ROUND; the pod phase's "
+    "is 1), which only names the round "
+    "in the failure's record; every two-rank step sums 1.8 GB of f32 "
+    "gradients through gloo's loopback TCP")
 # serving across the ranks: cell 1's setting (block 512, 2,048 prefill
 # tokens a worker, a 4x2 mesh) at RANKS_LAYERS deep, 16 new tokens a
 # request; per kind the requests and the serve CLI's own arguments
@@ -3947,10 +3978,13 @@ def ranks_phase(fa, trainlib, dev, card: str) -> dict:
     wall = torchrun(RANKS, [
         "-m", "repro_torch.launch.ranks", "--out", out_dir, "--runs",
         "fused:3,pallas:1", "--grad-layers", str(RANKS_GRAD_LAYERS),
-        *serve_runs, "--", *RANKS_ARGV, *RANKED_FLAGS], "gloo")
+        *serve_runs, *RANKED_DRILL_ARGV, "--", *RANKS_ARGV, *RANKED_FLAGS],
+        "gloo")
     out["torchrun_wall_s"] = wall
     log(f"  ranks torchrun (2 gloo ranks: fused, pallas, gradient check, "
-        f"serving {', '.join(SERVE_RANKS)}): wall {wall:.1f} s")
+        f"serving {', '.join(SERVE_RANKS)}, drills {RANKED_DRILLS}): wall "
+        f"{wall:.1f} s")
+    out["drills"] = hold_ranked_drills(out_dir, card)
     for impl, kernels, loss_ref in (("fused", PATH_KERNELS["fused"], ref),
                                     ("pallas", PATH_KERNELS["pallas"], None)):
         reps = rank_reports(os.path.join(out_dir, impl), RANKS)
@@ -3985,6 +4019,65 @@ def ranks_phase(fa, trainlib, dev, card: str) -> dict:
     rep, rec = nccl_serve_one_rank(fa, "long")
     out["serve"]["nccl_one_rank_long"] = hold_serve_ranked(
         "nccl one rank long", [rep], [rec], stacked["long"], card)
+    return out
+
+
+def hold_ranked_drills(out_dir: str, card: str) -> dict:
+    """The ranked drills' checks (module docstring, phase 9), from each
+    rank's ``drill_<kind>/rank<r>.json``; their walls, bytes and seconds
+    printed."""
+    from repro_torch.launch import drills
+    out = {"settings": RANKED_DRILLS, "why": RANKED_DRILL_WHY}
+    for kind in ("kill", "pod"):
+        reps = rank_reports(os.path.join(out_dir, f"drill_{kind}"), RANKS)
+        for r in reps:
+            tag = f"ranks drill {kind} rank {r['rank']}"
+            for name in PATH_KERNELS["fused"]:
+                if r["launches"][name] <= 0:
+                    raise AssertionError(f"{tag}: {name} never launched")
+            if not (0 <= r["steps_lost"] <= DRILL_EVERY
+                    and r["replay_max_diff"] <= drills.REPLAY_TOL):
+                raise AssertionError(
+                    f"{tag}: lost {r['steps_lost']} steps, replay diff "
+                    f"{r['replay_max_diff']:.3e}")
+            if kind == "pod":
+                rj = r["rejoin"]
+                if not (rj["plan_misses_after"] == rj["plan_misses_before"]
+                        and rj["compiles_after"] == rj["compiles_before"]
+                        and rj["builds_after"] == rj["builds_before"]
+                        and rj["broadcast_bytes"] == rj["broadcast_priced"]):
+                    raise AssertionError(f"{tag}: after the rejoin {rj}")
+        if kind == "pod" and len({r["param_digest"] for r in reps}) != 1:
+            raise AssertionError(
+                f"ranks drill pod: the rejoined rank's parameters differ "
+                f"from the survivor's ({[r['param_digest'] for r in reps]})")
+        keys = ("sent_bytes", "ship_s", "reduce_s", "broadcast_bytes",
+                "broadcast_s")
+        res = {"seconds": [r["seconds"] for r in reps],
+               "members": [r["members"] for r in reps],
+               "fleet_ms": [[x["ms"] for x in r["records"]] for r in reps],
+               "rank_ms": [[x["rank_ms"] for x in r["records"]]
+                           for r in reps],
+               "steps": [[(x["step"], x["pods"], x["n_workers"])
+                          for x in r["records"]] for r in reps],
+               "wire": [{k: r["wire"][k] for k in keys} for r in reps],
+               "launches": [{n: r["launches"][n]
+                             for n in PATH_KERNELS["fused"]} for r in reps],
+               "steps_lost": reps[0]["steps_lost"],
+               "replay_max_diff": max(r["replay_max_diff"] for r in reps),
+               "recovery_wall_s": [r["recovery_wall_s"] for r in reps],
+               "peak_mem_gib": [r["peak_mem_gib"] for r in reps]}
+        if kind == "pod":
+            res["rejoin"] = [r["rejoin"] for r in reps]
+            res["rejoin_ms"] = [r["rejoin_ms"] for r in reps]
+        out[kind] = res
+        log(f"  ranks drill {kind}: seconds per rank "
+            f"{[round(x, 2) for x in res['seconds']]}, fleet step ms per "
+            f"rank {[[round(x, 1) for x in y] for y in res['fleet_ms']]}, "
+            f"own step ms {[[round(x, 1) for x in y] for y in res['rank_ms']]}"
+            f", wire per rank {json.dumps(res['wire'])}, steps lost "
+            f"{res['steps_lost']}, replay diff {res['replay_max_diff']:.3e}"
+            f"; on {card}")
     return out
 
 
@@ -4526,6 +4619,8 @@ def main() -> int:
     ranked_runs = {"train " + t: ranked[t] for t in ("fused", "pallas")}
     ranked_runs.update({"serve " + t: ranked["serve"][t] for t in (
         *SERVE_RANKS, "nccl_one_rank_long")})
+    ranked_runs.update({"drill " + t: ranked["drills"][t]
+                        for t in ("kill", "pod")})
     for k in kernels:
         k["launches_ranks"] = {tag: [x[k["name"]] for x in r["launches"]]
                                for tag, r in ranked_runs.items()

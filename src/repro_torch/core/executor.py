@@ -70,10 +70,13 @@ and one launch of each kernel still covers every frame.  The replicated
 block metadata (``blk_seg``/``blk_pos``) is shared: every pod packs the
 same composition.
 
-**Ranks.**  ``schedule_tables(sched, device, ranks=r)`` in a process
-group of R ranks returns this rank's rows of every per-worker table (its
-frames, ``Ranks.share``) and all of the replicated ones: the reference's
-``P(cp_axis)`` against ``P()`` split.  :func:`fcp_attention` then runs
+**Ranks.**  ``schedule_tables(sched, device, pods, ranks=r)`` in a
+process group of R ranks returns this rank's rows of every per-worker
+table (its contiguous share of the pods x workers frames,
+``Ranks.share``: equal shares at the start, uneven ones after a worker
+loss) and all of the replicated ones: the reference's ``P(cp_axis)``
+against ``P()`` split.  A pod's ships never leave its frames, so a rank
+holding whole pods ships only inside itself.  :func:`fcp_attention` then runs
 on the rank's frames with local indices everywhere, and hands each ship
 the plan's global pairs (``runtime/wire.ship`` moves the pairs that
 cross ranks through ``torch.distributed``).  The overlap loop, the
@@ -165,9 +168,6 @@ def schedule_tables(sched: Schedule, device, pods: int = 1,
     pods = int(pods)
     if pods < 1:
         raise ValueError(f"pods must be >= 1, got {pods}")
-    if ranks.grouped and pods > 1:
-        raise ValueError("pods across ranks are not supported yet (ROADMAP "
-                         "Queue A: the Supervisor and pods across ranks)")
     memo = sched._device_tables
     if memo is None:
         memo = sched._device_tables = {}
@@ -320,7 +320,8 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
 
     def ship(payload, perm):
         # global pairs; this rank's frames (the tables' local rows)
-        return wirelib.ship(payload, pod_perm(perm, n, pods), fmt, ranks)
+        return wirelib.ship(payload, pod_perm(perm, n, pods), fmt, ranks,
+                            n * pods)
 
     # stream layout -> [N, slots, heads, bs, d] (head-leading kernel layout)
     def frame(x, h):

@@ -31,6 +31,17 @@ worker's slot leaves every pod) when ``make_sup`` builds one.
 Each drill takes ``make_sup(checkpoint_dir, **kw) -> Supervisor`` (the
 caller fixes model, widths, device and loader), raises
 ``AssertionError`` on a breach and returns what it measured.
+
+**Across ranks** ``make_sup`` builds a ranked Supervisor (its
+``dist_backend``) and every rank of the group runs the drill.  A rank
+left idle by the loss holds the limits on what it ran (the recovery's
+record, the steps before the loss and after a rejoin); the survivor
+fleet's steps are held on the ranks that ran them.  The reference run
+starts on the same survivor ranks (``start_members``), so its fleet
+splits its frames as the recovered one does.  The world group's rank 0
+makes the reference's directory, between barriers.  Each drill returns
+this rank's records (and its parameters' digest), so a caller can check
+that the ranks agree.
 """
 
 from __future__ import annotations
@@ -44,7 +55,9 @@ import numpy as np
 
 from ..checkpoint import checkpointer
 from ..core import cost_model as cm
+from ..optimizer import adamw
 from ..runtime import elastic
+from ..runtime import wire as wirelib
 
 REPLAY_TOL = 1e-6        # post-recovery loss / gnorm, normalized
 
@@ -52,6 +65,22 @@ REPLAY_TOL = 1e-6        # post-recovery loss / gnorm, normalized
 def _check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def _on_members(rec: dict) -> dict:
+    """The reference run's starting group: the recovery's survivor ranks
+    (nothing on stacked workers)."""
+    return ({"start_members": tuple(rec["members"])} if "members" in rec
+            else {})
+
+
+def _rank_view(sup) -> dict:
+    """This rank's place and records, for a caller to set the ranks side
+    by side."""
+    return {"rank": sup.world.rank, "members": list(sup.members),
+            "records": [dataclasses.asdict(r) for r in sup.history],
+            "param_digest": wirelib.digest(
+                adamw.tree_leaves(sup.state.params)).hex()}
 
 
 def kill_drill(make_sup, tmp: pathlib.Path, *, total: int, fail_step: int,
@@ -76,29 +105,35 @@ def kill_drill(make_sup, tmp: pathlib.Path, *, total: int, fail_step: int,
     by_fleet: dict = {}
     for r in sup.history:
         by_fleet.setdefault(r.n_workers, []).append(r.step)
+    # a rank the loss left idle ran no survivor step
+    active = sup.ranks is not None
     _check(by_fleet[n0][-1] == fail_step - 1
-           and by_fleet[n0 - 1][-1] == total - 1, f"steps {by_fleet}")
+           and (by_fleet[n0 - 1][-1] == total - 1 if active
+                else n0 - 1 not in by_fleet), f"steps {by_fleet}")
 
     # reference: an UNINTERRUPTED survivor run restored from the same
     # checkpoint the recovery used (hard-linked: restores only read it)
     d2 = pathlib.Path(tmp) / "reference"
-    d2.mkdir(parents=True)
     src = d / f"step_{rec['resume_step'] - 1}"
-    if src.exists():
-        shutil.copytree(src, d2 / src.name, copy_function=os.link)
-    ref = _replay_only(make_sup(d2, start_fleet=n0 - 1))
+    if sup.world.rank == 0:
+        d2.mkdir(parents=True)
+        if src.exists():
+            shutil.copytree(src, d2 / src.name, copy_function=os.link)
+    wirelib.barrier(sup.world)
+    ref = _replay_only(make_sup(d2, start_fleet=n0 - 1, **_on_members(rec)))
     ref.run(total)
     want = {r.step: r for r in ref.history}
     got = {r.step: r for r in sup.history if r.n_workers == n0 - 1}
-    _check(sorted(got) == sorted(want), f"{sorted(got)} vs {sorted(want)}")
-    diffs = _replay_diffs(got, want)
+    _check(sorted(got) == sorted(want) and (bool(got) or not active),
+           f"{sorted(got)} vs {sorted(want)}")
+    diffs = _replay_diffs(got, want) or [0.0]
     _check(max(diffs) <= REPLAY_TOL,
            f"replay diff {max(diffs):.3e} > {REPLAY_TOL}")
     return {"steps_lost": rec["steps_lost"],
             "resume_step": rec["resume_step"], "n_workers": rec["n_workers"],
             "recovery_wall_s": rec["wall_s"], "replay_max_diff": max(diffs),
             "steps_compared": len(got),
-            "step_ms": [r.ms for r in sup.history]}
+            "step_ms": [r.ms for r in sup.history], **_rank_view(sup)}
 
 
 def modeled_worker_loads(sched, n_q_heads: int, head_dim: int,
@@ -159,7 +194,8 @@ def straggler_drill(make_sup, *, total: int, window: int, cooldown: int,
             "slow_worker_load_vs_uniform": loads[worker] / loads_uni[worker],
             "modeled_step_ratio": t_dem / t_uni,
             "plan_cache": s.to_dict(),
-            "step_ms": [r.ms for r in sup.history]}
+            "events": [dataclasses.asdict(e) for e in sup.monitor.events],
+            "step_ms": [r.ms for r in sup.history], **_rank_view(sup)}
 
 
 def _replay_only(sup):
@@ -238,12 +274,15 @@ def pod_drill(make_sup, tmp: pathlib.Path, *, total: int, fail_step: int,
     staged = sup._staged
     _check(staged is not None and staged["step"] == pw["staged_step"],
            "no staged checkpoint")
-    shutil.rmtree(d, ignore_errors=True)
     d2 = pathlib.Path(tmp) / "pod_reference"
-    checkpointer.save(d2 / f"step_{staged['step']}", staged["tree"],
-                      staged["extra"])
+    wirelib.barrier(sup.world)
+    if sup.world.rank == 0:
+        shutil.rmtree(d, ignore_errors=True)
+        checkpointer.save(d2 / f"step_{staged['step']}", staged["tree"],
+                          staged["extra"])
+    wirelib.barrier(sup.world)
     sup._staged = None
-    ref = _replay_only(make_sup(d2, start_fleet=(1, n)))
+    ref = _replay_only(make_sup(d2, start_fleet=(1, n), **_on_members(rec)))
     ref.run(total, rejoin_step=rejoin_step)
     want = {(r.step, r.pods): r for r in ref.history}
     got = {(r.step, r.pods): r for r in sup.history
@@ -260,9 +299,15 @@ def pod_drill(make_sup, tmp: pathlib.Path, *, total: int, fail_step: int,
             "rejoin": {"compiles_before": rj["compiles_before"],
                        "compiles_after": len(sup.compiled_at),
                        "builds_before": rj["builds_before"],
-                       "builds_after": sup.builds()},
+                       "builds_after": sup.builds(),
+                       "plan_misses_before": rj["plan_misses_before"],
+                       "plan_misses_after": s.misses,
+                       **{k: rj[k] for k in ("broadcast_src",
+                                             "broadcast_bytes",
+                                             "broadcast_priced",
+                                             "broadcast_s") if k in rj}},
             "steps_compared": len(got),
             "post_rejoin_steps": sum(p == p0 for _, p in got),
             "fleet_steps": [(r.step, r.pods, r.n_workers)
                             for r in sup.history],
-            "step_ms": [r.ms for r in sup.history]}
+            "step_ms": [r.ms for r in sup.history], **_rank_view(sup)}

@@ -15,10 +15,12 @@ tables replicated over ``pod``.
 
 **Ranks.**  Under a ``torch.distributed`` process group of R ranks
 (``ranks``, a :class:`~repro_torch.runtime.wire.Ranks`), rank r holds
-the frames ``[r·D/R, (r+1)·D/R)`` of the data axis on its own device
-(:attr:`StackedMesh.frames`); R = D is the reference's layout, one
-worker per device.  R must divide D, and a pod axis under ranks is
-refused (ROADMAP Queue A: the Supervisor and pods across ranks).
+the frames ``[r·F/R, (r+1)·F/R)`` of the F = P·D pod-major frames on its
+own device (:attr:`StackedMesh.frames`); R = D is the reference's
+layout, one worker per device.  The split is ``Ranks.share``'s floor
+rule, so a survivor fleet's uneven count splits too; which layouts a
+run may start in is the CLIs' call (``launch/train.check_ranked``,
+``launch/serve.check_ranked``), made before the group is joined.
 """
 
 from __future__ import annotations
@@ -45,15 +47,6 @@ class StackedMesh:
         self.axis_names = axes
         self.shape = dict(zip(axes, shape))
         self.ranks = ranks
-        if ranks.grouped:
-            if "pod" in self.shape:
-                raise ValueError(
-                    "a pod axis across ranks is not supported yet (ROADMAP "
-                    "Queue A: the Supervisor and pods across ranks)")
-            if self.shape.get("data", 1) % ranks.size:
-                raise ValueError(
-                    f"{ranks.size} ranks do not divide the data axis "
-                    f"({self.shape.get('data', 1)} CP workers)")
 
     def with_ranks(self, ranks: Ranks) -> "StackedMesh":
         """The same axes split over ``ranks``."""

@@ -1,6 +1,7 @@
 """The training and serving CLIs across ranks, checked: the training
 runs under each executor impl, the first step's gradients against one
-process's, and serving runs of each cache layout.
+process's, serving runs of each cache layout, and the Supervisor's
+fault drills.
 
 Run it under ``torchrun`` from the repository root, with the training
 CLI's arguments for a ranked run (``launch/train.py``)::
@@ -44,6 +45,22 @@ then:
   stream's first decode step (``ServingLoop.record``) to
   ``rank<r>_logits.pt`` beside it.
 
+* runs the Supervisor's drills (``launch/drills.py``) once for each
+  ``KIND@MESH:STEPS`` of ``--drills`` (``kill`` or ``pod``, the drill's
+  ``--mesh`` and its total steps), every rank holding the drill's limits
+  on a ranked Supervisor of the training CLI's model, widths, device and
+  backend, with ``--drill-args`` (the CLI's own arguments, one string: a
+  drill's depth, dtype and ``--checkpoint-every``) appended: worker 1
+  (``kill``) or pod 1 (``pod``) dies at step ``FAIL_STEP`` (round
+  ``FAIL_ROUND``), and the pod returns at ``REJOIN_STEP``; the pod drill
+  trains with error-feedback compression, as the reference runner's
+  does.  Each rank writes the
+  drill's result (its records, recoveries, rejoin, parameters' digest)
+  with the kernels' launch counters, the wire's statistics, the
+  drill's seconds and the peak memory to ``DIR/drill_<KIND>/rank<r>.json``;
+  the checkpoints go under ``DIR/drill_<KIND>/ckpt`` and are deleted
+  after.
+
 Every run shares the one process group, so one ``torchrun`` takes them
 all (a torchrun per run cost the card's smoke about 100 s of start-up).
 Serving alone (``--runs ''``, no ARGS after ``--``) takes the group's
@@ -53,11 +70,13 @@ backend and device from the first ``--serve``'s arguments.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import hashlib
 import json
 import os
 import shlex
+import shutil
 import time
 
 import torch
@@ -66,6 +85,7 @@ from .. import resolve_device
 from ..kernels import flash_attention as fa
 from ..optimizer import adamw
 from ..runtime import wire as wirelib
+from . import drills
 from . import serve as S
 from . import train as T
 from .mesh import parse_mesh
@@ -113,7 +133,7 @@ def grad_check(train_argv: list, impls: list, n_layers: int) -> dict | None:
     0, None on the others."""
     targs = T.parse_args(train_argv + [
         "--override", f"n_layers={n_layers}",
-        "--override", "param_dtype=float32"])
+        "--override", "param_dtype=float32", "--no-supervised"])
     tr = T.trainer_from_args(targs)
     tr.state.opt = None
     try:
@@ -166,6 +186,59 @@ def serve_run(spec: str, out: str, device: torch.device) -> None:
     wirelib.barrier(loop.ranks)
 
 
+# the drills' loss strikes mid-step at step 3, in round 2, and the pod
+# drill's pod returns at step 5 (the stacked drills' steps on the card)
+FAIL_STEP, FAIL_ROUND, REJOIN_STEP = 3, 2, 5
+
+
+def drill_run(spec: str, train_argv: list, drill_args: str, out: str,
+              device: torch.device, ranks: wirelib.Ranks) -> None:
+    """One ``--drills`` entry, ``KIND@MESH:STEPS`` (module docstring)."""
+    kind, mesh_spec, steps = spec.replace("@", ":").split(":")
+    if kind not in ("kill", "pod"):
+        raise SystemExit(f"unknown drill {kind!r} (kill, pod)")
+    total = int(steps)
+    targs = T.parse_args(train_argv + shlex.split(drill_args)
+                         + ["--mesh", mesh_spec])
+    mesh = parse_mesh(targs.mesh)
+    cfg, pcfg, tcfg = T.configs_from_args(targs)
+    tcfg = dataclasses.replace(tcfg, total_steps=total,
+                               grad_compression=kind == "pod")
+
+    def make(ckpt_dir, **kw):
+        return T.Supervisor(
+            cfg, pcfg, tcfg, n_workers=mesh.shape["data"],
+            tokens_per_worker=targs.tokens_per_worker, pods=mesh.pods,
+            dist=targs.dist, checkpoint_dir=ckpt_dir, verbose=False,
+            device=device, attn_impl=targs.attn_impl,
+            dist_backend=targs.dist_backend, **kw)
+    run_dir = os.path.join(out, f"drill_{kind}")
+    root = os.path.join(run_dir, "ckpt")
+    _fresh(device)
+    t0 = time.perf_counter()
+    if kind == "kill":
+        res = drills.kill_drill(
+            make, root, total=total, fail_step=FAIL_STEP, fail_worker=1,
+            fail_round=FAIL_ROUND, every=pcfg.checkpoint_every)
+    else:
+        res = drills.pod_drill(
+            make, root, total=total, fail_step=FAIL_STEP,
+            fail_round=FAIL_ROUND, rejoin_step=REJOIN_STEP,
+            every=pcfg.checkpoint_every)
+    res.update(
+        seconds=time.perf_counter() - t0, device=str(device), mesh=targs.mesh,
+        launches={f.__name__: f.launches for f in fa.COUNTED},
+        wire=wirelib.wire_stats(),
+        peak_mem_gib=(torch.cuda.max_memory_allocated(device) / 2**30
+                      if device.type == "cuda" else None))
+    os.makedirs(run_dir, exist_ok=True)
+    with open(os.path.join(run_dir, f"rank{ranks.rank}.json"), "w") as f:
+        json.dump(res, f, default=float)
+    wirelib.barrier(ranks)
+    if ranks.rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--out", required=True)
@@ -178,13 +251,21 @@ def main(argv=None) -> None:
                    help="a serving run: its cache layout and request "
                         "count, then the serve CLI's arguments (one "
                         "string; repeatable)")
+    p.add_argument("--drills", default="",
+                   help="comma-separated KIND@MESH:STEPS: the "
+                        "Supervisor's kill or pod drill on the training "
+                        "CLI's settings, its --mesh and total steps")
+    p.add_argument("--drill-args", default="",
+                   help="the training CLI's arguments the drills add (one "
+                        "string)")
     p.add_argument("train_argv", nargs=argparse.REMAINDER)
     args = p.parse_args(argv)
     train_argv = [x for x in args.train_argv if x != "--"]
     runs = [run.split(":") for run in args.runs.split(",") if run]
+    drill_specs = [d for d in args.drills.split(",") if d]
     if train_argv:
         targs = T.parse_args(train_argv)
-    elif args.serve and not (runs or args.grad_layers):
+    elif args.serve and not (runs or args.grad_layers or drill_specs):
         targs = S.parse_args(shlex.split(args.serve[0])[1:])
     else:
         raise SystemExit("the training runs need the training CLI's "
@@ -215,6 +296,9 @@ def main(argv=None) -> None:
                     json.dump(out, f)
         for spec in args.serve:
             serve_run(spec, args.out, device)
+        for spec in drill_specs:
+            drill_run(spec, train_argv, args.drill_args, args.out, device,
+                      ranks)
     finally:
         wirelib.barrier(ranks)
         wirelib.leave()

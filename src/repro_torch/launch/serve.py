@@ -83,8 +83,8 @@ def cache_share(mesh, kind: str, batch: int, seq_len: int
     all of both."""
     ranks = getattr(mesh, "ranks", wire.STACKED)
     if kind == "long":
-        return (0, batch), ranks.share(seq_len)
-    return ranks.share(batch), (0, seq_len)
+        return (0, batch), ranks.share(seq_len, even=True)
+    return ranks.share(batch, even=True), (0, seq_len)
 
 
 def build_decode_fns(cfg: ModelConfig, mesh, kind: str,
@@ -283,7 +283,9 @@ def check_ranked(cfg: ModelConfig, scfg, mesh_shape: dict,
     refusal names its ROADMAP Queue A item)."""
     n_cp = mesh_shape.get("data", 1)
     if "pod" in mesh_shape:
-        refuse_ranked("a pod mesh", "the Supervisor and pods across ranks")
+        # a pod mesh prefills through the dense escape hatch
+        refuse_ranked("a pod mesh (its prefill is dense)",
+                      "the dense prefill across ranks")
     if cfg.family != "dense":
         refuse_ranked(f"a non-dense family ({cfg.family})",
                       "the MoE, SSM, hybrid and multimodal families")

@@ -32,21 +32,26 @@ gradient reduction is the loss over all P·D frames; with
 error-feedback bf16 compression, as the reference's does.
 
 **Across processes.**  Under ``torchrun`` (``RANK``, ``WORLD_SIZE``,
-``LOCAL_RANK``) the plain :class:`Trainer` joins a process group of R
-ranks (``--dist-backend nccl``, the default, or ``gloo``) and rank r
-holds the frames ``[r·D/R, (r+1)·D/R)`` of the ``DxM`` mesh's data axis
-on its own device (``--device cuda`` is ``cuda:LOCAL_RANK``).  Every
+``LOCAL_RANK``) both loops join a process group of R ranks
+(``--dist-backend nccl``, the default, or ``gloo``) and rank r holds the
+frames ``[r·F/R, (r+1)·F/R)`` of the mesh's F = P·D pod-major frames on
+its own device (``--device cuda`` is ``cuda:LOCAL_RANK``;
+:func:`check_ranked` names the starting layouts: R divides D, or each
+rank holds an equal share of one pod, or whole pods).  Every
 rank draws the same global batch and plans the same schedule; it
 computes on its own frames (``core.executor`` ships the pairs that cross
-ranks through ``runtime/wire``), its loss is its frames' summed token
-loss over the whole batch's token count, and the step sums the loss and
-the gradients over the ranks in one flat bucket before the compression
-and AdamW, as the reference's gradients arrive reduced over its data
-axis.  The weights and moments are replicated: every rank updates the
-same bytes (``wire.agree`` checks the parameters at the start and each
-new plan key).  Rank 0 prints the records and writes the checkpoints.
-The Supervisor, pods, ``--overlap``, ``--layer-pipeline`` and the
-non-dense families are refused across ranks (ROADMAP Queue A).
+ranks through ``runtime/wire``, never across pods), its loss is its
+frames' summed token loss over the whole batch's token count, and the
+step sums the loss and the gradients over the ranks in one flat bucket
+before the compression and AdamW, as the reference's gradients arrive
+reduced over its data axis (over every pod's frames: the pod mean).  The
+weights and moments are replicated: every rank updates the same bytes
+(``wire.agree`` checks the parameters at the start and each new plan
+key).  The lowest rank prints the records and writes the checkpoints.
+The :class:`Supervisor` across ranks shrinks its group to the survivors
+after a loss (its docstring).  ``--overlap``, ``--layer-pipeline`` and
+the non-dense families are refused across ranks (ROADMAP Queue A items
+4.3, 4.4 and 4.6), and the steps run uncaptured (item 4.7).
 
 ``--attn-impl`` takes the reference's four names (``core.executor``):
 ``fused`` (the default here: CUDA kernels 1, 3 and 4), ``pallas``
@@ -442,12 +447,13 @@ def refuse_ranked(what: str, item: str) -> None:
 
 def check_ranked(cfg: ModelConfig, pcfg: ParallelConfig, mesh_shape: dict,
                  size: int) -> None:
-    """Raise, before the process group is joined, for a run this slice
-    does not take across ``size`` ranks: it takes the plain loop of a
-    dense model on a ``DxM`` mesh whose D the ranks divide."""
-    n_cp = mesh_shape.get("data", 1)
-    if "pod" in mesh_shape:
-        refuse_ranked("a pod mesh", "the Supervisor and pods across ranks")
+    """Raise, before the process group is joined, for a run the port
+    does not take across ``size`` ranks: it takes either loop of a dense
+    model on a mesh the ranks split evenly at the start.  On a ``DxM``
+    mesh R divides D; on a pod mesh every rank's share lies inside one
+    pod (R/P ranks a pod, R/P dividing D) or every rank holds whole pods
+    (R dividing P).  Uneven shares appear only after a loss, in the
+    Supervisor's survivor groups."""
     if pcfg.overlap:
         refuse_ranked("--overlap", "--overlap with asynchronous P2P")
     if pcfg.layer_pipeline:
@@ -455,9 +461,18 @@ def check_ranked(cfg: ModelConfig, pcfg: ParallelConfig, mesh_shape: dict,
     if cfg.family != "dense":
         refuse_ranked(f"a non-dense family ({cfg.family})",
                       "the MoE, SSM, hybrid and multimodal families")
-    if n_cp % size:
-        raise ValueError(f"{size} ranks do not divide the data axis "
-                         f"({n_cp} CP workers)")
+    pods, data = mesh_shape.get("pod", 1), mesh_shape.get("data", 1)
+    if "pod" not in mesh_shape:
+        if data % size:
+            raise ValueError(f"{size} ranks do not divide the data axis "
+                             f"({data} CP workers)")
+    elif not ((size % pods == 0 and data % (size // pods) == 0)
+              or pods % size == 0):
+        raise ValueError(
+            f"{size} ranks cannot split a pod mesh of {pods} pods x {data} "
+            f"workers: a rank holds whole pods (the ranks divide the pods) "
+            f"or an equal share of one pod (the pods divide the ranks, and "
+            f"the ranks of a pod divide its workers)")
 
 
 @dataclasses.dataclass
@@ -466,12 +481,15 @@ class StepRecord:
     step: int
     loss: float
     gnorm: float
-    ms: float                       # wall, the device synchronized
+    ms: float                       # wall, the device synchronized (the
+                                    # Supervisor's: its slowest rank's)
     n_workers: int = 1              # CP workers per pod
     pods: int = 1
     sent_bytes: int = 0             # this rank's bytes on the wire
     ship_s: float = 0.0             # host s in its ships across ranks
     reduce_s: float = 0.0           # host s in its sums over the ranks
+    rank_ms: float | None = None    # the Supervisor's: this rank's own
+                                    # wall, for reading only
 
 
 class Trainer:
@@ -713,7 +731,46 @@ class Supervisor:
     ``elastic.reshape_pod_frames`` (each surviving pod adopts whole
     pinned-pod sub-streams).  Without a checkpoint, recovery replays
     from step 0 with the initial weights drawn again from the seed (the
-    reference holds a host copy of them)."""
+    reference holds a host copy of them).
+
+    **Across processes** (``dist_backend``, under ``torchrun``) the
+    Supervisor joins the process group as :class:`Trainer` does and each
+    rank holds its contiguous share of the current fleet's frames
+    (``Ranks.share``), its batch sliced from ``_fleet_batch``'s view.
+
+    * Each rank's step wall (``timed_call``) is all-reduced with ``max``
+      over the current group, and that one number feeds every rank's
+      monitor through ``per_worker_times``: every rank takes the same
+      demote, promote and loss decisions at the same step.  A record
+      keeps the rank's own wall beside it (``rank_ms``).  Every step
+      the ranks agree on its plan key: their step-program caches may
+      differ (an idle rank keeps what the survivors evicted), so no
+      collective waits on one rank's cache miss.
+    * The lowest rank of the current group writes the checkpoints, after
+      a barrier, one save in flight.  Before a restore the writer's
+      in-flight save commits and every member of the old group waits for
+      it (a barrier); the members then read the same directory and
+      ``wire.agree`` the restored parameters.
+    * A loss shrinks the group to the ranks that still hold a worker of
+      the survivor fleet (``wire.subgroup``), which re-split the
+      survivor frames as evenly as floor division allows; the other
+      ranks idle: they run no step and join no survivor collective,
+      and wait at the world group's rejoin point (or at :meth:`close`).
+      Every rank runs the pod loss's prewarm thread, so the returning
+      ranks' plan keys are cached too.
+    * At the rejoin the lowest surviving rank broadcasts the parameters,
+      the AdamW state, the loader state and the monitor's last event
+      step to the world (``wire.broadcast``: the port's form of the
+      reference pulling the survivors' state to the host and re-sharding
+      it onto the big mesh), and every rank agrees on the parameters'
+      digest.
+
+    Every loss handled across ranks is one that every rank learns at
+    the same step: injected, or declared by the monitor from numbers all
+    ranks share.  A process that really dies (a lost host, SIGKILL)
+    would hang a collective; recovering from it needs torchrun's
+    restarts (ROADMAP Queue A item 4.10).  Across ranks the steps run
+    uncaptured (item 4.7)."""
 
     def __init__(self, cfg: ModelConfig, pcfg: ParallelConfig,
                  tcfg: TrainConfig, *, n_workers: int,
@@ -723,7 +780,8 @@ class Supervisor:
                  checkpoint_keep: int = 3,
                  monitor: health_mod.HealthMonitor | None = None,
                  start_fleet=None, verbose: bool = True, device="cuda",
-                 attn_impl: str = "fused"):
+                 attn_impl: str = "fused", dist_backend: str | None = None,
+                 start_members=None):
         self.device = resolve_device(device)
         self.attn_impl = ex.ExecConfig(impl=attn_impl).impl
         self.cfg, self.pcfg, self.tcfg = cfg, pcfg, tcfg
@@ -741,6 +799,22 @@ class Supervisor:
         self.verbose = verbose
         if not (cfg.uses_attention and cfg.n_layers):
             raise ValueError("Supervisor drives FCP attention models")
+        # the world group, and the current group: None on a rank that
+        # holds no worker of the fleet (it idles); members: the current
+        # group's global ranks, known on every rank
+        self.world = self.ranks = wirelib.STACKED
+        self.members: tuple = (0,)
+        self._leave = self._closed = False
+        if dist_backend is not None:
+            env = wirelib.launch_env()
+            check_ranked(cfg, pcfg, self._mesh(self.p0, self.n0).shape,
+                         env["size"] if env else 1)
+            self._leave = not wirelib.in_group()
+            self.world = wirelib.join(dist_backend, self.device)
+            self.members = tuple(sorted(
+                start_members if start_members is not None
+                else range(min(self.world.size, self.pods * self.n))))
+            self.ranks = wirelib.subgroup(self.members, self.world)
         self.model = Model(cfg, tp=1)
         self.loader = SyntheticLoader(
             dist=dist, n_frames=self.n0, tokens_per_worker=self.tpw0,
@@ -774,15 +848,23 @@ class Supervisor:
         self._prewarm = None                 # regrow-prewarm thread
         self._prewarm_info: dict | None = None
         self._staged: dict | None = None     # host-staged checkpoint
+        if self.ranks is not None and self.ranks.grouped:
+            # replicated weights: every member starts from the same bytes
+            self._agree_params()
 
     # -- geometry ----------------------------------------------------------
 
     def _mesh(self, pods: int, n: int) -> StackedMesh:
-        if self.p0 == 1 and pods == 1:
-            return StackedMesh((n, 1))
+        """The fleet's mesh over the current group (its frames split as
+        evenly as floor division allows)."""
+        shape = (n, 1) if self.p0 == 1 and pods == 1 else (pods, n, 1)
         # the pod axis stays even at pods == 1 for a multi-pod fleet, as
         # the reference keeps one mesh family across a shrink
-        return StackedMesh((pods, n, 1))
+        return StackedMesh(shape, ranks=self.ranks or wirelib.STACKED)
+
+    def _frames(self, pods: int, n: int) -> tuple[int, int] | None:
+        """This rank's frames of the fleet (None: stacked, all of them)."""
+        return self.ranks.share(pods * n) if self.world.grouped else None
 
     def _fleet_batch(self, b: Batch, pods: int, n: int, tpw: int) -> Batch:
         """Re-view the pinned-geometry batch on the current fleet: the
@@ -801,6 +883,10 @@ class Supervisor:
                      seqlens=elastic.pod_survivor_seqlens(
                          b.seqlens, self.p0, pods),
                      composition_id=b.composition_id)
+
+    def _lowest(self) -> bool:
+        """Whether this rank is the current group's lowest (it prints)."""
+        return self.ranks is not None and self.ranks.rank == 0
 
     # -- planning ----------------------------------------------------------
 
@@ -837,19 +923,29 @@ class Supervisor:
                 self._group_build(seqlens, pods, n, m, speeds))
 
     def _program(self, name: str, fn) -> graphs.Program:
-        """A step program in the loop's graph pool."""
-        return graphs.Program(name, fn, self.device, self._pool)
+        """A step program in the loop's graph pool (run eagerly across
+        ranks, as :meth:`Trainer._program` says why)."""
+        return graphs.Program(name, fn, self.device, self._pool,
+                              capture=not self.world.grouped)
 
     def _step_fn(self, step: int, pods: int, n: int, keys: tuple,
                  scheds) -> graphs.Program:
-        """The step program of ``(pods, n, keys)``, built at its first
-        step (``compiled_at``) and kept in a cache bounded by
-        ``plan_cache_size``, as the reference keeps its jitted steps."""
-        ck = (pods, n, keys)
+        """The step program of ``(pods, n, keys)`` on the current group,
+        built at its first step (``compiled_at``) and kept in a cache
+        bounded by ``plan_cache_size``, as the reference keeps its jitted
+        steps."""
+        if self.world.grouped:
+            # every step, not on a miss only: an idle rank keeps the
+            # programs the survivors evict, so after a rejoin one rank
+            # may hit where another misses, and a collective made on a
+            # miss alone would meet the other rank's step
+            wirelib.agree("plan key", repr(keys).encode(), self.ranks,
+                          self.device)
+        ck = (pods, n, keys, self.ranks)
         if ck not in self._step_cache:
             attn = attention_closures(self.cfg, self.pcfg, self.layer_masks,
                                       self.group_masks, scheds, self.device,
-                                      self.attn_impl, pods)
+                                      self.attn_impl, pods, self.ranks)
             self._step_cache[ck] = self._program("train_step", step_on(
                 build_train_step(self.model, self._mesh(pods, n), self.pcfg,
                                  self.tcfg, attn), self.state))
@@ -866,11 +962,15 @@ class Supervisor:
     # -- checkpointing -----------------------------------------------------
 
     def _save(self, step: int) -> None:
-        """A non-blocking save, after the previous one has landed: each
-        save in flight holds a host copy of the state and its own disk
-        space (7.4 GB at StableLM's full width, 4 layers, f32), so at
-        most one runs at a time."""
+        """A non-blocking save by the group's lowest rank, once every
+        member has finished the step, after the previous save has landed:
+        each save in flight holds a host copy of the state and its own
+        disk space (7.4 GB at StableLM's full width, 4 layers, f32), so
+        at most one runs at a time."""
         if self.manager is None:
+            return
+        wirelib.barrier(self.ranks)
+        if self.ranks.rank != 0:
             return
         self.manager.wait()
         self.manager.save(
@@ -885,14 +985,24 @@ class Supervisor:
         rewinds with the weights, so the replayed stream is bit-identical
         to the first pass (pure in ``(seed, step)``).  Saves still in
         flight were issued before the failure and are the host's own file
-        IO: they are waited for, so the newest of them counts."""
+        IO: they are waited for, so the newest of them counts.  An idle
+        rank only reads the step: its state arrives at the rejoin."""
         if self.manager is not None:
             self.manager.wait()
-            if self.manager.latest_step() is not None:
+            last = self.manager.latest_step()
+            if last is not None:
+                if self.ranks is None:
+                    return last + 1
                 return restore_state(self.manager, self.state, self.loader)
+        if self.ranks is None:
+            return 0
         reset_state(self.state, self.model, self.tcfg, self.device)
         self.loader.state = LoaderState(step=0, seed=self.tcfg.seed)
         return 0
+
+    def _agree_params(self) -> None:
+        wirelib.agree("parameters", wirelib.digest(
+            adamw.tree_leaves(self.state.params)), self.ranks, self.device)
 
     # -- the loop ----------------------------------------------------------
 
@@ -911,7 +1021,12 @@ class Supervisor:
         step = 0
         if self.manager is not None and self.manager.latest_step() is not None:
             step = self._restore()
+            if self.ranks is not None and self.ranks.grouped:
+                self._agree_params()
         while step < total_steps:
+            if self.ranks is None:
+                step = self._idle(step, total_steps, rejoin_step)
+                continue
             try:
                 step = self._run_steps(step, total_steps, fail, skew,
                                        rejoin_step)
@@ -922,6 +1037,15 @@ class Supervisor:
         self.close()
         return self.summary()
 
+    def _survivors(self, pods: int, n: int, kept) -> tuple:
+        """The global ranks of the current group whose share of the
+        ``pods x n`` frames holds a frame of ``kept`` (those of the
+        survivor fleet)."""
+        m, f = self.members, pods * n
+        bounds = [i * f // len(m) for i in range(len(m) + 1)]
+        return tuple(g for i, g in enumerate(m)
+                     if any(bounds[i] <= x < bounds[i + 1] for x in kept))
+
     def _recover(self, e: Exception, step: int) -> int:
         """Shrink the fleet past the loss ``e``, restore, and return the
         step to resume at."""
@@ -929,6 +1053,7 @@ class Supervisor:
         at = int(getattr(e, "step", None) or step)
         pod = getattr(e, "pod", None)
         rec: dict = {"failed_step": at}
+        pods, n = self.pods, self.n
         if pod is not None:
             if self.pods <= 1:
                 raise e
@@ -938,6 +1063,8 @@ class Supervisor:
             # and idle the remainder
             new_pods = max(d for d in range(1, self.pods)
                            if self.p0 % d == 0)
+            kept_pods = [p for p in range(pods) if p != lost][:new_pods]
+            kept = [p * n + w for p in kept_pods for w in range(n)]
             if isinstance(e, elastic.InjectedFailure):
                 self.monitor.note_failure(
                     at, pod=lost, detail=f"injected at round {e.round}")
@@ -959,6 +1086,7 @@ class Supervisor:
                     raise e
                 self.monitor.resize(survivors)
                 self.n = len(survivors)
+                kept = survivors
             else:
                 # multi-pod worker loss: the pods run one schedule, so
                 # the lost worker's slot goes in every pod
@@ -967,34 +1095,60 @@ class Supervisor:
                 self.monitor.resize(topology=health_mod.FleetTopology(
                     self.pods, self.n - 1))
                 self.n -= 1
+                kept = [f for f in range(pods * n) if f % n != lost % n]
             rec["worker"] = lost
             what = f"worker {lost}"
+        if self.world.grouped:
+            members = self._survivors(pods, n, kept)
+            if len(members) > self.pods * self.n:
+                raise ValueError(f"{len(members)} ranks for "
+                                 f"{self.pods * self.n} survivor frames")
+            # the writer finishes its in-flight save, and every member of
+            # the old group waits for it, before the survivors form their
+            # group and restore from the directory they share
+            if self.manager is not None:
+                self.manager.wait()
+            wirelib.barrier(self.ranks)
+            self.members = members
+            self.ranks = wirelib.subgroup(members, self.ranks)
+            rec["members"] = list(members)
         if self.state.residual is not None:
             # EF residuals accumulate per-topology quantization error —
             # never reuse them across a resize
             compression.reset_residuals(self.state.residual)
             rec["ef_reset"] = True
         resume = self._restore()
+        if self.ranks is not None and self.ranks.grouped:
+            self._agree_params()
         rec.update(resume_step=resume, steps_lost=at - resume,
                    pods=self.pods, n_workers=self.n,
                    wall_s=time.perf_counter() - t0)
         self.recoveries.append(rec)
         if pod is not None:
             # overlapping recovery: survivors train on while the regrow
-            # path warms on a host thread
+            # path warms on a host thread (on the idle ranks too)
             self._start_prewarm(resume)
-        if self.verbose:
+        if self.verbose and self._lowest():
             print(f"[supervisor] lost {what} ({e}); replanning on "
                   f"{self.pods}x{self.n} survivors, resuming at step "
                   f"{resume}", flush=True)
         return resume
 
+    def _idle(self, step: int, total: int, rejoin_step) -> int:
+        """An idle rank runs no step: it waits for the survivors at the
+        world group's rejoin point and returns the step they rejoin at,
+        or, with no rejoin before ``total``, goes on to :meth:`close`."""
+        if rejoin_step is None or int(rejoin_step) >= total:
+            return total
+        return self._rejoin(max(step, int(rejoin_step)))
+
     def _run_steps(self, start: int, total: int, fail, skew,
                    rejoin_step=None) -> int:
-        for step in range(start, total):
+        step = start
+        while step < total:
             if (rejoin_step is not None and step >= int(rejoin_step)
                     and (self.pods, self.n) != (self.p0, self.n0)):
-                self._rejoin(step)
+                step = self._rejoin(step)
             pods, n = self.pods, self.n
             nt = pods * n
             skew_vec = None
@@ -1019,30 +1173,39 @@ class Supervisor:
                 elastic.pod_survivor_seqlens(b.seqlens, self.p0, pods),
                 n, self.pcfg.block_size)
             batch = batch_arrays(self._fleet_batch(b, pods, n, tpw),
-                                 self.cfg, self.device)
+                                 self.cfg, self.device,
+                                 frames=self._frames(pods, n))
             fn = self._step_fn(step, pods, n, keys, scheds)
             if step + 1 < total:
                 self._prefetch(self.loader.peek_seqlens(), pods, n, speeds)
-            (loss, gnorm), dt = ex.timed_call(
+            w0 = wirelib.wire_stats()
+            (loss, gnorm), own = ex.timed_call(
                 functools.partial(fn, held=held(self.state)), batch)
+            w1 = wirelib.wire_stats()
+            # the fleet's step ends when its slowest rank's does: every
+            # rank's monitor sees that one number
+            dt = wirelib.all_max(own, self.ranks, self.device)
             self.monitor.observe(
                 step, health_mod.per_worker_times(dt, nt, skew_vec))
             ev = self.monitor.maybe_replan(step)
-            if ev is not None and self.verbose:
+            if ev is not None and self.verbose and self._lowest():
                 print(f"[supervisor] {ev.kind} workers {ev.workers} "
                       f"at step {step} (speeds {ev.speeds}): "
                       f"{ev.detail}", flush=True)
             self.monitor.check(step)
-            self.history.append(StepRecord(step, float(loss), float(gnorm),
-                                           dt * 1e3, n, pods))
+            self.history.append(StepRecord(
+                step, float(loss), float(gnorm), dt * 1e3, n, pods,
+                *(w1[k] - w0[k] for k in ("sent_bytes", "ship_s",
+                                          "reduce_s")), own * 1e3))
             self.last_scheds = scheds
             every = max(int(self.pcfg.checkpoint_every), 0)
             if every and (step + 1) % every == 0:
                 self._save(step)
-            if self.verbose:
+            if self.verbose and self._lowest():
                 print(f"step {step:5d}  loss {float(loss):.4f}  "
                       f"gnorm {float(gnorm):.3f}  "
                       f"[{pods}x{n}w {dt * 1e3:.0f}ms]", flush=True)
+            step += 1
         return total
 
     # -- overlapping recovery ----------------------------------------------
@@ -1116,15 +1279,18 @@ class Supervisor:
         except Exception as exc:    # best effort: the rejoin goes cold
             info["error"] = repr(exc)
 
-    def _rejoin(self, step: int) -> None:
+    def _rejoin(self, step: int) -> int:
         """Regrow the fleet to full strength at a step boundary: join the
         prewarm thread, reset the monitor's topology and the EF
         residuals, and record the rejoin's cost and whether the
-        full-fleet plan keys were already cached.  The reference pulls
-        the survivors' state to the host and re-shards it onto the big
-        mesh; stacked workers read the same tensors at any fleet size,
-        so the state stays on the card and ``rejoin_ms`` measures the
-        rest of the same span."""
+        full-fleet plan keys were already cached; returns the step to go
+        on at.  The reference pulls the survivors' state to the host and
+        re-shards it onto the big mesh; stacked workers read the same
+        tensors at any fleet size, so the state stays on the card and
+        ``rejoin_ms`` measures the rest of the same span.  Across ranks
+        the world group forms again here and the lowest surviving rank
+        broadcasts the state to the returning ranks (class docstring):
+        the record holds the broadcast's bytes and seconds."""
         t0 = time.perf_counter()
         if self._prewarm is not None:
             self._prewarm.join()
@@ -1136,6 +1302,9 @@ class Supervisor:
             topology=health_mod.FleetTopology(self.p0, self.n0))
         if self.state.residual is not None:
             compression.reset_residuals(self.state.residual)
+        sent = {}
+        if self.world.grouped:
+            step, sent = self._regroup(step)
         keys_cached = all(
             self._group_key(self.loader.peek_seqlens(), self.p0, self.n0,
                             m, None) in self.plan_cache
@@ -1146,20 +1315,62 @@ class Supervisor:
             "plan_keys_cached": keys_cached,
             "plan_misses_before": m0, "compiles_before": c0,
             "builds_before": b0,
-            "prewarm": self._prewarm_info})
-        if self.verbose:
+            "prewarm": self._prewarm_info, **sent})
+        if self.verbose and self._lowest():
             print(f"[supervisor] pod rejoin at step {step}: fleet back to "
                   f"{self.p0}x{self.n0} "
                   f"({'warm' if keys_cached else 'cold'} plans)",
                   flush=True)
+        return step
+
+    def _regroup(self, step: int) -> tuple[int, dict]:
+        """The world group again: the lowest surviving rank's parameters,
+        AdamW state, loader state, rejoin step and the monitor's last
+        event step (its cooldown) broadcast to every rank, then the
+        parameters agreed.  Returns the survivors' step and what the
+        broadcast cost this rank."""
+        src, st = self.members[0], self.state
+        meta = torch.tensor([step, self.loader.state.step,
+                             self.loader.state.seed,
+                             self.monitor._last_event_step],
+                            dtype=torch.int64, device=self.device)
+        tensors = adamw.tree_leaves({"params": st.params, "m": st.opt.m,
+                                     "v": st.opt.v}) + [st.opt.step, meta]
+        wirelib.barrier(self.world)
+        w0, t0 = wirelib.wire_stats(), time.perf_counter()
+        wirelib.broadcast(tensors, src, self.world)
+        seconds = time.perf_counter() - t0
+        w1 = wirelib.wire_stats()
+        step, lstep, seed, last_event = (int(x) for x in meta.tolist())
+        self.loader.state = LoaderState(step=lstep, seed=seed)
+        self.monitor._last_event_step = last_event
+        self.members, self.ranks = tuple(range(self.world.size)), self.world
+        self._agree_params()
+        return step, {"broadcast_src": src,
+                      "broadcast_bytes": w1["broadcast_bytes"]
+                      - w0["broadcast_bytes"],
+                      "broadcast_priced": wirelib.broadcast_bytes(
+                          tensors, src, self.world),
+                      "broadcast_s": seconds}
 
     def close(self) -> None:
+        """Join the prewarm thread, stop the planner and land the last
+        save; across ranks every rank then meets at the world group
+        (idle ranks wait here), and the group is left if this loop
+        joined it.  Runs once."""
+        if self._closed:
+            return
+        self._closed = True
         if self._prewarm is not None:
             self._prewarm.join()
             self._prewarm = None
         self.planner.shutdown()
         if self.manager is not None:
             self.manager.wait()
+        if self.world.grouped:
+            wirelib.barrier(self.world)
+            if self._leave:
+                wirelib.leave()
 
     def summary(self) -> dict:
         s = self.plan_cache.stats
@@ -1175,6 +1386,24 @@ class Supervisor:
             "plan_cache": s.to_dict(),
             "plan_ahead_hits": self.planner.prefetched_hits,
         }
+
+    def report(self, wall_s: float) -> dict:
+        """This rank's run as a JSON-able dict (as :meth:`Trainer.report`),
+        with its recoveries, rejoins and the members of its last group."""
+        cuda = self.device.type == "cuda"
+        return {"rank": self.world.rank, "ranks": self.world.size,
+                "backend": self.world.backend, "device": str(self.device),
+                "members": list(self.members),
+                "frames": (list(self._frames(self.pods, self.n))
+                           if self.ranks is not None and self.world.grouped
+                           else None),
+                "records": [dataclasses.asdict(r) for r in self.history],
+                "compiled_at": list(self.compiled_at),
+                "recoveries": self.recoveries, "rejoins": self.rejoins,
+                "launches": {f.__name__: f.launches for f in fa.COUNTED},
+                "wire": wirelib.wire_stats(), "wall_s": wall_s,
+                "peak_mem_gib": (torch.cuda.max_memory_allocated(
+                    self.device) / 2**30 if cuda else None)}
 
 
 # flags kept for the reference CLI's parity that the port does not read:
@@ -1301,10 +1530,10 @@ def build_parser() -> argparse.ArgumentParser:
                         " gloo")
     p.add_argument("--dist-backend", default="nccl",
                    choices=list(wirelib.BACKENDS),
-                   help="the process group's backend under torchrun (the"
-                        " plain loop of a dense model, its CP workers"
-                        " split over the ranks); nothing falls back to"
-                        " another backend")
+                   help="the process group's backend under torchrun (either"
+                        " loop of a dense model, its CP workers split over"
+                        " the ranks); nothing falls back to another"
+                        " backend")
     return p
 
 
@@ -1312,23 +1541,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     return build_parser().parse_args(argv)
 
 
-def trainer_from_args(args: argparse.Namespace) -> Trainer | Supervisor:
-    """The CLI's loop, routed as the reference routes it: the
-    :class:`Supervisor` for ``--supervised`` FCP runs with more than one
-    CP worker and no model axis, else the plain :class:`Trainer` (warns
-    for a parity-only flag set to anything but its default)."""
-    parser = build_parser()
-    for name in PARITY_ONLY_FLAGS:
-        if getattr(args, name) != parser.get_default(name):
-            warnings.warn(f"--{name.replace('_', '-')} is accepted for the "
-                          f"reference CLI's parity and has no effect here",
-                          stacklevel=2)
-    mesh = parse_mesh(args.mesh)
-    env = wirelib.launch_env()
-    dev_spec = args.device
-    if env is not None:
-        dev_spec = ranked_device(args.dist_backend, args.device, env)
-    device = resolve_device(dev_spec)
+def configs_from_args(args: argparse.Namespace) -> tuple:
+    """The model, parallel and training configs of the CLI's
+    arguments."""
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = apply_overrides(cfg, args.override)
     pcfg = ParallelConfig(block_size=args.block_size,
@@ -1352,32 +1567,44 @@ def trainer_from_args(args: argparse.Namespace) -> Trainer | Supervisor:
                           demote_cooldown=args.demote_cooldown,
                           checkpoint_every=args.checkpoint_every)
     tcfg = TrainConfig(lr=args.lr, warmup_steps=2, total_steps=args.steps)
+    return cfg, pcfg, tcfg
+
+
+def trainer_from_args(args: argparse.Namespace) -> Trainer | Supervisor:
+    """The CLI's loop, routed as the reference routes it: the
+    :class:`Supervisor` for ``--supervised`` FCP runs with more than one
+    CP worker and no model axis, else the plain :class:`Trainer` (warns
+    for a parity-only flag set to anything but its default)."""
+    parser = build_parser()
+    for name in PARITY_ONLY_FLAGS:
+        if getattr(args, name) != parser.get_default(name):
+            warnings.warn(f"--{name.replace('_', '-')} is accepted for the "
+                          f"reference CLI's parity and has no effect here",
+                          stacklevel=2)
+    mesh = parse_mesh(args.mesh)
+    env = wirelib.launch_env()
+    dev_spec = args.device
+    if env is not None:
+        dev_spec = ranked_device(args.dist_backend, args.device, env)
+    device = resolve_device(dev_spec)
+    cfg, pcfg, tcfg = configs_from_args(args)
     n_cp, tp = mesh.shape["data"], mesh.shape["model"]
     supervised = (args.supervised and cfg.uses_attention and n_cp > 1
                   and tp == 1)
-    if env is not None:
-        if supervised:
-            refuse_ranked("the Supervisor", "the Supervisor and pods across "
-                          "ranks; pass --no-supervised for the plain loop")
-        return Trainer(cfg, pcfg, tcfg, mesh,
-                       tokens_per_worker=args.tokens_per_worker,
-                       dist=args.dist, fresh=args.fresh_stream,
-                       device=device, log_every=args.log_every,
-                       attn_impl=args.attn_impl,
-                       checkpoint_dir=args.checkpoint_dir,
-                       dist_backend=args.dist_backend)
+    # under torchrun both loops join the process group
+    backend = args.dist_backend if env is not None else None
     if supervised:
         return Supervisor(cfg, pcfg, tcfg, n_workers=n_cp,
                           tokens_per_worker=args.tokens_per_worker,
                           pods=mesh.pods, dist=args.dist,
                           fresh=args.fresh_stream,
                           checkpoint_dir=args.checkpoint_dir, device=device,
-                          attn_impl=args.attn_impl)
+                          attn_impl=args.attn_impl, dist_backend=backend)
     return Trainer(cfg, pcfg, tcfg, mesh,
                    tokens_per_worker=args.tokens_per_worker, dist=args.dist,
                    fresh=args.fresh_stream, device=device,
                    log_every=args.log_every, attn_impl=args.attn_impl,
-                   checkpoint_dir=args.checkpoint_dir)
+                   checkpoint_dir=args.checkpoint_dir, dist_backend=backend)
 
 
 def ranked_device(backend: str, device: str, env: dict) -> str:
@@ -1407,8 +1634,8 @@ def main(argv=None) -> Trainer | Supervisor:
         out = trainer.run(args.steps)
     finally:
         trainer.close()
-    if isinstance(trainer, Trainer) and trainer.ranks.rank != 0:
-        return trainer
+    if trainer.ranks is None or trainer.ranks.rank != 0:
+        return trainer                  # the lowest rank prints
     s = trainer.plan_cache.stats
     print(f"plan cache: {s.hits} hits / {s.misses} misses "
           f"(hit rate {s.hit_rate:.2f}), "

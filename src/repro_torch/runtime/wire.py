@@ -20,8 +20,10 @@ byte-identical schedules).  The codec is PyTorch:
   the same bounded error as the forward for ``bf16``/``int8``.
 
 **Across processes.**  Under a ``torch.distributed`` process group of
-R ranks (:class:`Ranks`), rank r holds the r-th of R equal contiguous
-shares of the plan's frames, and :func:`ship` takes that rank's payloads
+R ranks (:class:`Ranks`), rank r holds the r-th of R contiguous shares
+of the plan's frames (:meth:`Ranks.share`: equal when R divides them, as
+evenly as floor division allows after a worker loss), and :func:`ship`
+takes that rank's payloads
 with the plan's global ``(src, dst)`` pairs: a pair with both ends on
 the rank stays the index copy, a pair that crosses ranks is encoded,
 sent with ``dist.batch_isend_irecv`` (one batch a ship, every rank
@@ -29,11 +31,19 @@ posting its ops in the plan's pair order) and decoded on arrival, its
 int8 scales travelling beside the payload.  gloo moves host memory, so
 under gloo a CUDA payload is staged through a host tensor; NCCL takes
 CUDA tensors as they are.  The reductions a ranked train step needs
-(:func:`all_sum`), the agreement checks (:func:`agree`, :func:`digest`),
-the barrier and joining the group live here too: this is the only
-module of the port that calls ``torch.distributed``
-(``analysis/lints.py``).  :func:`wire_stats` counts the bytes a rank
-puts on the wire.
+(:func:`all_sum`, and :func:`all_max` for the fleet's step wall), the
+agreement checks (:func:`agree`, :func:`digest`), the barrier and
+joining the group live here too: this is the only module of the port
+that calls ``torch.distributed`` (``analysis/lints.py``).
+:func:`wire_stats` counts the bytes a rank puts on the wire.
+
+**Survivor groups.**  A :class:`Ranks` spans the world, or the ordered
+global ranks ``members`` of a subgroup (:func:`subgroup`: the ranks that
+still hold a worker after a loss); every collective and point-to-point
+op here runs in the group of the ``Ranks`` it is given, a peer's group
+rank mapped to its global rank through ``members``.  :func:`broadcast`
+sends one rank's tensors to the rest of a group in place (a rejoin's
+state), priced by :func:`broadcast_bytes`.
 
 Serving across ranks adds two operations: :func:`move`, a reshard of
 row ranges along a host table (a prefill's cache rows and first tokens
@@ -45,6 +55,7 @@ every rank ends with the same bytes; ``runtime/serving`` prices both).
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import hashlib
 import os
@@ -204,11 +215,15 @@ class Ranks:
     """This process's place in a ``torch.distributed`` process group:
     ``size`` ranks, this one ``rank``, over ``backend``.  ``backend=None``
     is no group: the stacked transport, every frame in this process.
-    Hashable: keys the memoized executor tables."""
+    ``members`` are the global ranks of a subgroup in group-rank order
+    (:func:`subgroup`; its process group lives in this module's registry,
+    so a ``Ranks`` stays hashable), ``None`` the world.  Hashable: keys
+    the memoized executor tables."""
 
     size: int = 1
     rank: int = 0
     backend: str | None = None
+    members: tuple | None = None
 
     def __post_init__(self):
         if not 0 <= self.rank < self.size:
@@ -218,21 +233,53 @@ class Ranks:
         if self.backend is not None and self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r} "
                              f"(expected one of {BACKENDS})")
+        if self.members is not None and len(self.members) != self.size:
+            raise ValueError(f"{len(self.members)} members for a group of "
+                             f"{self.size}")
 
     @property
     def grouped(self) -> bool:
         return self.backend is not None
 
-    def share(self, n_frames: int) -> tuple[int, int]:
-        """The frame range ``[lo, hi)`` this rank holds of ``n_frames``."""
-        if n_frames % self.size:
+    @property
+    def alone(self) -> bool:
+        """No group, or a survivor subgroup of one rank: a collective is
+        the identity.  A one-rank world still makes its calls, so its
+        backend runs them."""
+        return not self.grouped or (self.members is not None
+                                    and self.size == 1)
+
+    @property
+    def group(self):
+        """The subgroup's process group (None: the world's default)."""
+        return None if self.members is None else _GROUPS[self.members]
+
+    def global_rank(self, r: int) -> int:
+        """The global rank of group rank ``r``."""
+        return int(r) if self.members is None else self.members[r]
+
+    def bounds(self, n_frames: int) -> tuple:
+        """Where each rank's share of ``n_frames`` starts, and the end:
+        rank i holds ``[floor(i·N/R), floor((i+1)·N/R))``."""
+        return tuple(i * n_frames // self.size for i in range(self.size + 1))
+
+    def share(self, n_frames: int, even: bool = False) -> tuple[int, int]:
+        """The frame range ``[lo, hi)`` this rank holds of ``n_frames``
+        (:meth:`bounds`); ``even`` refuses a count the ranks do not
+        divide (the serving cache's rule, ``launch/serve.cache_share``;
+        the training CLI holds its starting layouts in
+        ``launch/train.check_ranked``)."""
+        if even and n_frames % self.size:
             raise ValueError(f"{self.size} ranks do not divide "
                              f"{n_frames} frames")
-        per = n_frames // self.size
-        return self.rank * per, (self.rank + 1) * per
+        b = self.bounds(n_frames)
+        return b[self.rank], b[self.rank + 1]
 
 
 STACKED = Ranks()
+
+# the subgroups' process groups, by their members (Ranks.group)
+_GROUPS: dict = {}
 
 
 def launch_env() -> dict | None:
@@ -279,9 +326,34 @@ def in_group() -> bool:
 
 
 def leave() -> None:
-    """Leave the process group (if this process is in one)."""
+    """Leave the process group (if this process is in one), and with it
+    every subgroup."""
+    _GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def subgroup(members, ranks: Ranks) -> Ranks | None:
+    """This process's place in the group of the global ranks
+    ``members`` (sorted), or None when it is not one of them.  Every
+    process of ``ranks``'s group calls it at the same step boundary; the
+    group is made once per member set (``dist.new_group`` with local
+    synchronization: the members wait for one another, a process left
+    out goes on).  The world's members give the world itself."""
+    if not ranks.grouped:
+        raise ValueError("a subgroup without a process group")
+    members = tuple(sorted(int(m) for m in members))
+    world, me = dist.get_world_size(), dist.get_rank()
+    if not members or not set(members) <= set(range(world)):
+        raise ValueError(f"bad members {members} of {world} ranks")
+    if members == tuple(range(world)):
+        return Ranks(world, me, ranks.backend)
+    if me not in members:
+        return None
+    if members not in _GROUPS:
+        _GROUPS[members] = dist.new_group(list(members),
+                                          use_local_synchronization=True)
+    return Ranks(len(members), members.index(me), ranks.backend, members)
 
 
 def _host(x: torch.Tensor) -> torch.Tensor:
@@ -293,19 +365,45 @@ def _host(x: torch.Tensor) -> torch.Tensor:
     return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
 
 
+def _wire(x: torch.Tensor, ranks: Ranks, stage: bool = True
+          ) -> torch.Tensor:
+    """``x`` as ``ranks``'s backend moves it: through host memory under
+    gloo (when ``stage``), else on its device, contiguous.  A caller that
+    receives into it copies it back when it is not ``x``."""
+    if stage and ranks.backend == "gloo":
+        return _host(x)
+    return x.contiguous()
+
+
+def _landing(like: torch.Tensor, ranks: Ranks, stage: bool = True
+             ) -> torch.Tensor:
+    """A zeroed buffer of ``like``'s shape and dtype where ``ranks``'s
+    backend receives (:func:`_wire`'s placement)."""
+    host = stage and ranks.backend == "gloo"
+    return torch.zeros(like.shape, dtype=like.dtype,
+                       device="cpu" if host else like.device,
+                       pin_memory=host and like.is_cuda)
+
+
+def _small_device(ranks: Ranks, device):
+    """Where a collective's few host numbers go: the card under NCCL,
+    which moves device memory only, else the host."""
+    return torch.device(device) if ranks.backend == "nccl" else "cpu"
+
+
 def barrier(ranks: Ranks) -> None:
     """Wait until every rank has come here (nothing without a group)."""
-    if ranks.grouped:
-        dist.barrier()
+    if not ranks.alone:
+        dist.barrier(group=ranks.group)
 
 
 def all_sum(tensors, ranks: Ranks) -> list[torch.Tensor]:
     """Each tensor summed over the ranks: one flat bucket per dtype, the
     tensors in the order given (every rank passes the same order), one
     ``all_reduce`` each.  Returns views of the summed buckets; without a
-    group, the tensors themselves."""
+    group, or alone in one, the tensors themselves."""
     tensors = list(tensors)
-    if not ranks.grouped:
+    if ranks.alone:
         return tensors
     t0 = time.perf_counter()
     out = list(tensors)
@@ -315,8 +413,8 @@ def all_sum(tensors, ranks: Ranks) -> list[torch.Tensor]:
     for idx in by_dtype.values():
         flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
         # gloo moves host memory: the bucket goes through the host whole
-        buf = _host(flat) if ranks.backend == "gloo" else flat
-        dist.all_reduce(buf)
+        buf = _wire(flat, ranks)
+        dist.all_reduce(buf, group=ranks.group)
         if buf is not flat:
             flat.copy_(buf, non_blocking=True)
         off = 0
@@ -326,6 +424,50 @@ def all_sum(tensors, ranks: Ranks) -> list[torch.Tensor]:
             off += n
     _STATS["reduce_s"] += time.perf_counter() - t0
     return out
+
+
+def all_max(x: float, ranks: Ranks, device) -> float:
+    """The largest of the ranks' ``x`` (one ``all_reduce``); without a
+    group, or alone in one, ``x``."""
+    if ranks.alone:
+        return x
+    buf = torch.tensor([float(x)], dtype=torch.float64,
+                       device=_small_device(ranks, device))
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=ranks.group)
+    return float(buf)
+
+
+def broadcast(tensors, src: int, ranks: Ranks) -> None:
+    """Each tensor of group rank ``src`` into the other ranks' tensors of
+    the same shapes and dtypes, in place (one ``dist.broadcast`` a
+    tensor, in the order given; staged through the host under gloo).
+    :func:`wire_stats` counts the bytes ``src`` sends, once to every
+    other rank (:func:`broadcast_bytes`).  Alone, nothing."""
+    if ranks.alone:
+        return
+    t0 = time.perf_counter()
+    sent = 0
+    with torch.no_grad():
+        for t in tensors:
+            buf = _wire(t, ranks)
+            dist.broadcast(buf, src=ranks.global_rank(src),
+                           group=ranks.group)
+            if buf is not t:
+                t.copy_(buf)
+            sent += buf.nbytes
+    _STATS["broadcasts"] += 1
+    if ranks.rank == src:
+        _STATS["broadcast_bytes"] += sent * (ranks.size - 1)
+    _STATS["broadcast_s"] += time.perf_counter() - t0
+
+
+def broadcast_bytes(tensors, src: int, ranks: Ranks) -> int:
+    """The bytes ``ranks``'s rank sends in :func:`broadcast` of
+    ``tensors`` from ``src``: all of them to every other rank from
+    ``src``, none from the rest."""
+    if ranks.rank != src:
+        return 0
+    return sum(t.nbytes for t in tensors) * (ranks.size - 1)
 
 
 def digest(tensors) -> bytes:
@@ -351,15 +493,15 @@ def digest(tensors) -> bytes:
 def agree(what: str, data: bytes, ranks: Ranks, device) -> None:
     """Raise unless every rank passes the same ``data`` (an all-gather of
     its hash)."""
-    if not ranks.grouped:
+    if ranks.alone:
         return
-    dev = torch.device(device) if ranks.backend == "nccl" else "cpu"
+    dev = _small_device(ranks, device)
     mine = int.from_bytes(hashlib.sha256(data).digest()[:8], "little",
                           signed=True)
     got = [torch.zeros(1, dtype=torch.int64, device=dev)
            for _ in range(ranks.size)]
     dist.all_gather(got, torch.tensor([mine], dtype=torch.int64,
-                                      device=dev))
+                                      device=dev), group=ranks.group)
     hashes = [int(x) for x in got]
     if len(set(hashes)) != 1:
         raise RuntimeError(f"the ranks disagree on the {what} (hashes "
@@ -369,7 +511,8 @@ def agree(what: str, data: bytes, ranks: Ranks, device) -> None:
 _STATS = {"ships": 0, "messages": 0, "sent_bytes": 0, "recv_bytes": 0,
           "ship_s": 0.0, "reduce_s": 0.0,
           "moves": 0, "move_bytes": 0, "move_s": 0.0,
-          "merges": 0, "merge_bytes": 0, "merge_s": 0.0}
+          "merges": 0, "merge_bytes": 0, "merge_s": 0.0,
+          "broadcasts": 0, "broadcast_bytes": 0, "broadcast_s": 0.0}
 
 
 def wire_stats() -> dict:
@@ -381,7 +524,8 @@ def wire_stats() -> dict:
     the data when a call returns); the :func:`move` calls that crossed
     ranks, the bytes they sent and their seconds; the :func:`gather`
     calls, the bytes each sent (its share, once to every other rank) and
-    their seconds."""
+    their seconds; the :func:`broadcast` calls, the bytes this rank sent
+    in them and their seconds."""
     return dict(_STATS)
 
 
@@ -392,7 +536,8 @@ def reset_wire_stats() -> None:
 
 def rank_wire_bytes(spec, ranks: Ranks, n_q_heads: int, n_kv_heads: int,
                     head_dim: int, in_bytes: float,
-                    out_bytes: float = 4.0) -> tuple[float, float]:
+                    out_bytes: float = 4.0,
+                    pods: int = 1) -> tuple[float, float]:
     """The bytes ``ranks``'s rank puts on the wire in one FCP attention
     call on ``spec``'s plan, ``(forward, backward)``, the sent bytes
     :func:`wire_stats` should count: each ship group's pairs that leave
@@ -400,7 +545,9 @@ def rank_wire_bytes(spec, ranks: Ranks, n_q_heads: int, n_kv_heads: int,
     ``rows`` blocks each, at ``core.cost_model``'s prices of a block.
     The reshuffle ships q, k and v (``in_bytes`` a value), the rounds k
     and v, the restore o (``out_bytes``: f32, or the executor's
-    ``out_dtype``)."""
+    ``out_dtype``).  Over ``pods`` pods every pod ships its own copy of
+    the plan's pairs (``core.executor.pod_perm``), the frames split over
+    the ranks pod-major."""
     from ..core import cost_model as cm     # which imports this module
     bs = spec.block_size
     qkv = cm.qkv_wire_block_bytes(spec.wire, bs, n_q_heads, n_kv_heads,
@@ -408,12 +555,14 @@ def rank_wire_bytes(spec, ranks: Ranks, n_q_heads: int, n_kv_heads: int,
     o = cm.o_wire_block_bytes(spec.wire, bs, n_q_heads, head_dim, out_bytes)
     kv = cm.kv_wire_block_bytes(spec.wire, bs, n_kv_heads, head_dim,
                                 in_bytes)
-    lo, hi = ranks.share(spec.n_workers)
+    n = spec.n_workers
+    lo, hi = ranks.share(n * pods)
     fwd = bwd = 0.0
 
     def price(perm, rows, block_bytes):
         nonlocal fwd, bwd
-        for s, d in perm:
+        for s, d in ((s + p * n, d + p * n) for p in range(pods)
+                     for s, d in perm):
             if (lo <= s < hi) != (lo <= d < hi):
                 if lo <= s < hi:
                     fwd += rows * block_bytes
@@ -434,40 +583,50 @@ def rank_wire_bytes(spec, ranks: Ranks, n_q_heads: int, n_kv_heads: int,
 # the transport
 # --------------------------------------------------------------------------
 
-def _ship(x: torch.Tensor, perm, fmt: WireFormat,
-          ranks: Ranks | None) -> torch.Tensor:
+def _ship(x: torch.Tensor, perm, fmt: WireFormat, ranks: Ranks | None,
+          n_frames: int | None = None) -> torch.Tensor:
     """``x``'s frames along the global pairs ``perm``: all of the frames
     without a group (every pair an index copy), else this rank's share
-    of them, in order.  Receive buffers take their shapes from ``x``'s
+    of ``n_frames`` (an equal share of ``x.shape[0] x R`` frames when
+    None), in order.  Receive buffers take their shapes from ``x``'s
     (every frame's payload has the same shape): no shape travels at run
     time."""
     ranks = ranks or STACKED
     t0 = time.perf_counter()
     n, me = x.shape[0], ranks.rank
-    lo = me * n
+    total = n * ranks.size if n_frames is None else int(n_frames)
+    bounds = ranks.bounds(total)
+    lo = bounds[me]
+    if bounds[me + 1] - lo != n:
+        raise ValueError(f"{n} frames on rank {me} of {ranks.size}, whose "
+                         f"share of {total} is {bounds[me + 1] - lo}")
+
+    def owner(f):
+        return bisect.bisect_right(bounds, f) - 1
     payload, scales = encode(x, fmt, (-2, -1))
     parts = [payload] if scales is None else [payload, scales]
     # gloo moves host memory: a ship with a pair across ranks takes its
     # payloads through the host whole, one copy each way; NCCL moves the
     # device's
     stage = ranks.backend == "gloo" and any(
-        (s // n == me) != (d // n == me) for s, d in perm)
-    parts = [_host(p) if stage else p.contiguous() for p in parts]
-    recvs = [torch.zeros(p.shape, dtype=p.dtype, device=p.device,
-                         pin_memory=stage and x.is_cuda) for p in parts]
+        (owner(s) == me) != (owner(d) == me) for s, d in perm)
+    recvs = [_landing(p, ranks, stage) for p in parts]
+    parts = [_wire(p, ranks, stage) for p in parts]
     ops, sent, got = [], 0, 0
     for s, d in perm:
-        rs, rd = s // n, d // n
+        rs, rd = owner(s), owner(d)
         if rs == me and rd == me:
             for src, dst in zip(parts, recvs):
                 dst[d - lo] = src[s - lo]
         elif rs == me:
             for src in parts:
-                ops.append(dist.P2POp(dist.isend, src[s - lo], rd))
+                ops.append(dist.P2POp(dist.isend, src[s - lo],
+                                      ranks.global_rank(rd), ranks.group))
                 sent += src[s - lo].nbytes
         elif rd == me:
             for dst in recvs:
-                ops.append(dist.P2POp(dist.irecv, dst[d - lo], rs))
+                ops.append(dist.P2POp(dist.irecv, dst[d - lo],
+                                      ranks.global_rank(rs), ranks.group))
                 got += dst[d - lo].nbytes
     if ops:
         for req in dist.batch_isend_irecv(ops):
@@ -492,18 +651,21 @@ class _Ship(torch.autograd.Function):
     same, so autograd runs their backwards in the same order."""
 
     @staticmethod
-    def forward(ctx, x, perm, fmt, ranks):
+    def forward(ctx, x, perm, fmt, ranks, n_frames):
         ctx.perm, ctx.fmt, ctx.ranks = perm, fmt, ranks
-        return _ship(x, perm, fmt, ranks)
+        ctx.n_frames = n_frames
+        return _ship(x, perm, fmt, ranks, n_frames)
 
     @staticmethod
     def backward(ctx, g):
         rev = tuple((d, s) for s, d in ctx.perm)
-        return _ship(g.contiguous(), rev, ctx.fmt, ctx.ranks), None, None, None
+        return (_ship(g.contiguous(), rev, ctx.fmt, ctx.ranks, ctx.n_frames),
+                None, None, None, None)
 
 
 def ship(x: torch.Tensor, perm, fmt: WireFormat = WIRE_F32,
-         ranks: Ranks | None = None) -> torch.Tensor:
+         ranks: Ranks | None = None,
+         n_frames: int | None = None) -> torch.Tensor:
     """Move worker payloads along a partial permutation.
 
     ``x``: ``[N, rows, heads, bs, D]`` — one payload per stacked
@@ -515,12 +677,12 @@ def ship(x: torch.Tensor, perm, fmt: WireFormat = WIRE_F32,
     travels the reversed permutation in the same format.
 
     With ``ranks`` in a process group, ``x`` is this rank's share of the
-    frames (``N / R`` of them) and ``perm`` names global frames (module
-    docstring)."""
+    ``n_frames`` frames (``Ranks.share``; None: ``N x R`` of them, split
+    evenly) and ``perm`` names global frames (module docstring)."""
     perm = tuple((int(s), int(d)) for s, d in perm)
     if torch.is_grad_enabled() and x.requires_grad:
-        return _Ship.apply(x, perm, fmt, ranks)
-    return _ship(x, perm, fmt, ranks)
+        return _Ship.apply(x, perm, fmt, ranks, n_frames)
+    return _ship(x, perm, fmt, ranks, n_frames)
 
 
 # --------------------------------------------------------------------------
@@ -550,7 +712,7 @@ def move(srcs, dsts, table, ranks: Ranks, dim: int = 0) -> None:
     if not ranks.grouped and any(s or d for s, d, *_ in table):
         raise ValueError("a move across ranks without a process group")
     t0 = time.perf_counter()
-    me, stage = ranks.rank, ranks.backend == "gloo"
+    me = ranks.rank
     ops, sent, landed = [], 0, []
     for s, d, a, b, n in table:
         if s == me and d == me:
@@ -558,17 +720,16 @@ def move(srcs, dsts, table, ranks: Ranks, dim: int = 0) -> None:
                 y.narrow(dim, b, n).copy_(x.narrow(dim, a, n))
         elif s == me:
             for x in srcs:
-                part = x.narrow(dim, a, n)
-                buf = _host(part) if stage else part.contiguous()
-                ops.append(dist.P2POp(dist.isend, buf, d))
+                buf = _wire(x.narrow(dim, a, n), ranks)
+                ops.append(dist.P2POp(dist.isend, buf, ranks.global_rank(d),
+                                      ranks.group))
                 sent += buf.nbytes
         elif d == me:
             for y in dsts:
                 part = y.narrow(dim, b, n)
-                buf = torch.empty(part.shape, dtype=part.dtype,
-                                  device="cpu" if stage else part.device,
-                                  pin_memory=stage and part.is_cuda)
-                ops.append(dist.P2POp(dist.irecv, buf, s))
+                buf = _landing(part, ranks)
+                ops.append(dist.P2POp(dist.irecv, buf, ranks.global_rank(s),
+                                      ranks.group))
                 landed.append((part, buf))
     if not ops:
         return
@@ -593,13 +754,13 @@ def gather(x: torch.Tensor, ranks: Ranks, dim: int) -> torch.Tensor:
     """Every rank's ``x`` (one shape on all of them), concatenated along
     ``dim`` in rank order (one ``all_gather``): every rank ends with the
     same bytes, so a merge computed from them is the same on each.
-    Without a group, ``x`` itself."""
-    if not ranks.grouped:
+    Without a group, or alone in one, ``x`` itself."""
+    if ranks.alone:
         return x
     t0 = time.perf_counter()
-    buf = _host(x) if ranks.backend == "gloo" else x.contiguous()
+    buf = _wire(x, ranks)
     parts = [torch.empty_like(buf) for _ in range(ranks.size)]
-    dist.all_gather(parts, buf)
+    dist.all_gather(parts, buf, group=ranks.group)
     out = torch.cat(parts, dim).to(x.device, non_blocking=True)
     _STATS["merges"] += 1
     # its share, once to every other rank

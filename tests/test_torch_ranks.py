@@ -94,8 +94,12 @@ def test_rank_ship_refuses_what_this_slice_does_not_run():
     ranks = wire.Ranks(2, 0, "gloo")
     assert ranks.share(4) == (0, 2) and wire.Ranks(2, 1, "gloo").share(4) \
         == (2, 4)
+    # after a worker loss the survivors split as floor division allows;
+    # the plain loop's and the serving loop's even rule still refuses
+    assert ranks.share(3) == (0, 1) and wire.Ranks(2, 1, "gloo").share(3) \
+        == (1, 3)
     with pytest.raises(ValueError, match="do not divide"):
-        ranks.share(3)
+        ranks.share(3, even=True)
     with pytest.raises(ValueError, match="ranks without a process group"):
         wire.Ranks(2, 0, None)
     sched = make_schedule(J.SEQLENS, J.N, J.TPW, J.BS, n_q_heads=J.H,
@@ -107,8 +111,9 @@ def test_rank_ship_refuses_what_this_slice_does_not_run():
         ex.fcp_attention(*xs, tabs, spec=sched.spec)
     with pytest.raises(ValueError, match="fcp_reshuffle"):
         ex.fcp_reshuffle(torch.zeros(2, J.TPW, 8), tabs, spec=sched.spec)
-    with pytest.raises(ValueError, match="pods across ranks"):
-        ex.schedule_tables(sched, "cpu", 2, ranks)
+    # pods across ranks: a rank holds its share of the pod-major frames
+    pod_tabs = ex.schedule_tables(sched, "cpu", 2, ranks)
+    assert pod_tabs["frames"] == (0, 4) and pod_tabs["workers"].shape[0] == 4
 
 
 # --------------------------------------------------------------------------
@@ -270,11 +275,12 @@ REFUSALS = {
                     "NCCL needs a CUDA device"),
     "ranks_not_dividing_data": (["--no-supervised"], 3,
                                 "3 ranks do not divide the data axis"),
-    "pods": (["--mesh", "2x2x1", "--no-supervised"], 2, "a pod mesh"),
+    "pods": (["--mesh", "2x3x1", "--no-supervised"], 4,
+             "4 ranks cannot split a pod mesh of 2 pods x 3 workers"),
     "overlap": (["--overlap", "--no-supervised"], 2, "--overlap"),
     "layer_pipeline": (["--layer-pipeline", "--no-supervised"], 2,
                        "--layer-pipeline"),
-    "supervisor": ([], 2, "the Supervisor"),
+    "supervisor": ([], 3, "3 ranks do not divide the data axis"),
     "non_dense_family": (["--arch", "granite_moe_3b_a800m",
                           "--no-supervised"], 2, "a non-dense family"),
 }

@@ -239,7 +239,9 @@ def test_stacked_long_loop_matches_jax(mesh, np_params, jax_tokens):
 BASE = ["--arch", "stablelm_1_6b", "--smoke", "--mesh", "4x2", "--device",
         "cpu", "--dist-backend", "gloo"]
 REFUSALS = {
-    "pods": (["--mesh", "2x2x2"], 2, "pods across ranks"),
+    "pods": (["--mesh", "2x2x2"], 2,
+             r"a pod mesh \(its prefill is dense\).*dense prefill across "
+             "ranks"),
     "moe": (["--arch", "granite_moe_3b_a800m"], 2,
             r"non-dense family \(moe\).*MoE, SSM, hybrid"),
     "dense_prefill": (["--prefill-impl", "dense"], 2,

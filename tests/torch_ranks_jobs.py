@@ -462,7 +462,251 @@ def job_serve(ranks, params_path=None):
     return out
 
 
-JOBS = {"ships": job_ships, "two": job_two, "serve": job_serve}
+# --------------------------------------------------------------------------
+# the Supervisor across ranks (tests/test_torch_supervisor_ranks.py)
+# --------------------------------------------------------------------------
+
+# smoke widths, f32; the drills of tests/test_torch_elastic.py and
+# tests/test_torch_pods.py cut to few steps: a worker dies at step 3
+# after the checkpoint of step 1, a pod dies at step 3 and rejoins at 5
+SUP_BS, SUP_TPW, SUP_EVERY = 64, 128, 2
+SUP_KILL = dict(total=5, fail_step=3, fail_round=2, every=SUP_EVERY)
+SUP_POD = dict(total=7, fail_step=3, fail_round=1, rejoin_step=5,
+               every=SUP_EVERY)
+SUP_STRAGGLER = dict(total=6, window=2, cooldown=2, factor=2.0)
+STRAGGLER_TPW = 256                  # blocks enough for a speed to move
+SUP_MASK = "causal"
+# the ranked pod step of tests/test_torch_pods.py's
+# test_pod_train_step_matches_jax: 2 pods x 2 workers, one pod a rank
+POD_P, POD_N, POD_TPW, POD_BS = 2, 2, 128, 32
+POD_TCFG = dict(lr=1e-3, warmup_steps=1, total_steps=3,
+                grad_compression=True)
+# uneven ships: 3 frames over 2 ranks (1 + 2), pairs inside and across
+UNEVEN_PERMS = (((0, 2), (2, 1), (1, 0)), ((1, 2), (2, 0)), ((0, 1),))
+CLI_ARGV = ["--arch", ARCH, "--smoke", "--dist", "real_world",
+            "--block-size", "64", "--tokens-per-worker", "256", "--device",
+            "cpu", "--attn-impl", "fused_xla", "--override",
+            "param_dtype=float32", "--steps", "2"]
+
+
+def sup_pcfg(**kw):
+    from repro_torch.configs.base import ParallelConfig
+    kw.setdefault("checkpoint_every", SUP_EVERY)
+    return ParallelConfig(block_size=SUP_BS, remat=False, coalesce=4,
+                          in_dtype_bytes=4.0, attn_mask=SUP_MASK, **kw)
+
+
+class _Recorder:
+    """A Supervisor factory: every Supervisor it makes keeps the
+    schedules of the first step after each recovery (``after``), and
+    the factory keeps the Supervisors (``made``)."""
+
+    def __init__(self, ranked, pcfg, n_workers, pods=1, compression=False,
+                 total=8, tpw=SUP_TPW):
+        self.ranked, self.pcfg, self.tpw = ranked, pcfg, tpw
+        self.n_workers, self.pods = n_workers, pods
+        self.compression, self.total, self.made = compression, total, []
+
+    def __call__(self, ckpt_dir, **kw):
+        from repro_torch.configs.base import TrainConfig
+        from repro_torch.launch import train as T
+
+        class Recording(T.Supervisor):
+            def _recover(self, e, step):
+                self._record_next = True
+                return super()._recover(e, step)
+
+            def _plan(self, seqlens, pods, n, speeds):
+                scheds, keys = super()._plan(seqlens, pods, n, speeds)
+                if getattr(self, "_record_next", False):
+                    self._record_next = False
+                    self.after.append(sched_record(scheds, seqlens, pods, n,
+                                                   speeds))
+                return scheds, keys
+        tcfg = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=self.total,
+                           grad_compression=self.compression)
+        sup = Recording(smoke_cfg(), self.pcfg, tcfg,
+                        n_workers=self.n_workers, tokens_per_worker=self.tpw,
+                        pods=self.pods, dist="real_world",
+                        checkpoint_dir=ckpt_dir, checkpoint_keep=8,
+                        verbose=False, device="cpu", attn_impl="fused_xla",
+                        dist_backend="gloo" if self.ranked else None, **kw)
+        sup.after = []
+        self.made.append(sup)
+        return sup
+
+
+def sched_record(scheds, seqlens, pods, n, speeds) -> dict:
+    """A replan's inputs and its plan arrays (one mask group)."""
+    (sched,) = scheds.values()
+    arr = sched.arrays
+    return {"seqlens": [int(x) for x in seqlens], "pods": pods, "n": n,
+            "speeds": None if speeds is None else list(speeds),
+            "arrays": {f.name: np.asarray(getattr(arr, f.name))
+                       for f in dataclasses.fields(arr)}}
+
+
+def sup_view(rec: _Recorder, res: dict) -> dict:
+    """A drill's result with its primary Supervisor's recoveries, rejoins,
+    schedules after each recovery and this rank's frames of the fleet it
+    ended on (None on an idle rank)."""
+    sup = rec.made[0]
+    res = dict(res)
+    res.update(recoveries=sup.recoveries, rejoins=sup.rejoins,
+               after=sup.after, frames=(sup._frames(sup.pods, sup.n)
+                                        if sup.ranks is not None else None),
+               saved_steps=(sup.manager.steps() if sup.manager is not None
+                            and sup.manager.dir.exists() else None))
+    return res
+
+
+def supervisor_drills(ranked, root) -> dict:
+    """The kill drills (worker 1 and worker 0 of a 2x1 fleet, worker 1
+    of a 4x1 fleet), the straggler drill and the pod drill (2x2x1)."""
+    from repro_torch.launch import drills
+    out = {}
+    for name, n, worker in (("kill_w1", 2, 1), ("kill_w0", 2, 0),
+                            ("split", 4, 1)):
+        rec = _Recorder(ranked, sup_pcfg(), n, total=SUP_KILL["total"])
+        out[name] = sup_view(rec, drills.kill_drill(
+            rec, os.path.join(root, name), fail_worker=worker, **SUP_KILL))
+    st = dict(SUP_STRAGGLER)
+    rec = _Recorder(ranked, sup_pcfg(checkpoint_every=0,
+                                     health_window=st["window"],
+                                     demote_cooldown=st["cooldown"]), 2,
+                    total=st["total"], tpw=STRAGGLER_TPW)
+    out["straggler"] = sup_view(rec, drills.straggler_drill(
+        rec, worker=1, **st))
+    rec = _Recorder(ranked, sup_pcfg(), POD_N, pods=POD_P, compression=True,
+                    total=SUP_POD["total"])
+    out["pod"] = sup_view(rec, drills.pod_drill(
+        rec, os.path.join(root, "pod"), **SUP_POD))
+    return out
+
+
+def pod_step(np_params, ranks=None):
+    """The 2x2x1 pod train step with error-feedback compression on
+    ``ranks``'s frames (one pod a rank): step-0 loss and gradients summed
+    over the ranks, then three steps' (loss, gnorm)."""
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.data import SyntheticLoader
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.models import Model
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.optimizer import adamw
+    from repro_torch.runtime import compression, wire
+    ranks = ranks or wire.STACKED
+    cfg = smoke_cfg()
+    kw = dict(dist="real_world", n_frames=POD_N, tokens_per_worker=POD_TPW,
+              vocab_size=cfg.vocab_size, pods=POD_P, seed=0)
+    b = SyntheticLoader(**kw).next()
+    pcfg = ParallelConfig(block_size=POD_BS)
+    mesh = StackedMesh((POD_P, POD_N, 1)).with_ranks(ranks)
+    sched = T.build_schedule(cfg, pcfg, b.seqlens, POD_N, POD_TPW)
+    masks = T.layer_mask_specs(cfg, pcfg)
+    attn = T.attention_closures(cfg, pcfg, masks, [masks[0]],
+                                {masks[0]: sched}, "cpu", "fused_xla", POD_P,
+                                ranks)
+    model, params = Model(cfg), params_from_numpy(np_params, "cpu")
+    batch = T.batch_arrays(b, cfg, "cpu",
+                           frames=mesh.frames if ranks.grouped else None)
+    loss, grads = T.value_and_grad(model, pcfg, attn)(params, batch)
+    summed = wire.all_sum([loss] + adamw.tree_leaves(grads), ranks)
+    step = T.build_train_step(model, mesh, pcfg, TrainConfig(**POD_TCFG),
+                              attn)
+    opt, res, log = adamw.init(params), compression.init_residuals(params), []
+    for _ in range(3):
+        params, opt, res, loss_i, gnorm = step(params, opt, res, batch)
+        log.append((float(loss_i), float(gnorm)))
+    return {"loss": float(summed[0]),
+            "grads": [g.numpy() for g in summed[1:]], "log": log,
+            "frames": mesh.frames}
+
+
+def uneven_ships(ranks) -> dict:
+    """``ship`` of 3 frames over the ranks' uneven shares, forward and
+    backward, each format; a broadcast from rank 1 and a one-member
+    subgroup's sum."""
+    from repro_torch.runtime import wire
+    x, g = ship_inputs()
+    x, g = x[:3], g[:3]
+    lo, hi = ranks.share(3)
+    out = {"frames": (lo, hi), "ships": {}}
+    for p, perm in enumerate(UNEVEN_PERMS):
+        for fmt in FORMATS:
+            xt = torch.from_numpy(x[lo:hi]).requires_grad_(True)
+            y = wire.ship(xt, perm, wire.WireFormat(fmt), ranks, 3)
+            (dx,) = torch.autograd.grad(
+                (y * torch.from_numpy(g[lo:hi])).sum(), xt)
+            out["ships"][p, fmt] = (y.detach().numpy(), dx.numpy())
+    t = [torch.full((3, 2), float(ranks.rank)), torch.arange(
+        5, dtype=torch.int32) * (ranks.rank + 1)]
+    wire.reset_wire_stats()
+    wire.broadcast(t, 1, ranks)
+    out["broadcast"] = ([x.numpy() for x in t],
+                        wire.wire_stats()["broadcast_bytes"],
+                        wire.broadcast_bytes(t, 1, ranks))
+    one = wire.subgroup([1], ranks)
+    out["one"] = None if one is None else (
+        one.size, one.rank, one.members,
+        float(wire.all_sum([torch.tensor([2.5])], one)[0]))
+    return out
+
+
+def cli_runs(meshes=("2x1", "2x2x1")) -> dict:
+    """The train CLI's default loop on each mesh (the Supervisor across
+    ranks under torchrun's environment, stacked without it)."""
+    from repro_torch.launch import train as T
+    out = {}
+    for mesh in meshes:
+        sup = T.main(CLI_ARGV + ["--mesh", mesh] + (
+            ["--dist-backend", "gloo"] if "WORLD_SIZE" in os.environ
+            else []))
+        rep = sup.report(0.0)
+        out[mesh] = {"type": type(sup).__name__,
+                     "fleet": (sup.pods, sup.n),
+                     "log": [(r.loss, r.gnorm) for r in sup.history],
+                     "members": sup.members, "frames": rep["frames"],
+                     "records": len(rep["records"])}
+    return out
+
+
+def small_cache_pod(root) -> dict:
+    """The pod drill's loss and rejoin on a ranked Supervisor whose step
+    cache holds one program (``plan_cache_size=1``): the survivor rank
+    evicts the full fleet's program for its own and builds it again at
+    the rejoin, where the idle rank's cache still holds it."""
+    from repro_torch.optimizer import adamw
+    from repro_torch.runtime import elastic, wire
+    rec = _Recorder(True, sup_pcfg(plan_cache_size=1), POD_N, pods=POD_P,
+                    compression=True, total=SUP_POD["total"])
+    sup = rec(os.path.join(root, "small_cache"))
+    sup.run(SUP_POD["total"], rejoin_step=SUP_POD["rejoin_step"],
+            fail=elastic.InjectedFailure(pod=1, step=SUP_POD["fail_step"],
+                                         round=SUP_POD["fail_round"]))
+    return {"compiled_at": list(sup.compiled_at),
+            "records": [dataclasses.asdict(r) for r in sup.history],
+            "param_digest": wire.digest(
+                adamw.tree_leaves(sup.state.params)).hex()}
+
+
+def job_supervisor(ranks, params_path, root):
+    """Everything the Supervisor tests hold across the ranks: uneven
+    ships, a broadcast and a one-member group; the drills; a rejoin
+    after the survivors evicted the fleet's step program; the ranked pod
+    step; the CLI's default loop."""
+    np_params = torch.load(params_path, weights_only=False)
+    out = {"uneven": uneven_ships(ranks),
+           "drills": supervisor_drills(True, root),
+           "small_cache": small_cache_pod(root),
+           "pod_step": pod_step(np_params, ranks),
+           "cli": cli_runs()}
+    return out
+
+
+JOBS = {"ships": job_ships, "two": job_two, "serve": job_serve,
+        "supervisor": job_supervisor}
 
 
 def _child(rank, size, port, job, kwargs, out_dir):
