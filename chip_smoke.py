@@ -245,6 +245,21 @@ Phases, each reported on its own line with its wall:
              kernels 1, 3 and 4 launched in each rank; every rank's
              fleet and own step walls, its bytes and seconds in the ships,
              the sums and the broadcast, and each drill's seconds printed.
+             In the same torchrun the plain loop with ``--layer-pipeline
+             --overlap`` (RANKS_BOTH), between the flagless fused run and
+             the pallas run, 3 fused steps held as the fused run is (its
+             step-0 loss against the one-process run with both flags, its
+             bytes against the pipelined price, ``step_wire_price``), and
+             its f32 gradient check; and the serve CLI's ``--kind long
+             --overlap`` (SERVE_OVERLAP), held as the ``long`` run is
+             against the one-process ``--overlap`` loop, its tokens
+             equal.  The two training runs go again in turns, 2 steps
+             each (RANKS_TURN_STEPS; the walls past each run's first
+             step compared).  Each rank's host seconds in its ships' own
+             calls (``ship_wait_s``: all of a blocking ship's) print
+             beside its ships' seconds.
+             The one-rank NCCL CLI runs again with both flags (no pair
+             crosses ranks there: it holds that the path runs).
 
 The line before the card's line is a JSON object with one entry per
 kernel, its StableLM main-path row at the top (kernel 2's at decode) and
@@ -1158,10 +1173,11 @@ def device_ms(fn, n: int = 20, tries: int = 3,
     ``n`` calls under ``torch.profiler`` over ``n``, after three untimed
     calls; and the same per kernel name.  The profiler now and then
     records no device activity, or only part of it, in a process that
-    has profiled before, so a window whose sum falls short of ``floor``
-    (the least time the call's work can take) is tried again, up to
-    ``tries`` windows; then, with a floor, CUDA events time the call
-    (``time_ms``, launch gaps included), and without one it raises."""
+    has profiled before, so a window that records nothing, or whose sum
+    falls short of ``floor`` (the least time the call's work can take),
+    is tried again, up to ``tries`` windows; then CUDA events time the
+    call (``time_ms``, launch gaps included), under a name that says
+    so."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -1179,11 +1195,9 @@ def device_ms(fn, n: int = 20, tries: int = 3,
         per = {name[:90]: us / 1e3 / n for name, us in per.items()}
         if per and sum(per.values()) >= floor:
             return sum(per.values()), per
-    if floor > 0:
-        ms = time_ms(fn)
-        return ms, {"the call between CUDA events (the profiler recorded "
-                    "less than the bound)": ms}
-    raise AssertionError("the profiler recorded no device activity")
+    ms = time_ms(fn)
+    return ms, {"the call between CUDA events (the profiler recorded "
+                "nothing, or less than the bound)": ms}
 
 
 def bound(flops: float, peak: float, nbytes: float) -> dict:
@@ -2341,38 +2355,43 @@ def _nerr(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
 
 
-def stream_profile(fn) -> dict:
+def stream_profile(fn, tries: int = 1) -> dict:
     """One call of ``fn`` (after an untimed one) under ``torch.profiler``
     (device activity only), its trace read per CUDA stream: the main
     stream is the one the attention kernels run on, every other one is a
     side stream.  Counts the ship and copy kernels on each, and the share
-    of side-stream time that overlaps a main-stream kernel."""
+    of side-stream time that overlaps a main-stream kernel.  A trace with
+    no device activity (see ``device_ms``) is taken again, up to
+    ``tries`` calls, where a second call of ``fn`` runs the same work."""
     import bisect
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     path = os.path.join(BUILD, "stream_trace.json")
     os.makedirs(BUILD, exist_ok=True)
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    os.remove(path)
-    streams: dict = {}
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in (
-                "kernel", "gpu_memcpy", "gpu_memset"):
-            continue
-        sid = e.get("args", {}).get("stream", e.get("tid"))
-        a = float(e["ts"])
-        streams.setdefault(sid, []).append((a, a + float(e["dur"]),
-                                            e["name"]))
+    for _ in range(tries):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        os.remove(path)
+        streams: dict = {}
+        for e in events:
+            if e.get("ph") != "X" or e.get("cat") not in (
+                    "kernel", "gpu_memcpy", "gpu_memset"):
+                continue
+            sid = e.get("args", {}).get("stream", e.get("tid"))
+            a = float(e["ts"])
+            streams.setdefault(sid, []).append((a, a + float(e["dur"]),
+                                                e["name"]))
+        if streams:
+            break
     if not streams:
         raise AssertionError("the profiler recorded no device activity")
 
@@ -2499,8 +2518,8 @@ def overlap_and_pipeline_checks(fa, ex, trainlib, dev) -> dict:
             xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
             o = ex.fcp_attention(*xs, tabs, spec=spec)
             torch.autograd.grad((o * cot).sum(), xs)
-        sides = {tag: stream_profile(fn) for tag, fn in (("forward", fwd),
-                                                         ("fwd_bwd", fwd_bwd))}
+        sides = {tag: stream_profile(fn, tries=3) for tag, fn in (
+            ("forward", fwd), ("fwd_bwd", fwd_bwd))}
         if not (0 < sides["forward"]["side_ship_kernels"]
                 < sides["fwd_bwd"]["side_ship_kernels"]):
             raise AssertionError(f"side-stream ship kernels: forward "
@@ -3118,9 +3137,12 @@ def multimodal_breakdown(dev, arch: str) -> dict:
     n_fe, n_tok = fe.shape[0] * fe.shape[1], x.shape[0] * x.shape[1]
     f_flop = 2 * 2.0 * n_fe * cfg.frontend_dim * cfg.d_model
     h_flop = 3 * 2.0 * n_tok * cfg.d_model * cfg.padded_vocab(1)
-    out = {"frontend_proj_ms": device_ms(front, n=5)[0],
+    out = {"frontend_proj_ms": device_ms(
+               front, n=5, floor=bound(f_flop, PEAK_BF16, 0)["bound_ms"])[0],
            "frontend_proj_flop": f_flop,
-           "head_ms": device_ms(head, n=3)[0], "head_flop": h_flop,
+           "head_ms": device_ms(
+               head, n=3, floor=bound(h_flop, PEAK_BF16, 0)["bound_ms"])[0],
+           "head_flop": h_flop,
            "padded_vocab": cfg.padded_vocab(1)}
     out["head_tflops"] = h_flop / out["head_ms"] / 1e9
     del params, head_w, x, batch
@@ -3529,6 +3551,13 @@ SERVE_RANKS = {
     "long": (4, ["--slots", "2", "--cache-len", "12288", "--prompt-min",
                  "2048", "--prompt-len", "8192", "--seed", "5"]),
 }
+# the runs with both of the executor's scheduling flags across the ranks:
+# the plain loop for 3 fused steps and its f32 gradient check (run name
+# of launch/ranks.py), and the serve CLI's --overlap under --kind long
+BOTH_FLAGS = ["--layer-pipeline", "--overlap"]
+RANKS_BOTH = "fused+layer-pipeline+overlap"
+RANKS_TURN_STEPS = 2            # the second turn of each of the two runs
+SERVE_OVERLAP = "long"          # SERVE_RANKS' kind run with --overlap
 SERVE_NULL_DRAWS = 3            # draws of the serving logits' noise floor
 SERVE_RANKS_WHY = ("requests cut from phase 3's 16 to 8 (decode) and 4 "
                    "(long) for the run's time: a ranked loop runs every "
@@ -3606,17 +3635,36 @@ def nccl_one_rank(fa, trainlib, argv: list) -> dict:
     return {"wall_s": wall, "reports": [report]}
 
 
+def step_wire_price(spec, cfg, pcfg, rk, in_b: float, out_b: float) -> int:
+    """A rank's bytes on the wire in one train step of a one-mask model
+    on ``spec``'s plan: every layer's forward ships twice (the forward,
+    and its recompute under remat), its backward once
+    (``wire.rank_wire_bytes``); under ``--layer-pipeline`` a layer ships
+    its KV rounds alone, and the hidden state with one position channel
+    moves in and the hidden state out once, forward and backward
+    (``wire.reshuffle_wire_bytes``: outside the layers' checkpoints)."""
+    from repro_torch.runtime import wire
+    nh, nkv = cfg.padded_heads(1)
+    if not pcfg.layer_pipeline:
+        fwd, bwd = wire.rank_wire_bytes(spec, rk, nh, nkv, cfg.head_dim,
+                                        in_b, out_b)
+        return int(cfg.n_layers * (2 * fwd + bwd))
+    fwd, bwd = wire.rank_wire_bytes(spec, rk, nh, nkv, cfg.head_dim, in_b,
+                                    out_b, layout="sched")
+    moves = (wire.reshuffle_wire_bytes(spec, rk, cfg.d_model + 1)
+             + wire.reshuffle_wire_bytes(spec, rk, cfg.d_model,
+                                         reverse=True))
+    return int(cfg.n_layers * (2 * fwd + bwd) + sum(moves))
+
+
 def ranks_pricing(trainlib, argv, steps: int, nproc: int) -> list:
     """Each rank's bytes on the wire for each of the first ``steps``
     batches of ``argv``'s stream, priced from the plans a one-process run
-    makes (``wire.rank_wire_bytes``): every layer's forward ships
-    twice (the forward, and its recompute under remat), its backward
-    once."""
+    makes (:func:`step_wire_price`)."""
     from repro_torch.runtime import wire
     tr = trainlib.trainer_from_args(trainlib.parse_args(argv))
     try:
         cfg, pcfg = tr.cfg, tr.pcfg
-        nh, nkv = cfg.padded_heads(1)
         in_b = trainlib.param_dtype_bytes(cfg)
         out_b = 2 if pcfg.attn_out_bf16 else 4
         priced = []
@@ -3625,13 +3673,9 @@ def ranks_pricing(trainlib, argv, steps: int, nproc: int) -> list:
             spec = trainlib.build_schedule(cfg, pcfg, b.seqlens, tr.n_cp,
                                            tr.tpw, mask=tr.group_masks[0]
                                            ).spec
-            row = []
-            for r in range(nproc):
-                fwd, bwd = wire.rank_wire_bytes(
-                    spec, wire.Ranks(nproc, r, "gloo"), nh, nkv,
-                    cfg.head_dim, in_b, out_b)
-                row.append(cfg.n_layers * (2 * fwd + bwd))
-            priced.append(row)
+            priced.append([step_wire_price(
+                spec, cfg, pcfg, wire.Ranks(nproc, r, "gloo"), in_b, out_b)
+                for r in range(nproc)])
     finally:
         tr.close()
     del tr
@@ -3665,6 +3709,8 @@ def hold_ranked(tag: str, run: dict, kernels: tuple, priced: list | None,
     out = {"wall_s": run["wall_s"], "losses": losses[0],
            "step_ms": [[x["ms"] for x in r["records"]] for r in reps],
            "ship_s": [[x["ship_s"] for x in r["records"]] for r in reps],
+           "ship_wait_s": [[x["ship_wait_s"] for x in r["records"]]
+                           for r in reps],
            "reduce_s": [[x["reduce_s"] for x in r["records"]]
                         for r in reps],
            "peak_mem_gib": [r["peak_mem_gib"] for r in reps],
@@ -3689,7 +3735,8 @@ def hold_ranked(tag: str, run: dict, kernels: tuple, priced: list | None,
         return [[round(x, n) for x in r] for r in out[key]]
     log(f"  ranks {tag}: wall {out['wall_s']:.1f} s, step ms per rank "
         f"{rounded('step_ms', 1)} (in the ships across ranks s "
-        f"{rounded('ship_s', 2)}, in the sums over the ranks s "
+        f"{rounded('ship_s', 2)}, of them in the ships' own calls s "
+        f"{rounded('ship_wait_s', 2)}, in the sums over the ranks s "
         f"{rounded('reduce_s', 2)}), peak GiB "
         f"per rank {[round(x, 2) for x in out['peak_mem_gib']]}, bytes on "
         f"the wire per rank and step {sent}; on {card}")
@@ -3724,7 +3771,7 @@ def serve_ranks_args(kind: str, extra: list):
         "--kind", kind, "--requests", str(n)])
 
 
-def serve_stacked(kind: str, dev) -> dict:
+def serve_stacked(kind: str, dev, extra: tuple = ()) -> dict:
     """The yardstick of a ranked serving run: the one-process stacked loop
     of the same arguments, every program eager (``EagerPrograms``, as the
     ranked ones run), in this process: its report (tokens, walls, peak),
@@ -3735,7 +3782,7 @@ def serve_stacked(kind: str, dev) -> dict:
     signs, against the plain path (the largest of SERVE_NULL_DRAWS)."""
     import torch
     from repro_torch.launch import serve as S
-    args = serve_ranks_args(kind, ["--device", "cuda:0"])
+    args = serve_ranks_args(kind, ["--device", "cuda:0", *extra])
     release()
     loop, _ = S.loop_from_args(args)
     loop._program = EagerPrograms(dev)
@@ -3802,7 +3849,7 @@ def serve_stacked(kind: str, dev) -> dict:
 
 
 def hold_serve_ranked(tag: str, reps: list, records: list, ref: dict,
-                      card: str) -> dict:
+                      card: str, hold_tokens: bool = False) -> dict:
     """A ranked serving run's checks against its stacked yardstick
     (``serve_stacked``): 0 programs built after warmup and a plan-cache
     hit on every prefill batch on every rank; kernels 1 and 2 launched in
@@ -3811,8 +3858,8 @@ def hold_serve_ranked(tag: str, reps: list, records: list, ref: dict,
     same on every rank; each prefill batch's last-token logits and the
     first decode step's, on the rank that holds them, within BF16_FLOORS
     noise floors of the stacked loop's.  The tokens that agree with the
-    stacked loop's are counted, not held (bf16 argmax near-ties may
-    flip)."""
+    stacked loop's are counted, and held equal only with
+    ``hold_tokens`` (bf16 argmax near-ties may flip)."""
     for r in reps:
         pcs = r["plan_cache"]
         if r["recompiles"] != 0 or pcs["misses"] or \
@@ -3843,6 +3890,9 @@ def hold_serve_ranked(tag: str, reps: list, records: list, ref: dict,
                              f"against the stacked loop's {sorted(want)}")
     agree = sum(a == b for k in want for a, b in zip(got[k], want[k]))
     total = sum(len(v) for v in want.values())
+    if hold_tokens and got != {int(k): v for k, v in want.items()}:
+        raise AssertionError(f"ranks serve {tag}: {agree} of {total} "
+                             f"tokens agree with the stacked loop's")
     stk = {}
     for e in ref["record"]:
         for i, key in enumerate(e.get("rids", e.get("slots"))):
@@ -3890,7 +3940,9 @@ def hold_serve_ranked(tag: str, reps: list, records: list, ref: dict,
         f"merges {[x['merge_bytes'] for x in out['ranks']]} "
         f"({[round(x['merge_s'], 3) for x in out['ranks']]} s), in the "
         f"prefill ships {[x['prefill_ship_bytes'] for x in out['ranks']]} "
-        f"({[round(x['prefill_ship_s'], 3) for x in out['ranks']]} s); "
+        f"({[round(x['prefill_ship_s'], 3) for x in out['ranks']]} s, "
+        f"of them in the ships' own calls "
+        f"{[round(x['prefill_ship_wait_s'], 3) for x in out['ranks']]} s); "
         f"peak GiB {[round(x, 2) for x in out['peak_mem_gib']]} (stacked "
         f"{stacked['peak_mem_gib']:.2f}); logits err {worst} (floors "
         f"{ref['floors']}); tokens agreeing {out['tokens_agreeing']}; on "
@@ -3964,36 +4016,61 @@ def ranks_phase(fa, trainlib, dev, card: str) -> dict:
     log(f"  ranks stacked (one process, eager): step ms "
         f"{[round(x, 1) for x in st['step_ms']]}, losses {st['losses']}, "
         f"peak {st['peak_mem_gib']:.2f} GiB; on {card}")
+    out["stacked_bf16_step0_loss_both"] = ref_both = timed(
+        "ranks stacked loss check with both flags", lambda: train_loss_check(
+            trainlib, dev, RANKS_ARGV + BOTH_FLAGS))
     priced = ranks_pricing(trainlib, RANKS_ARGV, 3, RANKS)
+    priced_both = ranks_pricing(trainlib, RANKS_ARGV + BOTH_FLAGS, 3, RANKS)
+    log(f"  ranks priced bytes a rank and step: {priced} (flagless), "
+        f"{priced_both} ({' '.join(BOTH_FLAGS)})")
     stacked = {}
     for kind in SERVE_RANKS:
         stacked[kind] = timed(f"ranks stacked serve {kind}",
                               lambda: serve_stacked(kind, dev))
+    ov_kind = SERVE_OVERLAP
+    stacked["overlap"] = timed(
+        f"ranks stacked serve {ov_kind} --overlap",
+        lambda: serve_stacked(ov_kind, dev, ("--overlap",)))
     out_dir = os.path.join(BUILD, "ranks")
     shutil.rmtree(out_dir, ignore_errors=True)
     serve_runs = []
-    for kind, (n, argv) in SERVE_RANKS.items():
+    for kind, flags in [(k, []) for k in SERVE_RANKS] + [
+            (ov_kind, ["--overlap"])]:
+        n, argv = SERVE_RANKS[kind]
         serve_runs += ["--serve", " ".join(
-            [f"{kind}:{n}", *SERVE_RANKS_ARGV, *argv, *RANKED_FLAGS])]
+            [f"{kind}:{n}", *SERVE_RANKS_ARGV, *argv, *flags,
+             *RANKED_FLAGS])]
+    # the flagless fused run and the run with both flags in turns
+    # (fused, both, pallas, both, fused: RANKS_TURNS)
     wall = torchrun(RANKS, [
         "-m", "repro_torch.launch.ranks", "--out", out_dir, "--runs",
-        "fused:3,pallas:1", "--grad-layers", str(RANKS_GRAD_LAYERS),
-        *serve_runs, *RANKED_DRILL_ARGV, "--", *RANKS_ARGV, *RANKED_FLAGS],
-        "gloo")
+        f"fused:3,{RANKS_BOTH}:3,pallas:1,{RANKS_BOTH}:{RANKS_TURN_STEPS},"
+        f"fused:{RANKS_TURN_STEPS}", "--grad-layers",
+        str(RANKS_GRAD_LAYERS), *serve_runs, *RANKED_DRILL_ARGV, "--",
+        *RANKS_ARGV, *RANKED_FLAGS], "gloo")
     out["torchrun_wall_s"] = wall
-    log(f"  ranks torchrun (2 gloo ranks: fused, pallas, gradient check, "
-        f"serving {', '.join(SERVE_RANKS)}, drills {RANKED_DRILLS}): wall "
-        f"{wall:.1f} s")
+    log(f"  ranks torchrun (2 gloo ranks: fused, {RANKS_BOTH}, pallas, "
+        f"gradient checks, serving {', '.join(SERVE_RANKS)} and {ov_kind} "
+        f"--overlap, drills {RANKED_DRILLS}): wall {wall:.1f} s")
     out["drills"] = hold_ranked_drills(out_dir, card)
-    for impl, kernels, loss_ref in (("fused", PATH_KERNELS["fused"], ref),
-                                    ("pallas", PATH_KERNELS["pallas"], None)):
+    for impl, kernels, loss_ref, price in (
+            ("fused", PATH_KERNELS["fused"], ref, priced),
+            (RANKS_BOTH, PATH_KERNELS["fused"], ref_both, priced_both),
+            ("pallas", PATH_KERNELS["pallas"], None, priced),
+            (RANKS_BOTH + ".2", PATH_KERNELS["fused"], ref_both,
+             priced_both),
+            ("fused.2", PATH_KERNELS["fused"], ref, priced)):
         reps = rank_reports(os.path.join(out_dir, impl), RANKS)
         out[impl] = hold_ranked(
             f"gloo {impl}", {"wall_s": reps[0]["wall_s"], "reports": reps},
-            kernels, priced, loss_ref, card)
+            kernels, price, loss_ref, card)
+    out["turns"] = ranks_turns(out)
+    log(f"  ranks in turns (fused, {RANKS_BOTH}, pallas, {RANKS_BOTH}, "
+        f"fused; each rank's steps past a run's first): "
+        f"{json.dumps(out['turns'])}; on {card}")
     with open(os.path.join(out_dir, "grads.json")) as f:
         grads = json.load(f)
-    for impl in ("fused", "pallas"):
+    for impl in ("fused", RANKS_BOTH, "pallas"):
         r = grads[impl]
         if not (r["finite"] and r["max_leaf_err"] <= TOL_GRAD):
             raise AssertionError(
@@ -4006,20 +4083,43 @@ def ranks_phase(fa, trainlib, dev, card: str) -> dict:
     nccl[nccl.index("--steps") + 1] = "2"
     out["nccl_one_rank"] = hold_ranked("nccl one rank", nccl_one_rank(
         fa, trainlib, nccl), PATH_KERNELS["fused"], None, ref, card)
+    # the started and landed ships under NCCL: a one-rank group has no
+    # pair across ranks, so this holds only that the path runs (a pair
+    # across NCCL ranks needs two cards)
+    out["nccl_one_rank_both"] = hold_ranked(
+        "nccl one rank " + " ".join(BOTH_FLAGS), nccl_one_rank(
+            fa, trainlib, nccl + BOTH_FLAGS), PATH_KERNELS["fused"], None,
+        ref_both, card)
     out["serve"] = {"requests_why": SERVE_RANKS_WHY,
                     "settings": {k: SERVE_RANKS_ARGV + v[1]
                                  for k, v in SERVE_RANKS.items()}}
-    for kind in SERVE_RANKS:
-        d = os.path.join(out_dir, f"serve_{kind}")
+    for kind, tag, ref_loop in [(k, k, stacked[k]) for k in SERVE_RANKS] + [
+            (ov_kind, "overlap", stacked["overlap"])]:
+        d = os.path.join(out_dir, f"serve_{kind}" + (
+            "_overlap" if tag == "overlap" else ""))
         reps = rank_reports(d, RANKS)
         records = [torch.load(os.path.join(d, f"rank{r}_logits.pt"))
                    for r in range(RANKS)]
-        out["serve"][kind] = hold_serve_ranked(f"gloo {kind}", reps, records,
-                                               stacked[kind], card)
+        out["serve"][tag] = hold_serve_ranked(
+            f"gloo {kind}" + (" --overlap" if tag == "overlap" else ""),
+            reps, records, ref_loop, card, hold_tokens=tag == "overlap")
     rep, rec = nccl_serve_one_rank(fa, "long")
     out["serve"]["nccl_one_rank_long"] = hold_serve_ranked(
         "nccl one rank long", [rep], [rec], stacked["long"], card)
     return out
+
+
+def ranks_turns(out: dict) -> dict:
+    """The flagless fused run and the run with both flags, taken in turns:
+    each one's step walls past its runs' first step, every rank's, and
+    their median."""
+    turns = {}
+    for tag, names in (("flagless", ("fused", "fused.2")),
+                       (RANKS_BOTH, (RANKS_BOTH, RANKS_BOTH + ".2"))):
+        ms = [x for n in names for per_rank in out[n]["step_ms"]
+              for x in per_rank[1:]]
+        turns[tag] = {"step_ms": ms, "median_ms": float(np.median(ms))}
+    return turns
 
 
 def hold_ranked_drills(out_dir: str, card: str) -> dict:
@@ -4616,9 +4716,10 @@ def main() -> int:
         seen[r["name"]]["shapes"].append(entry)
     # the ranked paths' own counts: each rank's launches over each run
     # that runs the kernel (training fused or pallas, the serving runs)
-    ranked_runs = {"train " + t: ranked[t] for t in ("fused", "pallas")}
+    ranked_runs = {"train " + t: ranked[t]
+                   for t in ("fused", RANKS_BOTH, "pallas")}
     ranked_runs.update({"serve " + t: ranked["serve"][t] for t in (
-        *SERVE_RANKS, "nccl_one_rank_long")})
+        *SERVE_RANKS, "overlap", "nccl_one_rank_long")})
     ranked_runs.update({"drill " + t: ranked["drills"][t]
                         for t in ("kill", "pod")})
     for k in kernels:

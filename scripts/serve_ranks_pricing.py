@@ -10,8 +10,10 @@ smoke's full-width model (StableLM-2-1.6B at ``RANKS_LAYERS`` layers,
 bf16) for each of ``RANKS`` ranks: the FCP prefill's ship bytes
 (``wire.rank_wire_bytes``, the forward over every layer), the insert's
 moved bytes (``serving.insert_wire_bytes``), the decode merges' bytes
-(``serving.merge_wire_bytes``), and each rank's weights and cache.  No
-kernel runs and no card is needed::
+(``serving.merge_wire_bytes``), and each rank's weights and cache; then
+the same for the ``--overlap`` run (``chip_smoke.SERVE_OVERLAP``: the
+double-buffered plan of every batch).  No kernel runs and no card is
+needed::
 
     PYTHONPATH=src python scripts/serve_ranks_pricing.py
 """
@@ -65,15 +67,16 @@ def batches_of(args) -> tuple[list, int]:
     return seen, rep["decode_steps"]
 
 
-def price(kind: str) -> None:
-    args = C.serve_ranks_args(kind, ["--device", "cpu"])
+def price(kind: str, extra: tuple = ()) -> None:
+    args = C.serve_ranks_args(kind, ["--device", "cpu", *extra])
     cfg = apply_overrides(get_config(args.arch), args.override)
     mesh = parse_mesh(args.mesh)
     n_cp, n_model = mesh.shape["data"], mesh.shape["model"]
     tpw = args.prefill_tokens_per_worker
     budget = n_cp * tpw
     pcfg = ParallelConfig(block_size=args.block_size,
-                          in_dtype_bytes=S.param_dtype_bytes(cfg))
+                          in_dtype_bytes=S.param_dtype_bytes(cfg),
+                          overlap=args.overlap)
     nh, nkv = cfg.padded_heads(1)
     itemsize = torch.tensor([], dtype=getattr(torch, cfg.param_dtype)
                             ).element_size()
@@ -88,7 +91,9 @@ def price(kind: str) -> None:
         2 * d * nh * cfg.head_dim + 2 * d * nkv * cfg.head_dim + 3 * d * ff
         + 2 * d) + d)
     cache = kv_row * lay.slots * lay.positions
-    print(f"{kind}: {cfg.name} {cfg.n_layers} layers, mesh {args.mesh}, "
+    print(f"{kind}{' --overlap' if args.overlap else ''}: {cfg.name} "
+          f"{cfg.n_layers} layers, {args.requests} requests, mesh "
+          f"{args.mesh}, "
           f"{R} ranks; weights {params * itemsize / 2**30:.3f} GiB a rank "
           f"(replicated); cache {cache / 2**30:.3f} GiB a rank "
           f"({lay.slots} slots x {lay.positions} positions)")
@@ -119,6 +124,7 @@ def price(kind: str) -> None:
 def main() -> None:
     for kind in C.SERVE_RANKS:
         price(kind)
+    price(C.SERVE_OVERLAP, ("--overlap",))
 
 
 if __name__ == "__main__":

@@ -18,11 +18,17 @@ schedule's wire format, differentiable like the reference's).
   compute, gathered from a frozen snapshot of the local KV slots (sends
   only ever read local slots or the zero trash row), and land in the
   parity-allocated receive slots, so a commit never races a run's
-  reads.  On the card a round's gather, wire encode, ship and decode
-  run on a side CUDA stream: it waits on an event recorded when the
-  snapshot is ready, and the main stream waits on the round's event
-  before the commit.  Under autograd each backward op runs on its
-  forward op's stream, so the backward ships ride the side stream too;
+  reads.  Each of the round's ships is started (``runtime/wire.start``:
+  encoded, staged and posted) before run ``r`` and landed
+  (``wire.finish``) at the commit after it, so across ranks round
+  ``r+1``'s bytes move while run ``r`` computes.  On the card a round's
+  gather, wire encode, staging and decode run on a side CUDA stream: it
+  waits on an event recorded when the snapshot is ready, round ``r+1``
+  is posted once run ``r`` is queued on the main stream, and the main
+  stream waits on the landed round's event before the commit.  Under
+  autograd each backward op runs on its forward op's stream, so the
+  backward ships (blocking, ``wire``'s ``_Ship``) ride the side stream
+  too;
 * **compute runs** — ``ExecConfig.impl`` takes the reference's four
   ``attention_impl`` names:
 
@@ -79,10 +85,14 @@ against ``P()`` split.  A pod's ships never leave its frames, so a rank
 holding whole pods ships only inside itself.  :func:`fcp_attention` then runs
 on the rank's frames with local indices everywhere, and hands each ship
 the plan's global pairs (``runtime/wire.ship`` moves the pairs that
-cross ranks through ``torch.distributed``).  The overlap loop, the
-schedule layout and :func:`fcp_reshuffle` refuse a rank split for now
-(ROADMAP Queue A).  ``runtime.wire.rank_wire_bytes`` prices what a
-rank sends.
+cross ranks through ``torch.distributed``).  The same holds for the
+overlap loop (its ships started and landed across ranks), the schedule
+layout (its inputs already on the rank's frames, no restore) and
+:func:`fcp_reshuffle`, on equal shares and on a survivor group's uneven
+ones.  ``runtime.wire.rank_wire_bytes`` prices what a rank sends in one
+call (``layout="sched"``: the rounds alone) and
+``wire.reshuffle_wire_bytes`` what it sends in one
+:func:`fcp_reshuffle`.
 """
 
 from __future__ import annotations
@@ -246,12 +256,6 @@ def _check_frames(n_frames: int, tpw: int, spec: StaticSpec, tables: dict,
     return pods
 
 
-def _refuse_ranks(tables: dict, what: str) -> None:
-    if tables["ranks"].grouped:
-        raise ValueError(f"{what} across ranks is not supported yet "
-                         f"(ROADMAP Queue A)")
-
-
 def _gather_rows(buf: torch.Tensor, idx: torch.Tensor,
                  workers: torch.Tensor) -> torch.Tensor:
     """Per worker ``buf[w, idx[w]]`` (``[N, k, ...]``); ``idx == -1`` →
@@ -309,19 +313,15 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
     t = tables
     wk = t["workers"]
     ranks = t["ranks"]
-    if spec.overlap and spec.n_rounds > 0:
-        _refuse_ranks(t, "the double-buffered round loop (--overlap)")
-    if layout == "sched":
-        _refuse_ranks(t, "the layer pipeline (layout='sched')")
     # in-place writes only when no gradient flows (module docstring)
     inplace = not (torch.is_grad_enabled()
                    and (q.requires_grad or k.requires_grad
                         or v.requires_grad))
 
-    def ship(payload, perm):
+    def ship(payload, perm, start=False):
         # global pairs; this rank's frames (the tables' local rows)
-        return wirelib.ship(payload, pod_perm(perm, n, pods), fmt, ranks,
-                            n * pods)
+        return (wirelib.start if start else wirelib.ship)(
+            payload, pod_perm(perm, n, pods), fmt, ranks, n * pods)
 
     # stream layout -> [N, slots, heads, bs, d] (head-leading kernel layout)
     def frame(x, h):
@@ -386,13 +386,17 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
             ksrc.record_stream(side)
             vsrc.record_stream(side)
 
+    def on_side():
+        return (torch.cuda.stream(side) if side is not None
+                else contextlib.nullcontext())
+
     def issue(r):
         # one ship per group; each moves a stack of up to C KV blocks.
-        # Returns ([(row offset, group, arrival), ...], the round's event)
+        # Returns [(row offset, group, arrival), ...]: under overlap the
+        # arrival is a started ship (wire.start), landed at the commit
         snd = t["send_slot"][:, r]                     # [N, S] payload rows
-        out, off, ev = [], 0, None
-        with (torch.cuda.stream(side) if side is not None
-              else contextlib.nullcontext()):
+        out, off = [], 0
+        with on_side():
             for g in spec.comm_rounds[r].groups:
                 idx = snd[:, off:off + g.rows]
                 if overlap:
@@ -404,28 +408,41 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
                 else:
                     payload = torch.cat([_gather_rows(kxt, idx, wk),
                                          _gather_rows(vxt, idx, wk)], dim=2)
-                recv = ship(payload, g.perm)
-                if side is not None:
-                    recv.record_stream(main)
-                out.append((off, g, recv))
+                out.append((off, g, ship(payload, g.perm, start=overlap)))
                 off += g.rows
+        return out
+
+    def land(arrived):
+        # the started ships of a round, landed (on the side stream), and
+        # the event the main stream waits on before the commit
+        if not overlap:
+            return arrived, None
+        ev = None
+        with on_side():
+            arrived = [(off, g, wirelib.finish(h)) for off, g, h in arrived]
             if side is not None:
+                for _, _, recv in arrived:
+                    recv.record_stream(main)
                 ev = torch.cuda.Event()
                 ev.record(side)
-        return out, ev
+        return arrived, ev
 
     # run r computes between the ship and the arrival commit of round r:
     # consumers of round r's blocks sit in runs > r (§4.2).  Overlap
-    # runs one round ahead: round 0 is issued in a prologue, iteration r
-    # issues round r+1 BEFORE run r's compute
-    pending = issue(0) if overlap else ([], None)
+    # runs one round ahead: round 0 is started in a prologue, iteration r
+    # starts round r+1 BEFORE run r's compute (its gathers, encode and
+    # staging queued on the side stream), posts it once run r is queued
+    # on the main stream, and lands round r after: round r+1 is posted
+    # before round r lands, on every rank alike (wire.start)
+    pending = issue(0) if overlap else []
+    for _, _, h in pending:
+        h.post()
     for r in range(spec.n_runs):
         if overlap:
-            arrivals = pending if r < spec.n_rounds else ([], None)
-            pending = (issue(r + 1) if r + 1 < spec.n_rounds
-                       else ([], None))
+            arrivals = pending if r < spec.n_rounds else []
+            pending = issue(r + 1) if r + 1 < spec.n_rounds else []
         else:
-            arrivals = issue(r) if r < spec.n_rounds else ([], None)
+            arrivals = issue(r) if r < spec.n_rounds else []
         run = t["runs"][r]
         if run is not None and cfg.fused:
             # ONE launch for the whole run, all workers: step tables drive
@@ -444,7 +461,10 @@ def fcp_attention(q, k, v, tables: dict, *, spec: StaticSpec,
                     acc_o[w, sq], acc_lse[w, sq], o_p, lse_p)
                 acc_o = _put(acc_o, (w, sq), o_new, inplace)
                 acc_lse = _put(acc_lse, (w, sq), l_new, inplace)
-        arrived, ev = arrivals
+        if overlap:
+            for _, _, h in pending:
+                h.post()
+        arrived, ev = land(arrivals)
         if ev is not None:
             main.wait_event(ev)
         dst = t["recv_slot"][:, r] if arrived else None
@@ -493,8 +513,7 @@ def fcp_reshuffle(x: torch.Tensor, tables: dict, *, spec: StaticSpec,
     bs, slots = spec.block_size, spec.slots
     N, tpw, C = x.shape
     pods = _check_frames(N, tpw, spec, tables, f"x {tuple(x.shape)}")
-    _refuse_ranks(tables, "the layer-pipelined reshuffle (fcp_reshuffle)")
-    t, wk = tables, tables["workers"]
+    t, wk, n = tables, tables["workers"], spec.n_workers
     inplace = not (torch.is_grad_enabled() and x.requires_grad)
     xf = x.reshape(N, slots, 1, bs, C)
     xt = _with_trash(xf)
@@ -513,8 +532,8 @@ def fcp_reshuffle(x: torch.Tensor, tables: dict, *, spec: StaticSpec,
                     else g.perm)
             recv = wirelib.ship(_gather_rows(xt, snd[:, off:off + g.rows],
                                              wk),
-                                pod_perm(perm, spec.n_workers, pods),
-                                wirelib.WIRE_F32)
+                                pod_perm(perm, n, pods), wirelib.WIRE_F32,
+                                t["ranks"], n * pods)
             ys = _put(ys, (wk, dst[:, off:off + g.rows].long()), recv,
                       inplace)
             off += g.rows

@@ -16,22 +16,26 @@ CLI's arguments for a ranked run (``launch/train.py``)::
 Each rank joins the process group once (so the trainers below share it),
 then:
 
-* runs the training CLI (:func:`train.main`) once for each ``impl:steps``
-  of ``--runs``, with ``--attn-impl impl --steps steps``, and writes the
+* runs the training CLI (:func:`train.main`) once for each
+  ``NAME:steps`` of ``--runs``, NAME an executor impl with flags of the
+  CLI after it (``fused+layer-pipeline+overlap``: ``--attn-impl fused
+  --layer-pipeline --overlap``), with ``--steps steps``, and writes the
   trainer's report (``Trainer.report``: the kernels' launch counters and
   the wire's statistics counted from 0 before the run, the peak memory
   from its start, the wall of :func:`train.main`, its trainer's
-  construction included) to ``DIR/<impl>/rank<r>.json``;
+  construction included) to ``DIR/<NAME>/rank<r>.json`` (a NAME run
+  again, to compare runs in turns, to ``DIR/<NAME>.2/``, ...);
 * with ``--grad-layers N``, builds the CLI's plain trainer at N layers
-  with f32 weights, takes the stream's first batch and computes its
-  share of the loss and of every parameter's gradient through each impl
-  of ``--runs``, summed over the ranks (:func:`first_step`).  Rank 0
-  then builds the same trainer without a process group (every frame
-  stacked on its device, the same seed: the same weights and batch),
-  computes the whole batch's loss and gradients there, and writes per
-  impl both losses and the worst leaf's error (``max |ranked - stacked|
-  / max |stacked|``) to ``DIR/grads.json``.  The AdamW moments are
-  dropped first: no step is taken;
+  with f32 weights (and each run's flags), takes the stream's first
+  batch and computes its share of the loss and of every parameter's
+  gradient through each run's impl, summed over the ranks
+  (:func:`first_step`).  Rank 0 then builds the same trainer without a
+  process group (every frame stacked on its device, the same seed: the
+  same weights and batch), computes the whole batch's loss and
+  gradients there, and writes per run NAME both losses and the worst
+  leaf's error (``max |ranked - stacked| / max |stacked|``) to
+  ``DIR/grads.json``.  The AdamW moments are dropped first: no step is
+  taken;
 * runs the serve CLI (``launch/serve.py``) once for each ``--serve
   "KIND:REQUESTS ARGS"`` (ARGS the serve CLI's own, in one string), with
   ``--kind KIND --requests REQUESTS``: its warmup and its stream, with
@@ -40,7 +44,8 @@ then:
   tokens of every request, the programs built after warmup, the rank's
   bytes measured and priced; ``wall_s`` the stream's, ``run_wall_s``
   the loop's construction, warmup and stream) to
-  ``DIR/serve_<KIND>/rank<r>.json`` and
+  ``DIR/serve_<KIND>/rank<r>.json`` (``serve_<KIND>_overlap`` under
+  ``--overlap``) and
   the last-token logits of each prefill batch's rows it holds and of the
   stream's first decode step (``ServingLoop.record``) to
   ``rank<r>_logits.pt`` beside it.
@@ -128,36 +133,48 @@ def _fresh(device: torch.device) -> None:
         torch.cuda.reset_peak_memory_stats(device)
 
 
-def grad_check(train_argv: list, impls: list, n_layers: int) -> dict | None:
-    """The gradient check of the module docstring; its result on rank
-    0, None on the others."""
-    targs = T.parse_args(train_argv + [
-        "--override", f"n_layers={n_layers}",
-        "--override", "param_dtype=float32", "--no-supervised"])
-    tr = T.trainer_from_args(targs)
-    tr.state.opt = None
-    try:
-        ranked = {impl: first_step(tr, impl) for impl in impls}
-    finally:
-        tr.close()
-    if tr.ranks.rank != 0:
-        return None
-    stacked = T.Trainer(tr.cfg, tr.pcfg, tr.tcfg, parse_mesh(targs.mesh),
-                        tokens_per_worker=targs.tokens_per_worker,
-                        dist=targs.dist, device=tr.device)
-    stacked.state.opt = None
-    out = {"n_layers": n_layers}
-    try:
-        for impl in impls:
+def run_argv(name: str) -> list:
+    """The training CLI's arguments of a run NAME: ``impl+flag+...``."""
+    impl, *flags = name.split("+")
+    return ["--attn-impl", impl] + [f"--{f}" for f in flags]
+
+
+def grad_check(train_argv: list, names: list, n_layers: int) -> dict | None:
+    """The gradient check of the module docstring, for the runs
+    ``names``; its result on rank 0, None on the others."""
+    out, rank = {"n_layers": n_layers}, 0
+    for name in names:
+        targs = T.parse_args(train_argv + run_argv(name) + [
+            "--override", f"n_layers={n_layers}",
+            "--override", "param_dtype=float32", "--no-supervised"])
+        impl = targs.attn_impl
+        tr = T.trainer_from_args(targs)
+        tr.state.opt = None
+        try:
+            r_loss, r_grads = first_step(tr, impl)
+        finally:
+            tr.close()
+        rank, device = tr.ranks.rank, tr.device
+        if rank != 0:
+            del tr, r_grads
+            _fresh(device)
+            continue
+        stacked = T.Trainer(tr.cfg, tr.pcfg, tr.tcfg,
+                            parse_mesh(targs.mesh),
+                            tokens_per_worker=targs.tokens_per_worker,
+                            dist=targs.dist, device=tr.device)
+        stacked.state.opt = None
+        try:
             loss, grads = first_step(stacked, impl)
-            r_loss, r_grads = ranked[impl]
-            out[impl] = {"loss_ranked": float(r_loss), "loss": float(loss),
-                         "max_leaf_err": leaf_error(r_grads, grads),
-                         "finite": all(bool(torch.isfinite(g).all())
-                                       for g in r_grads)}
-    finally:
-        stacked.close()
-    return out
+        finally:
+            stacked.close()
+        out[name] = {"loss_ranked": float(r_loss), "loss": float(loss),
+                     "max_leaf_err": leaf_error(r_grads, grads),
+                     "finite": all(bool(torch.isfinite(g).all())
+                                   for g in r_grads)}
+        del tr, stacked, r_grads, grads
+        _fresh(device)
+    return out if rank == 0 else None
 
 
 def serve_run(spec: str, out: str, device: torch.device) -> None:
@@ -177,7 +194,8 @@ def serve_run(spec: str, out: str, device: torch.device) -> None:
                          for k in loop.plan_cache.keys()),
         peak_mem_gib=(torch.cuda.max_memory_allocated(device) / 2**30
                       if device.type == "cuda" else None))
-    run_dir = os.path.join(out, f"serve_{kind}")
+    run_dir = os.path.join(out, f"serve_{kind}"
+                           + ("_overlap" if args.overlap else ""))
     os.makedirs(run_dir, exist_ok=True)
     r = loop.ranks.rank
     with open(os.path.join(run_dir, f"rank{r}.json"), "w") as f:
@@ -243,7 +261,9 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--out", required=True)
     p.add_argument("--runs", default="fused:3",
-                   help="comma-separated impl:steps, one CLI run each")
+                   help="comma-separated NAME:steps, one CLI run each (NAME"
+                        " an impl, then +flag for each of the CLI's flags"
+                        " it adds: fused+layer-pipeline+overlap)")
     p.add_argument("--grad-layers", type=int, default=0,
                    help="the gradient check's depth (0: no check)")
     p.add_argument("--serve", action="append", default=[],
@@ -261,7 +281,7 @@ def main(argv=None) -> None:
     p.add_argument("train_argv", nargs=argparse.REMAINDER)
     args = p.parse_args(argv)
     train_argv = [x for x in args.train_argv if x != "--"]
-    runs = [run.split(":") for run in args.runs.split(",") if run]
+    runs = [run.rsplit(":", 1) for run in args.runs.split(",") if run]
     drill_specs = [d for d in args.drills.split(",") if d]
     if train_argv:
         targs = T.parse_args(train_argv)
@@ -277,11 +297,15 @@ def main(argv=None) -> None:
                                             targs.device, env))
     ranks = wirelib.join(targs.dist_backend, device)
     try:
-        for impl, steps in runs:
+        seen: dict = {}
+        for name, steps in runs:
             _fresh(device)
             t0 = time.perf_counter()
-            tr = T.main(train_argv + ["--attn-impl", impl, "--steps", steps])
-            run_dir = os.path.join(args.out, impl)
+            tr = T.main(train_argv + run_argv(name) + ["--steps", steps])
+            # a run named again (runs compared in turns) writes NAME.2, ...
+            seen[name] = seen.get(name, 0) + 1
+            run_dir = os.path.join(args.out, name + (
+                f".{seen[name]}" if seen[name] > 1 else ""))
             os.makedirs(run_dir, exist_ok=True)
             with open(os.path.join(run_dir, f"rank{ranks.rank}.json"),
                       "w") as f:
@@ -289,8 +313,8 @@ def main(argv=None) -> None:
             del tr
         if args.grad_layers:
             _fresh(device)
-            out = grad_check(train_argv, [impl for impl, _ in runs],
-                             args.grad_layers)
+            out = grad_check(train_argv, list(dict.fromkeys(
+                name for name, _ in runs)), args.grad_layers)
             if out is not None:
                 with open(os.path.join(args.out, "grads.json"), "w") as f:
                     json.dump(out, f)

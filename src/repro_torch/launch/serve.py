@@ -27,15 +27,18 @@ its frames' tokens of each packed batch (``tokens=`` of
 ``--kind long`` its share of every slot's sequence, merged across the
 ranks at every decode step (``core.executor.cp_decode_attention``).
 ``runtime/serving.py`` runs the loop; the weights are replicated and
-seeded alike.  Pod meshes, the non-dense families, the dense prefill
-and a one-worker mesh are refused across ranks, each with its ROADMAP
-Queue A item (:func:`check_ranked`).
+seeded alike.  ``--overlap`` runs the prefill's round loop with each
+round's ships started before the run before it and landed after
+(``core.executor``), across ranks too.  Pod meshes, the non-dense
+families, the dense prefill and a one-worker mesh are refused across
+ranks, each with its ROADMAP Queue A item (:func:`check_ranked`).
 
 CLI: PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch stablelm_1_6b --smoke --mesh 4x2 --tokens 16
      PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 2 -m repro_torch.launch.serve --arch stablelm_1_6b \
-        --smoke --mesh 4x2 --device cpu --dist-backend gloo --kind long
+        --smoke --mesh 4x2 --device cpu --dist-backend gloo --kind long \
+        [--overlap]
 """
 
 from __future__ import annotations
@@ -247,6 +250,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fail instead of falling back to dense prefill "
                         "when prefill_impl='fcp' is unsupported on the "
                         "mesh (pod axis)")
+    p.add_argument("--overlap", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="software-pipelined prefill rounds: start round"
+                        " r+1's ships before run r's compute (across ranks"
+                        " posted while it runs) and land them after it")
     p.add_argument("--bucket-min", type=int, default=32,
                    help="smallest prefill bucket edge")
     p.add_argument("--block-size", type=int, default=0,
@@ -315,7 +323,8 @@ def loop_from_args(args: argparse.Namespace):
     tpw = args.prefill_tokens_per_worker
     block = args.block_size or min(4096, tpw)
     pcfg = ParallelConfig(block_size=block,
-                          in_dtype_bytes=param_dtype_bytes(cfg))
+                          in_dtype_bytes=param_dtype_bytes(cfg),
+                          overlap=args.overlap)
     scfg = ServeConfig(
         cache_len=args.cache_len, decode_slots=args.slots,
         queue_depth=args.queue_depth, max_new_tokens=args.tokens,

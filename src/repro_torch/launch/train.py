@@ -49,9 +49,9 @@ weights and moments are replicated: every rank updates the same bytes
 (``wire.agree`` checks the parameters at the start and each new plan
 key).  The lowest rank prints the records and writes the checkpoints.
 The :class:`Supervisor` across ranks shrinks its group to the survivors
-after a loss (its docstring).  ``--overlap``, ``--layer-pipeline`` and
-the non-dense families are refused across ranks (ROADMAP Queue A items
-4.3, 4.4 and 4.6), and the steps run uncaptured (item 4.7).
+after a loss (its docstring).  ``--overlap`` and ``--layer-pipeline``
+run across ranks in both loops; the non-dense families are refused
+(ROADMAP Queue A item 4.6), and the steps run uncaptured (item 4.7).
 
 ``--attn-impl`` takes the reference's four names (``core.executor``):
 ``fused`` (the default here: CUDA kernels 1, 3 and 4), ``pallas``
@@ -136,14 +136,16 @@ class PipelinedAttn:
 
 def make_pipelined_attn_fns(cfg: ModelConfig, pcfg: ParallelConfig,
                             layer_masks, scheds, device,
-                            impl: str = "fused", pods: int = 1) -> tuple:
+                            impl: str = "fused", pods: int = 1,
+                            ranks: wirelib.Ranks = wirelib.STACKED) -> tuple:
     """Per-layer :class:`PipelinedAttn` entries: the hidden state stays
     resident in the schedule layout across each run of consecutive
     same-mask layers and moves once per group boundary, so N layers pay
     one reshuffle + one restore instead of N of each.  Positions ride
     the move as one extra f32 channel (token positions are < 2**24, so
     the f32 wire carries them exactly).  Model-level transform only —
-    schedules and plan keys are those of the non-pipelined run."""
+    schedules and plan keys are those of the non-pipelined run.  Under
+    ``ranks`` every move and attention call runs on the rank's frames."""
     if cfg.family not in ("dense", "moe", "audio", "vlm"):
         raise ValueError(
             f"layer_pipeline is not supported for family "
@@ -153,7 +155,8 @@ def make_pipelined_attn_fns(cfg: ModelConfig, pcfg: ParallelConfig,
 
     def group_fns(m):
         sched = scheds[m]
-        tables, spec = ex.schedule_tables(sched, device, pods), sched.spec
+        tables = ex.schedule_tables(sched, device, pods, ranks)
+        spec = sched.spec
 
         def attn(q, k, v):
             return ex.fcp_attention(q, k, v, tables, spec=spec,
@@ -431,7 +434,7 @@ def attention_closures(cfg: ModelConfig, pcfg: ParallelConfig,
         return None
     if pcfg.layer_pipeline:
         return make_pipelined_attn_fns(cfg, pcfg, layer_masks, scheds,
-                                       device, impl, pods)
+                                       device, impl, pods, ranks)
     return route_layers(
         cfg, layer_masks, group_masks,
         lambda m: make_fcp_attn_fn(scheds[m], device, pcfg, impl, pods,
@@ -449,15 +452,14 @@ def check_ranked(cfg: ModelConfig, pcfg: ParallelConfig, mesh_shape: dict,
                  size: int) -> None:
     """Raise, before the process group is joined, for a run the port
     does not take across ``size`` ranks: it takes either loop of a dense
-    model on a mesh the ranks split evenly at the start.  On a ``DxM``
-    mesh R divides D; on a pod mesh every rank's share lies inside one
-    pod (R/P ranks a pod, R/P dividing D) or every rank holds whole pods
-    (R dividing P).  Uneven shares appear only after a loss, in the
-    Supervisor's survivor groups."""
-    if pcfg.overlap:
-        refuse_ranked("--overlap", "--overlap with asynchronous P2P")
-    if pcfg.layer_pipeline:
-        refuse_ranked("--layer-pipeline", "the layer pipeline")
+    model on a mesh the ranks split evenly at the start, with or without
+    ``--overlap`` (the round loop's ships started before a run and landed
+    after it, ``runtime/wire.start``) and ``--layer-pipeline`` (the
+    hidden state moved once per layer group on the rank's frames).  On a
+    ``DxM`` mesh R divides D; on a pod mesh every rank's share lies
+    inside one pod (R/P ranks a pod, R/P dividing D) or every rank holds
+    whole pods (R dividing P).  Uneven shares appear only after a loss,
+    in the Supervisor's survivor groups."""
     if cfg.family != "dense":
         refuse_ranked(f"a non-dense family ({cfg.family})",
                       "the MoE, SSM, hybrid and multimodal families")
@@ -487,6 +489,7 @@ class StepRecord:
     pods: int = 1
     sent_bytes: int = 0             # this rank's bytes on the wire
     ship_s: float = 0.0             # host s in its ships across ranks
+    ship_wait_s: float = 0.0        # of which in the ships' own calls
     reduce_s: float = 0.0           # host s in its sums over the ranks
     rank_ms: float | None = None    # the Supervisor's: this rank's own
                                     # wall, for reading only
@@ -636,6 +639,7 @@ class Trainer:
         rec = StepRecord(t, float(loss), float(gnorm), ms, self.n_cp,
                          self.pods,
                          *(w1[k] - w0[k] for k in ("sent_bytes", "ship_s",
+                                                   "ship_wait_s",
                                                    "reduce_s")))
         self.history.append(rec)
         if t % self.log_every == 0 and self.ranks.rank == 0:
@@ -1196,7 +1200,8 @@ class Supervisor:
             self.history.append(StepRecord(
                 step, float(loss), float(gnorm), dt * 1e3, n, pods,
                 *(w1[k] - w0[k] for k in ("sent_bytes", "ship_s",
-                                          "reduce_s")), own * 1e3))
+                                          "ship_wait_s", "reduce_s")),
+                own * 1e3))
             self.last_scheds = scheds
             every = max(int(self.pcfg.checkpoint_every), 0)
             if every and (step + 1) % every == 0:

@@ -58,9 +58,12 @@ checked alike at the start (``wire.agree`` on a digest) and each new
 bucket's plan key when it is built.  Every program runs uncaptured
 (``graphs.Program(capture=False)``: gloo's ops cannot be captured, and
 NCCL capture is ROADMAP Queue A item 4.7) with the same builds and
-compile counts as stacked.  ``report()["ranks"]`` holds the rank's
-bytes (measured and priced) and host seconds in the prefill ships, the
-inserts' moves and the decode merges.
+compile counts as stacked.  ``ParallelConfig.overlap`` runs the
+prefill's round loop with its ships started before a run and landed
+after it (``core.executor``); decode has no rounds.
+``report()["ranks"]`` holds the rank's bytes (measured and priced) and
+host seconds in the prefill ships (and of those, blocked landing them),
+the inserts' moves and the decode merges.
 """
 
 from __future__ import annotations
@@ -370,9 +373,6 @@ class ServingLoop:
         self.ranks = getattr(mesh, "ranks", wirelib.STACKED)
         if self.ranks.grouped:
             servelib.check_ranked(cfg, scfg, axis_sizes, self.ranks.size)
-            if pcfg.overlap:
-                servelib.refuse_ranked("--overlap", "--overlap with "
-                                       "asynchronous P2P")
         # prefill frames stack over the same axes as training batches
         self.n_cp = stacked_frames(mesh)
         self.tpw = int(scfg.prefill_tokens_per_worker)
@@ -458,13 +458,15 @@ class ServingLoop:
         self.prefill_rows_real = 0
         self.decode_steps = 0
         # across ranks: this rank's bytes (measured and priced) and host
-        # seconds in the prefill ships, the inserts' moves, the decode
-        # merges and the fetches of finished tokens
+        # seconds in the prefill ships (and blocked landing them), the
+        # inserts' moves, the decode merges and the fetches of finished
+        # tokens
         self.wire = {k: 0 for k in (
             "prefill_ship_bytes", "prefill_ship_bytes_priced",
             "insert_bytes", "insert_bytes_priced", "merge_bytes",
             "merge_bytes_priced", "fetch_bytes")}
-        self.wire.update(prefill_ship_s=0.0, insert_s=0.0, merge_s=0.0)
+        self.wire.update(prefill_ship_s=0.0, prefill_ship_wait_s=0.0,
+                         insert_s=0.0, merge_s=0.0)
 
     def compile_counts(self) -> dict[str, int]:
         """Programs built per program (the reference's per-jitted-function
@@ -851,6 +853,7 @@ class ServingLoop:
         cfg, w = self.model.cfg, self.wire
         w["prefill_ship_bytes"] += w1["sent_bytes"] - w0["sent_bytes"]
         w["prefill_ship_s"] += w1["ship_s"] - w0["ship_s"]
+        w["prefill_ship_wait_s"] += w1["ship_wait_s"] - w0["ship_wait_s"]
         nh, nkv, dh = self._heads
         fwd, _ = wirelib.rank_wire_bytes(
             self._scheds[E].spec, self.ranks, nh, nkv, dh,

@@ -356,22 +356,25 @@ def subgroup(members, ranks: Ranks) -> Ranks | None:
     return Ranks(len(members), members.index(me), ranks.backend, members)
 
 
-def _host(x: torch.Tensor) -> torch.Tensor:
+def _host(x: torch.Tensor, non_blocking: bool = False) -> torch.Tensor:
     """``x`` in host memory (pinned when it comes from the card, so the
     copies each way run at the link's rate; the caching host allocator
-    keeps such a buffer until the copies that use it are done)."""
+    keeps such a buffer until the copies that use it are done).  With
+    ``non_blocking`` a copy from the card only queues on the current
+    stream: the caller waits on an event recorded after it."""
     if not x.is_cuda:
         return x.contiguous()
-    return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+    return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(
+        x, non_blocking=non_blocking)
 
 
-def _wire(x: torch.Tensor, ranks: Ranks, stage: bool = True
-          ) -> torch.Tensor:
+def _wire(x: torch.Tensor, ranks: Ranks, stage: bool = True,
+          non_blocking: bool = False) -> torch.Tensor:
     """``x`` as ``ranks``'s backend moves it: through host memory under
-    gloo (when ``stage``), else on its device, contiguous.  A caller that
-    receives into it copies it back when it is not ``x``."""
+    gloo (when ``stage``; :func:`_host`), else on its device, contiguous.
+    A caller that receives into it copies it back when it is not ``x``."""
     if stage and ranks.backend == "gloo":
-        return _host(x)
+        return _host(x, non_blocking)
     return x.contiguous()
 
 
@@ -509,7 +512,7 @@ def agree(what: str, data: bytes, ranks: Ranks, device) -> None:
 
 
 _STATS = {"ships": 0, "messages": 0, "sent_bytes": 0, "recv_bytes": 0,
-          "ship_s": 0.0, "reduce_s": 0.0,
+          "ship_s": 0.0, "ship_wait_s": 0.0, "reduce_s": 0.0,
           "moves": 0, "move_bytes": 0, "move_s": 0.0,
           "merges": 0, "merge_bytes": 0, "merge_s": 0.0,
           "broadcasts": 0, "broadcast_bytes": 0, "broadcast_s": 0.0}
@@ -518,10 +521,15 @@ _STATS = {"ships": 0, "messages": 0, "sent_bytes": 0, "recv_bytes": 0,
 def wire_stats() -> dict:
     """This process's cross-rank traffic since :func:`reset_wire_stats`:
     ship calls across ranks, messages posted, bytes sent and received
-    (payloads plus int8 scales), and the host seconds spent in the ships
-    that crossed ranks and in :func:`all_sum` (their staging and waits
-    included; a host clock: under NCCL the device may still be moving
-    the data when a call returns); the :func:`move` calls that crossed
+    (payloads plus int8 scales), and the host seconds of the ships that
+    crossed ranks (``ship_s``: each from its start to its landing;
+    ``ship_wait_s``: the part of those the host spent in the ship's own
+    calls, encoding, staging, waiting for the staging copy, posting,
+    waiting for its ops and landing, so ``1 - ship_wait_s / ship_s`` is
+    the share of the ships' time hidden behind other work: 0 for a
+    blocking ship, which is all its own calls) and in :func:`all_sum`
+    (a host clock: under NCCL the device may still be moving the data
+    when a call returns); the :func:`move` calls that crossed
     ranks, the bytes they sent and their seconds; the :func:`gather`
     calls, the bytes each sent (its share, once to every other rank) and
     their seconds; the :func:`broadcast` calls, the bytes this rank sent
@@ -534,33 +542,16 @@ def reset_wire_stats() -> None:
         _STATS[k] = type(_STATS[k])(0)
 
 
-def rank_wire_bytes(spec, ranks: Ranks, n_q_heads: int, n_kv_heads: int,
-                    head_dim: int, in_bytes: float,
-                    out_bytes: float = 4.0,
-                    pods: int = 1) -> tuple[float, float]:
-    """The bytes ``ranks``'s rank puts on the wire in one FCP attention
-    call on ``spec``'s plan, ``(forward, backward)``, the sent bytes
-    :func:`wire_stats` should count: each ship group's pairs that leave
-    this rank (forward) or arrive at it (the backward sends those back),
-    ``rows`` blocks each, at ``core.cost_model``'s prices of a block.
-    The reshuffle ships q, k and v (``in_bytes`` a value), the rounds k
-    and v, the restore o (``out_bytes``: f32, or the executor's
-    ``out_dtype``).  Over ``pods`` pods every pod ships its own copy of
-    the plan's pairs (``core.executor.pod_perm``), the frames split over
-    the ranks pod-major."""
-    from ..core import cost_model as cm     # which imports this module
-    bs = spec.block_size
-    qkv = cm.qkv_wire_block_bytes(spec.wire, bs, n_q_heads, n_kv_heads,
-                                  head_dim, in_bytes)
-    o = cm.o_wire_block_bytes(spec.wire, bs, n_q_heads, head_dim, out_bytes)
-    kv = cm.kv_wire_block_bytes(spec.wire, bs, n_kv_heads, head_dim,
-                                in_bytes)
-    n = spec.n_workers
+def _cross_bytes(ranks: Ranks, n: int, pods: int, groups) -> tuple:
+    """``(forward, backward)`` bytes of ship groups ``(perm, rows,
+    block_bytes)`` on ``ranks``'s rank: each pair that leaves it
+    (forward) or arrives at it (the backward sends those back), ``rows``
+    blocks each, every pod shipping its own copy of the pairs
+    (``core.executor.pod_perm``), the frames split over the ranks
+    pod-major."""
     lo, hi = ranks.share(n * pods)
     fwd = bwd = 0.0
-
-    def price(perm, rows, block_bytes):
-        nonlocal fwd, bwd
+    for perm, rows, block_bytes in groups:
         for s, d in ((s + p * n, d + p * n) for p in range(pods)
                      for s, d in perm):
             if (lo <= s < hi) != (lo <= d < hi):
@@ -568,29 +559,114 @@ def rank_wire_bytes(spec, ranks: Ranks, n_q_heads: int, n_kv_heads: int,
                     fwd += rows * block_bytes
                 else:
                     bwd += rows * block_bytes
-
-    for rnd in spec.resh_rounds:
-        for g in rnd.groups:
-            price(g.perm, g.rows, qkv)
-            price(tuple((d, s) for s, d in g.perm), g.rows, o)
-    for rnd in spec.comm_rounds:
-        for g in rnd.groups:
-            price(g.perm, g.rows, kv)
     return fwd, bwd
+
+
+def rank_wire_bytes(spec, ranks: Ranks, n_q_heads: int, n_kv_heads: int,
+                    head_dim: int, in_bytes: float,
+                    out_bytes: float = 4.0,
+                    pods: int = 1,
+                    layout: str = "stream") -> tuple[float, float]:
+    """The bytes ``ranks``'s rank puts on the wire in one FCP attention
+    call on ``spec``'s plan, ``(forward, backward)``, the sent bytes
+    :func:`wire_stats` should count: each ship group's pairs that leave
+    this rank (forward) or arrive at it (the backward sends those back),
+    ``rows`` blocks each, at ``core.cost_model``'s prices of a block.
+    The reshuffle ships q, k and v (``in_bytes`` a value), the rounds k
+    and v, the restore o (``out_bytes``: f32, or the executor's
+    ``out_dtype``); ``layout="sched"`` (the layer pipeline) ships the
+    rounds alone, the hidden state moving once per layer group instead
+    (:func:`reshuffle_wire_bytes`).  Over ``pods`` pods every pod ships
+    its own copy of the plan's pairs."""
+    from ..core import cost_model as cm     # which imports this module
+    bs = spec.block_size
+    qkv = cm.qkv_wire_block_bytes(spec.wire, bs, n_q_heads, n_kv_heads,
+                                  head_dim, in_bytes)
+    o = cm.o_wire_block_bytes(spec.wire, bs, n_q_heads, head_dim, out_bytes)
+    kv = cm.kv_wire_block_bytes(spec.wire, bs, n_kv_heads, head_dim,
+                                in_bytes)
+    groups = [(g.perm, g.rows, kv) for rnd in spec.comm_rounds
+              for g in rnd.groups]
+    if layout == "stream":
+        for rnd in spec.resh_rounds:
+            for g in rnd.groups:
+                groups += [(g.perm, g.rows, qkv),
+                           (tuple((d, s) for s, d in g.perm), g.rows, o)]
+    elif layout != "sched":
+        raise ValueError(f"unknown layout {layout!r}")
+    return _cross_bytes(ranks, spec.n_workers, pods, groups)
+
+
+def reshuffle_wire_bytes(spec, ranks: Ranks, channels: int,
+                         reverse: bool = False,
+                         pods: int = 1) -> tuple[float, float]:
+    """The bytes ``ranks``'s rank puts on the wire in one
+    ``core.executor.fcp_reshuffle`` of a ``channels``-wide tensor,
+    ``(forward, backward)``: the plan's reshuffle pairs (``reverse``: the
+    restore's, the same pairs turned round), ``rows`` blocks of
+    ``block_size`` tokens each, always on the f32 wire (4 bytes a
+    value).  The layer pipeline moves the hidden state and one position
+    channel in (``channels`` = C + 1) and the hidden state out (C) once
+    per layer group."""
+    block = 4.0 * spec.block_size * channels
+    groups = [(tuple((d, s) for s, d in g.perm) if reverse else g.perm,
+               g.rows, block) for rnd in spec.resh_rounds
+              for g in rnd.groups]
+    return _cross_bytes(ranks, spec.n_workers, pods, groups)
 
 
 # --------------------------------------------------------------------------
 # the transport
 # --------------------------------------------------------------------------
 
-def _ship(x: torch.Tensor, perm, fmt: WireFormat, ranks: Ranks | None,
-          n_frames: int | None = None) -> torch.Tensor:
-    """``x``'s frames along the global pairs ``perm``: all of the frames
-    without a group (every pair an index copy), else this rank's share
-    of ``n_frames`` (an equal share of ``x.shape[0] x R`` frames when
-    None), in order.  Receive buffers take their shapes from ``x``'s
-    (every frame's payload has the same shape): no shape travels at run
-    time."""
+class Shipment:
+    """One ship in flight (:func:`start`), landed by :func:`finish`.
+
+    It holds the staged payload parts, the landing buffers, the pairs
+    that stay on the rank, the ops to post and, once posted, their works.
+    Under gloo a CUDA payload is staged into pinned host memory by a copy
+    queued on the current stream, and :meth:`post` waits for that copy
+    (an event) before it copies the rank's own pairs and posts the rest;
+    until then the host is free to queue more work on the card.
+    ``busy`` sums the host seconds spent in the ship's own calls
+    (``ship_wait_s``)."""
+
+    def __init__(self, x, perm, fmt, ranks, n_frames, scaled, parts, recvs,
+                 local, ops, sent, got, stage, staged, t0):
+        self.device, self.dtype, self.fmt = x.device, x.dtype, fmt
+        self.perm, self.ranks, self.n_frames = perm, ranks, n_frames
+        self.scaled, self.parts, self.recvs = scaled, parts, recvs
+        self.local, self.ops, self.sent, self.got = local, ops, sent, got
+        self.stage, self.staged, self.t0 = stage, staged, t0
+        self.busy = time.perf_counter() - t0
+        self.posted, self.works = False, []
+
+    def post(self) -> None:
+        """Copy the pairs inside the rank and post the ops (once the
+        staging copy is done); idempotent."""
+        if self.posted:
+            return
+        t0 = time.perf_counter()
+        self.posted = True
+        if self.staged is not None:
+            self.staged.synchronize()
+        for src, dst in self.local:
+            for a, b in zip(self.parts, self.recvs):
+                b[dst] = a[src]
+        if self.ops:
+            self.works = dist.batch_isend_irecv(self.ops)
+        self.busy += time.perf_counter() - t0
+
+
+def _post(x: torch.Tensor, perm, fmt: WireFormat, ranks: Ranks | None,
+          n_frames: int | None = None) -> Shipment:
+    """Encode ``x``'s frames and stage them to move along the global pairs
+    ``perm``: all of the frames without a group (every pair an index
+    copy), else this rank's share of ``n_frames`` (an equal share of
+    ``x.shape[0] x R`` frames when None), in order.  :meth:`Shipment.post`
+    copies the pairs inside the rank and posts the ones across ranks.
+    Receive buffers take their shapes from ``x``'s (every frame's payload
+    has the same shape): no shape travels at run time."""
     ranks = ranks or STACKED
     t0 = time.perf_counter()
     n, me = x.shape[0], ranks.rank
@@ -611,13 +687,18 @@ def _ship(x: torch.Tensor, perm, fmt: WireFormat, ranks: Ranks | None,
     stage = ranks.backend == "gloo" and any(
         (owner(s) == me) != (owner(d) == me) for s, d in perm)
     recvs = [_landing(p, ranks, stage) for p in parts]
-    parts = [_wire(p, ranks, stage) for p in parts]
-    ops, sent, got = [], 0, 0
+    # a device-to-host copy queues on the current stream; the posting
+    # waits on its event, not the host on the stream
+    parts = [_wire(p, ranks, stage, non_blocking=True) for p in parts]
+    staged = None
+    if stage and x.is_cuda:
+        staged = torch.cuda.Event()
+        staged.record()
+    local, ops, sent, got = [], [], 0, 0
     for s, d in perm:
         rs, rd = owner(s), owner(d)
         if rs == me and rd == me:
-            for src, dst in zip(parts, recvs):
-                dst[d - lo] = src[s - lo]
+            local.append((s - lo, d - lo))
         elif rs == me:
             for src in parts:
                 ops.append(dist.P2POp(dist.isend, src[s - lo],
@@ -628,19 +709,35 @@ def _ship(x: torch.Tensor, perm, fmt: WireFormat, ranks: Ranks | None,
                 ops.append(dist.P2POp(dist.irecv, dst[d - lo],
                                       ranks.global_rank(rs), ranks.group))
                 got += dst[d - lo].nbytes
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    return Shipment(x, perm, fmt, ranks, n_frames, scales is not None,
+                    parts, recvs, local, ops, sent, got, stage, staged, t0)
+
+
+def _land(h: Shipment) -> torch.Tensor:
+    """Post a shipment if it is not yet, wait for its ops, bring the
+    landing to the device and decode it; count the stats."""
+    h.post()
+    t1 = time.perf_counter()
+    recvs = h.recvs
+    for req in h.works:
+        req.wait()
+    if h.stage:
+        recvs = [r.to(h.device, non_blocking=True) for r in recvs]
+    if h.ops:
+        t2 = time.perf_counter()
         _STATS["ships"] += 1
-        _STATS["messages"] += len(ops)
-        _STATS["sent_bytes"] += sent
-        _STATS["recv_bytes"] += got
-    if stage:
-        recvs = [r.to(x.device, non_blocking=True) for r in recvs]
-    if ops:
-        _STATS["ship_s"] += time.perf_counter() - t0
-    return decode(recvs[0], recvs[1] if scales is not None else None, fmt,
-                  x.dtype)
+        _STATS["messages"] += len(h.ops)
+        _STATS["sent_bytes"] += h.sent
+        _STATS["recv_bytes"] += h.got
+        _STATS["ship_s"] += t2 - h.t0
+        _STATS["ship_wait_s"] += h.busy + t2 - t1
+    return decode(recvs[0], recvs[1] if h.scaled else None, h.fmt, h.dtype)
+
+
+def _ship(x: torch.Tensor, perm, fmt: WireFormat, ranks: Ranks | None,
+          n_frames: int | None = None) -> torch.Tensor:
+    """A blocking ship: :func:`_post` and :func:`_land` at once."""
+    return _land(_post(x, perm, fmt, ranks, n_frames))
 
 
 class _Ship(torch.autograd.Function):
@@ -658,9 +755,31 @@ class _Ship(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        return (_Ship.reverse(ctx, g), None, None, None, None)
+
+    @staticmethod
+    def reverse(ctx, g):
+        """The cotangent along the reversed pairs, blocking, in the
+        forward's format."""
         rev = tuple((d, s) for s, d in ctx.perm)
-        return (_ship(g.contiguous(), rev, ctx.fmt, ctx.ranks, ctx.n_frames),
-                None, None, None, None)
+        return _ship(g.contiguous(), rev, ctx.fmt, ctx.ranks, ctx.n_frames)
+
+
+class _Finish(torch.autograd.Function):
+    """The landing of an asynchronous ship (:func:`finish`): the forward
+    waits and returns the decoded arrival, taking the payload as its
+    input; the backward is :class:`_Ship`'s, so the gradient is the
+    blocking ship's by construction."""
+
+    @staticmethod
+    def forward(ctx, x, h):
+        ctx.perm, ctx.fmt, ctx.ranks = h.perm, h.fmt, h.ranks
+        ctx.n_frames = h.n_frames
+        return _land(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Ship.reverse(ctx, g), None
 
 
 def ship(x: torch.Tensor, perm, fmt: WireFormat = WIRE_F32,
@@ -683,6 +802,49 @@ def ship(x: torch.Tensor, perm, fmt: WireFormat = WIRE_F32,
     if torch.is_grad_enabled() and x.requires_grad:
         return _Ship.apply(x, perm, fmt, ranks, n_frames)
     return _ship(x, perm, fmt, ranks, n_frames)
+
+
+def start(x: torch.Tensor, perm, fmt: WireFormat = WIRE_F32,
+          ranks: Ranks | None = None,
+          n_frames: int | None = None) -> Shipment:
+    """:func:`ship` in two halves: start it here, land it with
+    :func:`finish`; the bytes are the blocking ship's (one code path).
+
+    The start encodes ``x`` and, across ranks, stages it (under gloo a
+    CUDA payload's copy into pinned host memory queues on the current
+    stream) and posts the pairs that cross ranks; a staged payload is
+    posted by the shipment's ``post()``, which waits for the staging
+    copy, or at the latest by :func:`finish`.  A caller queues its
+    compute between the start and ``post()``, so the host does not hold
+    the card's next launch while the copy runs, and gloo's threads move
+    the bytes while that compute runs.  The forward's ops are posted on
+    the detached payload, without a gradient.
+
+    **Order of posting.**  Every rank must post its ops in the same
+    order: a rank that starts round r+1 before it finishes round r does
+    so on every rank alike (the executor's overlap loop), and two ships
+    in flight to the same peer are matched in the order they were
+    posted.  The backward runs in autograd's order over identical
+    graphs, as :class:`_Ship`'s does."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    with torch.no_grad():
+        h = _post(x.detach(), perm, fmt, ranks, n_frames)
+    if h.staged is None:
+        h.post()
+    h.payload = x
+    return h
+
+
+def finish(h: Shipment) -> torch.Tensor:
+    """Land a :func:`start`: wait for its ops, bring the arrival to the
+    device and decode it.  Differentiable in the started payload: the
+    backward ships the cotangent back along the reversed pairs,
+    blocking, in the same format (:class:`_Ship`)."""
+    x = h.payload
+    h.payload = None
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Finish.apply(x, h)
+    return _land(h)
 
 
 # --------------------------------------------------------------------------

@@ -5,8 +5,8 @@ reference's train step.
 
 The ranks are spawned processes (``tests/torch_ranks_jobs.py``, which
 imports neither JAX nor the reference), one group of two ranks for every
-two-rank case and one of four for the ships, each under its own
-deadline.
+two-rank case and one of four for the ships and a pod split over two
+ranks, each under its own deadline.
 
 Tolerances: ships byte for byte, forward and backward, under every wire
 format (a payload crosses whole, encoded before and decoded after, as
@@ -19,7 +19,18 @@ step within 1e-6 (loss, relative) and 1e-5 (each leaf, normalized: the
 gradient is summed over the ranks in another order); the parameters
 after three steps the same bytes on both ranks; the bytes each rank puts
 on the wire in a step exactly the ``WireFormat.group_bytes`` pricing of
-its cross-rank pairs (``runtime.wire.rank_wire_bytes``)."""
+its cross-rank pairs (``runtime.wire.rank_wire_bytes``).
+
+``--overlap`` and the layer pipeline across ranks hold
+``tests/multidevice/run_overlap_executor.py``'s tolerances: the overlap
+loop (its ships started before a run and landed after it) against the
+serial loop on the same ranks, o and dq bitwise, dk/dv within 1e-6
+(normalized by the largest entry or 1); the ``fcp_reshuffle`` round trip
+and ``layout="sched"`` between two reshuffles bitwise; the step with both
+flags at the step's tolerances above, and its bytes exactly the
+pipelined pricing (``rank_wire_bytes(layout="sched")`` and
+``reshuffle_wire_bytes``), on one pod of workers and on a ``2x2x1``
+pod mesh, whole pods on two ranks or each pod split over two of four."""
 
 import dataclasses
 
@@ -53,6 +64,13 @@ def _nerr(a, b) -> float:
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
+def _nerr1(a, b) -> float:
+    """``run_overlap_executor.py``'s ``rel_err``: normalized by the
+    largest entry, or by 1 when that is smaller."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+
+
 @pytest.fixture(scope="module")
 def np_params():
     jcfg = dataclasses.replace(j_smoke(J.ARCH), param_dtype="float32")
@@ -67,8 +85,10 @@ def two(np_params, tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def four(tmp_path_factory):
-    return J.run(4, "ships", tmp_path_factory.mktemp("four_ranks"))
+def four(np_params, tmp_path_factory):
+    d = tmp_path_factory.mktemp("four_ranks")
+    torch.save(np_params[1], d / "params.pt")
+    return J.run(4, "four", d, params_path=str(d / "params.pt"))
 
 
 # --------------------------------------------------------------------------
@@ -80,7 +100,7 @@ def four(tmp_path_factory):
 def test_ship_across_ranks_matches_stacked_bytes(size, fmt, request):
     got = (request.getfixturevalue("two") if size == 2
            else request.getfixturevalue("four"))
-    ships = [r["ships"] if size == 2 else r for r in got]
+    ships = [r["ships"] for r in got]
     x, g = J.ship_inputs()
     for p, perm in enumerate(J.PERMS):
         y, dx = J.ship_case(x, g, perm, fmt)
@@ -91,6 +111,12 @@ def test_ship_across_ranks_matches_stacked_bytes(size, fmt, request):
 
 
 def test_rank_ship_refuses_what_this_slice_does_not_run():
+    """What a rank split still refuses (an uneven share where the even
+    rule holds, ranks without a process group), and what it now runs:
+    the overlap loop and ``fcp_reshuffle`` on a rank's frames.  Rank 0
+    of two holding the first of two pods ships only inside itself, so it
+    runs them here without a group and gives the stacked one-pod
+    bytes."""
     ranks = wire.Ranks(2, 0, "gloo")
     assert ranks.share(4) == (0, 2) and wire.Ranks(2, 1, "gloo").share(4) \
         == (2, 4)
@@ -104,16 +130,28 @@ def test_rank_ship_refuses_what_this_slice_does_not_run():
         wire.Ranks(2, 0, None)
     sched = make_schedule(J.SEQLENS, J.N, J.TPW, J.BS, n_q_heads=J.H,
                           n_kv_heads=J.KH, head_dim=J.D, overlap=True)
+    assert sched.spec.overlap and sched.spec.n_rounds > 0
     tabs = ex.schedule_tables(sched, "cpu", 1, ranks)
     assert tabs["frames"] == (0, 2) and tabs["workers"].shape[0] == 2
-    xs = [torch.zeros(2, J.TPW, h, J.D) for h in (J.H, J.KH, J.KH)]
-    with pytest.raises(ValueError, match="--overlap"):
-        ex.fcp_attention(*xs, tabs, spec=sched.spec)
-    with pytest.raises(ValueError, match="fcp_reshuffle"):
-        ex.fcp_reshuffle(torch.zeros(2, J.TPW, 8), tabs, spec=sched.spec)
     # pods across ranks: a rank holds its share of the pod-major frames
     pod_tabs = ex.schedule_tables(sched, "cpu", 2, ranks)
     assert pod_tabs["frames"] == (0, 4) and pod_tabs["workers"].shape[0] == 4
+    stk = ex.schedule_tables(sched, "cpu")
+    qkv, _ = J.exec_inputs()
+    xs = [torch.from_numpy(x) for x in qkv]
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(J.N, J.TPW, 8)).astype(np.float32))
+    wire.reset_wire_stats()
+    with torch.no_grad():
+        o = ex.fcp_attention(*xs, pod_tabs, spec=sched.spec)
+        assert o.numpy().tobytes() == ex.fcp_attention(
+            *xs, stk, spec=sched.spec).numpy().tobytes()
+        y = ex.fcp_reshuffle(x, pod_tabs, spec=sched.spec)
+        assert y.numpy().tobytes() == ex.fcp_reshuffle(
+            x, stk, spec=sched.spec).numpy().tobytes()
+        back = ex.fcp_reshuffle(y, pod_tabs, spec=sched.spec, reverse=True)
+        assert back.numpy().tobytes() == x.numpy().tobytes()
+    assert wire.wire_stats()["ships"] == 0
 
 
 # --------------------------------------------------------------------------
@@ -127,6 +165,50 @@ def test_fcp_attention_across_ranks_matches_stacked(case, two):
     for i, name in enumerate(("o", "dq", "dk", "dv")):
         got = np.concatenate([r["exec"][case][i] for r in two])
         assert _nerr(got, ref[i]) <= 1e-6, name
+
+
+@pytest.mark.parametrize("case", J.EXEC_CASES,
+                         ids=["-".join(map(str, c)) for c in J.EXEC_CASES])
+def test_overlap_across_ranks_matches_serial(case, two):
+    """The double-buffered round loop across ranks (its ships started
+    before a run and landed after it) against the serial loop across
+    ranks: ``run_overlap_executor.py``'s tolerances, forward and dq
+    bitwise, dk/dv within 1e-6 (the backward's scatter-add order
+    differs)."""
+    for r in two:
+        on, off = r["exec_overlap"][case], r["exec"][case]
+        assert on[0].tobytes() == off[0].tobytes(), "o"
+        assert on[1].tobytes() == off[1].tobytes(), "dq"
+        for name, a, b in zip(("dk", "dv"), on[2:], off[2:]):
+            assert _nerr1(a, b) <= 1e-6, name
+    ref = J.exec_case(*case, None, overlap=True)
+    got = np.concatenate([r["exec_overlap"][case][0] for r in two])
+    assert _nerr(got, ref[0]) <= 1e-6
+
+
+def test_reshuffle_round_trip_across_ranks_is_identity(two):
+    """``fcp_reshuffle`` across ranks, stream -> schedule -> stream, of a
+    hidden state with its positions riding as an f32 channel: bitwise
+    the identity, its gradient too, and the schedule layout the stacked
+    move's bytes."""
+    want = J.reshuffle_case(None)
+    for r in two:
+        res = r["reshuffle"]
+        assert res["back"].tobytes() == res["x"].tobytes()
+        assert res["gx"].tobytes() == res["g"].tobytes()
+    assert np.concatenate([r["reshuffle"]["moved"] for r in two]
+                          ).tobytes() == want["moved"].tobytes()
+    pos = np.concatenate([r["reshuffle"]["back"][..., -1] for r in two])
+    assert np.array_equal(np.round(pos).astype(np.int32),
+                          want["x"][..., -1].astype(np.int32))
+
+
+def test_sched_layout_across_ranks_equals_stream(two):
+    """``layout="sched"`` between two reshuffles across ranks: bitwise
+    the ``layout="stream"`` call on the same ranks."""
+    for r in two:
+        res = r["reshuffle"]
+        assert res["o_sched"].tobytes() == res["o_stream"].tobytes()
 
 
 # --------------------------------------------------------------------------
@@ -219,7 +301,7 @@ def test_ranks_module_runs_the_cli_and_checks_gradients(two):
     """``repro_torch.launch.ranks``, which the card's smoke runs: the CLI
     under each impl on both ranks (the same records, bytes on the wire
     each step, one build per plan key) and the gradient check."""
-    for impl, steps in (("fused_xla", 2), ("xla", 1)):
+    for impl, steps in J.RANKS_MODULE_RUNS:
         a, b = (r["ranks_module"][impl] for r in two)
         assert [x["loss"] for x in a["records"]] == [
             x["loss"] for x in b["records"]]
@@ -229,10 +311,37 @@ def test_ranks_module_runs_the_cli_and_checks_gradients(two):
         assert a["wire"]["sent_bytes"] == sum(x["sent_bytes"]
                                               for x in a["records"])
     grads = two[0]["ranks_module"]["grads"]
-    for impl in ("fused_xla", "xla"):
+    for impl, _ in J.RANKS_MODULE_RUNS:
         assert grads[impl]["finite"] and grads[impl]["max_leaf_err"] <= 1e-5
         assert abs(grads[impl]["loss_ranked"] / grads[impl]["loss"] - 1) \
             <= 1e-6
+
+
+def test_pipelined_overlapped_step_matches_jax(jax_step, two):
+    """The ranked step with ``--layer-pipeline --overlap`` against the
+    reference's jitted dense step, at its tolerances."""
+    jloss, jgrads, jlog = jax_step
+    for r in two:
+        loss, grads = r["grads_both"]
+        assert abs(loss / jloss - 1) <= 1e-4
+        assert len(grads) == len(jgrads)
+        for a, b in zip(grads, jgrads):
+            assert _nerr(a, b) <= 1e-4
+        np.testing.assert_allclose(r["steps_both"][0], jlog, rtol=1e-4)
+
+
+def test_pipelined_overlapped_step_matches_stacked(np_params, two):
+    """... and against the port's stacked step with both flags: loss
+    1e-6, each leaf 1e-5; the parameters after three steps the same
+    bytes on both ranks."""
+    loss, grads = J.step_grads(J.smoke_cfg(), np_params[1], None, J.BOTH)
+    for r in two:
+        r_loss, r_grads = r["grads_both"]
+        assert abs(r_loss / loss - 1) <= 1e-6
+        for a, b in zip(r_grads, grads):
+            assert _nerr(a, b) <= 1e-5
+    a, b = (r["steps_both"][1] for r in two)
+    assert all(x.tobytes() == y.tobytes() for x, y in zip(a, b))
 
 
 # --------------------------------------------------------------------------
@@ -260,6 +369,79 @@ def test_wire_bytes_match_pricing(wire_fmt, two):
             == sum(s["recv_bytes"] for s in sent))
 
 
+@pytest.mark.parametrize("wire_fmt", J.WIRES)
+def test_pipelined_wire_bytes_match_pricing(wire_fmt, two):
+    """The pipelined step ships each layer's KV rounds (twice forward,
+    under remat, once backward), and the hidden state with one position
+    channel in and the hidden state out once per mask group, forward and
+    backward, on the f32 wire whatever the rounds' format."""
+    cfg = J.smoke_cfg()
+    pcfg = ParallelConfig(block_size=J.STEP_BS, comm_dtype=wire_fmt,
+                          **J.BOTH)
+    b = SyntheticLoader(**J.loader_kw(cfg)).next()
+    spec = T.build_schedule(cfg, pcfg, b.seqlens, J.N, J.STEP_TPW).spec
+    nh, nkv = cfg.padded_heads(1)
+    for r, res in enumerate(two):
+        rk = wire.Ranks(2, r, "gloo")
+        kf, kb = wire.rank_wire_bytes(spec, rk, nh, nkv, cfg.head_dim, 4.0,
+                                      layout="sched")
+        ef, eb = wire.reshuffle_wire_bytes(spec, rk, cfg.d_model + 1)
+        xf, xb = wire.reshuffle_wire_bytes(spec, rk, cfg.d_model,
+                                           reverse=True)
+        assert min(kf, kb, ef, eb, xf, xb) > 0
+        stats = res["bytes_both"][wire_fmt]
+        assert stats["sent_bytes"] == (cfg.n_layers * (2 * kf + kb)
+                                       + ef + eb + xf + xb)
+        assert stats["ship_wait_s"] <= stats["ship_s"]
+
+
+@pytest.fixture(scope="module")
+def stacked_pod_both(np_params):
+    return J.pod_step(np_params[1], flags=J.BOTH)
+
+
+@pytest.mark.parametrize("group", ["two", "four"])
+def test_pod_step_with_both_flags_across_ranks(group, stacked_pod_both,
+                                              request):
+    """The ``2x2x1`` pod step with ``--overlap --layer-pipeline`` across
+    the ranks, a pod a rank (two) or each pod split over two ranks
+    (four), against the stacked step with both flags: the summed
+    gradients, three steps' (loss, gnorm), and each step's bytes the
+    pipelined pricing over both pods (a rank holding whole pods ships
+    nothing)."""
+    got = request.getfixturevalue(group)
+    R = len(got)
+    cfg = J.smoke_cfg()
+    pcfg = ParallelConfig(block_size=J.POD_BS, **J.BOTH)
+    b = SyntheticLoader(dist="real_world", n_frames=J.POD_N,
+                        tokens_per_worker=J.POD_TPW,
+                        vocab_size=cfg.vocab_size, pods=J.POD_P,
+                        seed=0).next()
+    spec = T.build_schedule(cfg, pcfg, b.seqlens, J.POD_N, J.POD_TPW).spec
+    nh, nkv = cfg.padded_heads(1)
+    want = stacked_pod_both
+    n = J.POD_P * J.POD_N // R
+    crossed = 0
+    for r, res in enumerate(got):
+        pod = res["pod_step_both"]
+        assert pod["frames"] == (r * n, (r + 1) * n)
+        assert abs(pod["loss"] / want["loss"] - 1) <= 1e-6
+        for a, w in zip(pod["grads"], want["grads"], strict=True):
+            assert _nerr(a, w) <= 1e-5
+        np.testing.assert_allclose(pod["log"], want["log"], rtol=1e-5)
+        rk = wire.Ranks(R, r, "gloo")
+        kf, kb = wire.rank_wire_bytes(spec, rk, nh, nkv, cfg.head_dim, 4.0,
+                                      pods=J.POD_P, layout="sched")
+        ef, eb = wire.reshuffle_wire_bytes(spec, rk, cfg.d_model + 1,
+                                           pods=J.POD_P)
+        xf, xb = wire.reshuffle_wire_bytes(spec, rk, cfg.d_model,
+                                           reverse=True, pods=J.POD_P)
+        price = cfg.n_layers * (2 * kf + kb) + ef + eb + xf + xb
+        assert pod["sent_bytes"] == [price] * 3
+        crossed += price
+    assert (crossed > 0) == (group == "four")
+
+
 # --------------------------------------------------------------------------
 # (f) refusals
 # --------------------------------------------------------------------------
@@ -277,9 +459,11 @@ REFUSALS = {
                                 "3 ranks do not divide the data axis"),
     "pods": (["--mesh", "2x3x1", "--no-supervised"], 4,
              "4 ranks cannot split a pod mesh of 2 pods x 3 workers"),
-    "overlap": (["--overlap", "--no-supervised"], 2, "--overlap"),
-    "layer_pipeline": (["--layer-pipeline", "--no-supervised"], 2,
-                       "--layer-pipeline"),
+    # refused before their slice; now taken as far as the join: the
+    # Supervisor (the default) with --overlap, the plain loop with
+    # --layer-pipeline
+    "overlap": (["--overlap"], 2, None),
+    "layer_pipeline": (["--layer-pipeline", "--no-supervised"], 2, None),
     "supervisor": ([], 3, "3 ranks do not divide the data axis"),
     "non_dense_family": (["--arch", "granite_moe_3b_a800m",
                           "--no-supervised"], 2, "a non-dense family"),
@@ -296,8 +480,12 @@ def test_cli_refuses_under_a_process_group(name, monkeypatch):
     def joined(*a, **k):
         raise AssertionError("joined a process group")
     monkeypatch.setattr(wire, "join", joined)
-    with pytest.raises(ValueError, match=msg):
-        T.trainer_from_args(T.parse_args(BASE + extra))
+    if msg is None:
+        with pytest.raises(AssertionError, match="joined a process group"):
+            T.trainer_from_args(T.parse_args(BASE + extra))
+    else:
+        with pytest.raises(ValueError, match=msg):
+            T.trainer_from_args(T.parse_args(BASE + extra))
     assert not torch.distributed.is_initialized()
 
 

@@ -23,7 +23,10 @@ smoke, f32) under ``decode`` and ``long``, token for token the JAX
 loop, 0 programs built after warmup, and each rank's bytes in the
 prefill ships, the inserts and the merges exactly their host pricing.
 The port's one-process ``--kind long`` loop on 2x2 and 2x1 meshes gives
-the JAX 1x1 long loop's tokens too."""
+the JAX 1x1 long loop's tokens too.  The ranked loop with
+``ParallelConfig.overlap`` (its prefill ships started before a run and
+landed after it) gives the one-process ``overlap`` loop's and the JAX
+1x1 loop's tokens, with every byte at its price."""
 
 import dataclasses
 
@@ -41,12 +44,8 @@ from repro.kernels import ref as jref
 from repro.launch.mesh import make_mesh
 from repro.models import Model as JModel
 from repro.runtime.serving import ServingLoop as JLoop
-from repro_torch.configs.base import ParallelConfig, ServeConfig
 from repro_torch.launch import serve as servelib
-from repro_torch.launch.mesh import StackedMesh
-from repro_torch.models import Model
 from repro_torch.runtime import wire
-from repro_torch.runtime.serving import ServingLoop
 from test_torch_threads import intra_op_share  # noqa: F401
 
 KINDS = ("decode", "long")
@@ -92,6 +91,14 @@ def jax_tokens(np_params):
         out[kind] = {r.rid: list(map(int, r.tokens))
                      for r in jloop.stats.finished}
     return out
+
+
+@pytest.fixture(scope="module")
+def stacked_overlap(np_params):
+    """The port's one-process ``overlap`` loop of each kind on the ranked
+    mesh."""
+    return {kind: J.serve_run(kind, np_params[1], overlap=True)
+            for kind in KINDS}
 
 
 @pytest.fixture(scope="module")
@@ -270,10 +277,48 @@ def test_serve_cli_refusals_name_their_item(name, monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-def test_ranked_loop_refuses_overlap():
-    mesh = StackedMesh((4, 2)).with_ranks(wire.Ranks(2, 0, "gloo"))
-    with pytest.raises(ValueError, match="ROADMAP Queue A: --overlap with "
-                                         "asynchronous P2P"):
-        ServingLoop(Model(J.smoke_cfg()), None, mesh,
-                    ParallelConfig(block_size=16, overlap=True),
-                    ServeConfig(**J.serve_config("decode")), device="cpu")
+def test_ranked_loop_refuses_overlap(two):
+    """Refused before its slice; now the ranked loop takes
+    ``ParallelConfig.overlap``: every prefill plan is the double-buffered
+    one, KV rounds cross the ranks, and decode (no rounds) is as
+    without it."""
+    for kind in KINDS:
+        for r in _by_rank(two, "loop_overlap", kind):
+            rk = r["report"]["ranks"]
+            assert rk["prefill_ship_bytes"] > 0
+            assert rk["prefill_ship_wait_s"] <= rk["prefill_ship_s"]
+        a = _by_rank(two, "loop_overlap", kind, "report", "ranks")
+        b = _by_rank(two, "loop", kind, "report", "ranks")
+        for x, y in zip(a, b):
+            assert (x["merge_bytes"], x["insert_bytes"]) == (
+                y["merge_bytes"], y["insert_bytes"])
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_ranked_overlap_loop_tokens_match(kind, two, jax_tokens,
+                                          stacked_overlap):
+    """The ranked ``overlap`` loop token for token the one-process
+    ``overlap`` loop and the reference's 1x1 loop (a one-worker mesh
+    plans no rounds, so ``overlap`` changes nothing there:
+    ``test_serving_prefill_with_overlap_matches_jax``'s hold)."""
+    toks = [_in_order(t) for t in _by_rank(two, "loop_overlap", kind,
+                                           "tokens")]
+    assert toks[1] == toks[0] and len(toks[0]) == len(J.SERVE_LENS)
+    assert toks[0] == _in_order(stacked_overlap[kind]["tokens"])
+    assert toks[0] == _in_order(jax_tokens[kind])
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_ranked_overlap_loop_bytes_equal_their_pricing(kind, two,
+                                                       stacked_overlap):
+    """Its prefill ships, inserts and merges each exactly their pricing,
+    every batch a plan-cache hit and nothing built after warmup."""
+    for r in _by_rank(two, "loop_overlap", kind):
+        rk = r["report"]["ranks"]
+        for what in ("prefill_ship_bytes", "insert_bytes", "merge_bytes"):
+            assert rk[what] == rk[what + "_priced"], what
+        assert r["recompiles"] == 0
+        assert r["counts"] == stacked_overlap[kind]["counts"]
+        pcs = r["report"]["plan_cache"]
+        assert pcs["misses"] == 0
+        assert pcs["hits"] == r["report"]["prefill_batches"]

@@ -11,9 +11,11 @@ the kill drill at R = D = 2 losing worker 1 and worker 0 (the checkpoint
 writer: rank 1 writes and restores), a worker loss at R = 2, D = 4
 (three survivors split 1 + 2 by ``Ranks.share``'s floor rule), the
 straggler drill and the pod drill on a ``2x2x1`` mesh, one pod a rank
+(the 1 + 2 loss again with ``--overlap --layer-pipeline``)
 (and its loss and rejoin again on a one-program step cache, whose
 survivor evicts the fleet's program while the idle rank keeps it); the
-ranked pod step; the CLI's default loop on ``2x1`` and ``2x2x1``.
+ranked pod step; the CLI's default loop on ``2x1`` and ``2x2x1``, and
+on ``2x1`` with both flags.
 
 Tolerances: each drill holds ``launch/drills.py``'s limits on every rank
 (``steps_lost <= checkpoint_every``, the replay within ``REPLAY_TOL`` =
@@ -151,6 +153,25 @@ def test_worker_loss_splits_survivors_unevenly(ranked, stacked):
         _same_history(x["records"], stacked["split"]["records"])
 
 
+def test_worker_loss_with_overlap_and_layer_pipeline(ranked, stacked):
+    """The same loss with ``--overlap --layer-pipeline``: the survivors'
+    uneven share (1 + 2 frames) runs ``fcp_reshuffle`` and the overlap
+    loop across the ranks, every rank's records the stacked run's with
+    both flags, and its bytes on the wire each step."""
+    res = [r["drills"]["split_both"] for r in ranked]
+    want = stacked["split_both"]
+    assert [x["frames"] for x in res] == [(0, 1), (1, 3)]
+    assert all(x["recoveries"][0]["n_workers"] == 3 for x in res)
+    for x in res:
+        assert x["replay_max_diff"] <= 1e-6
+        assert len(x["records"]) == len(want["records"])
+        _same_history(x["records"], want["records"])
+        # both survivors ship: the reshuffle and the rounds cross ranks
+        after = [r for r in x["records"] if r["n_workers"] == 3]
+        assert after and all(r["sent_bytes"] > 0 for r in after)
+        assert all(r["ship_wait_s"] <= r["ship_s"] for r in x["records"])
+
+
 # --------------------------------------------------------------------------
 # (c) the straggler path
 # --------------------------------------------------------------------------
@@ -230,9 +251,19 @@ def test_rejoin_after_the_survivors_evicted_the_fleet_program(ranked,
 
 @pytest.mark.parametrize("case", ["kill_w1", "kill_w0", "split", "pod"])
 def test_survivor_schedules_match_reference_replan(case, ranked):
+    _survivor_schedules_match(case, ranked)
+
+
+def test_overlapped_survivor_schedules_match_reference_replan(ranked):
+    """The survivors' schedules of the drill with ``--overlap`` (the
+    parity-allocated receive slots) against the reference's replan."""
+    _survivor_schedules_match("split_both", ranked)
+
+
+def _survivor_schedules_match(case, ranked):
     cfg = J.smoke_cfg()
     nh, nkv = cfg.padded_heads(1)
-    pcfg = J.sup_pcfg()
+    pcfg = J.sup_pcfg(**(J.BOTH if case == "split_both" else {}))
     jpcfg = JParallel(block_size=pcfg.block_size, coalesce=pcfg.coalesce,
                       in_dtype_bytes=pcfg.in_dtype_bytes,
                       comm_dtype=pcfg.comm_dtype, overlap=pcfg.overlap)
@@ -306,11 +337,32 @@ def test_ranked_pod_step_matches_jax(np_params, ranked):
 # the CLI's default loop
 # --------------------------------------------------------------------------
 
-def test_cli_default_is_the_ranked_supervisor(ranked):
+@pytest.fixture(scope="module")
+def stacked_cli():
+    """The CLI runs without a process group (the stacked Supervisor)."""
+    return J.cli_runs()
+
+
+def test_cli_takes_overlap_and_layer_pipeline_across_ranks(ranked,
+                                                           stacked_cli):
+    """``--overlap --layer-pipeline`` under torchrun's environment: the
+    Supervisor on ``2x1`` across both ranks, logging the stacked
+    Supervisor's steps with the same flags."""
+    want = stacked_cli["2x1+both"]
+    assert want["type"] == "Supervisor"
+    for rank, r in enumerate(ranked):
+        got = r["cli"]["2x1+both"]
+        assert got["type"] == "Supervisor" and got["fleet"] == (1, 2)
+        assert got["members"] == (0, 1) and got["records"] == 2
+        assert got["frames"] == [rank, rank + 1]
+        np.testing.assert_allclose(got["log"], want["log"], rtol=1e-5)
+
+
+def test_cli_default_is_the_ranked_supervisor(ranked, stacked_cli):
     """Under torchrun's environment the train CLI runs the Supervisor on
     ``2x1`` and, pods across the ranks, ``2x2x1``: both ranks log the
     stacked Supervisor's steps."""
-    want = J.cli_runs()
+    want = stacked_cli
     for mesh, fleet in (("2x1", (1, 2)), ("2x2x1", (2, 2))):
         assert want[mesh]["type"] == "Supervisor"
         for rank, r in enumerate(ranked):

@@ -73,15 +73,17 @@ def exec_inputs(seed: int = 0):
     return qkv, cot
 
 
-def exec_case(impl, mask, coalesce, ranks):
+def exec_case(impl, mask, coalesce, ranks, overlap=False):
     """FCP attention forward and backward on ``ranks``'s frames: o and
-    dq, dk, dv (a rank's share, or all frames without a group)."""
+    dq, dk, dv (a rank's share, or all frames without a group), on the
+    serial or the double-buffered (``overlap``) round loop's plan."""
     from repro_torch.core import executor as ex
     from repro_torch.core.schedule import make_schedule
     from repro_torch.runtime import wire
     ranks = ranks or wire.STACKED
     sched = make_schedule(SEQLENS, N, TPW, BS, n_q_heads=H, n_kv_heads=KH,
-                          head_dim=D, mask=mask, coalesce=coalesce)
+                          head_dim=D, mask=mask, coalesce=coalesce,
+                          overlap=overlap)
     lo, hi = ranks.share(N)
     qkv, cot = exec_inputs()
     xs = [torch.from_numpy(x[lo:hi]).requires_grad_(True) for x in qkv]
@@ -91,9 +93,55 @@ def exec_case(impl, mask, coalesce, ranks):
     return [o.detach().numpy()] + [x.numpy() for x in g]
 
 
-def step_parts(cfg, np_params, ranks, wire_fmt="f32"):
+def reshuffle_case(ranks=None):
+    """``fcp_reshuffle`` on ``ranks``'s frames: a hidden state with an
+    integer position channel riding as f32, stream -> schedule ->
+    stream, with the gradient of the round trip; and ``layout="sched"``
+    attention between two reshuffles beside the ``layout="stream"``
+    call (no gradient)."""
+    from repro_torch.core import executor as ex
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.runtime import wire
+    ranks = ranks or wire.STACKED
+    sched = make_schedule(SEQLENS, N, TPW, BS, n_q_heads=H, n_kv_heads=KH,
+                          head_dim=D, coalesce=4)
+    tabs, spec = ex.schedule_tables(sched, "cpu", 1, ranks), sched.spec
+    lo, hi = ranks.share(N)
+    rng = np.random.default_rng(2)
+    hid = rng.normal(size=(N, TPW, 24)).astype(np.float32)
+    pos = sched.batch.positions.reshape(N, TPW).astype(np.float32)
+    x = np.concatenate([hid, pos[..., None]], -1)
+    g = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)[lo:hi])
+    x = torch.from_numpy(x[lo:hi]).requires_grad_(True)
+    xs = ex.fcp_reshuffle(x, tabs, spec=spec)
+    back = ex.fcp_reshuffle(xs, tabs, spec=spec, reverse=True)
+    (gx,) = torch.autograd.grad(back, x, g)
+    qkv, _ = exec_inputs(3)
+    q, k, v = (torch.from_numpy(a[lo:hi]) for a in qkv)
+    with torch.no_grad():
+        o_stream = ex.fcp_attention(q, k, v, tabs, spec=spec)
+
+        def move(a, reverse=False):
+            return ex.fcp_reshuffle(a.reshape(hi - lo, TPW, -1), tabs,
+                                    spec=spec, reverse=reverse
+                                    ).reshape(a.shape)
+        o_sched = ex.fcp_attention(move(q), move(k), move(v), tabs,
+                                   spec=spec, layout="sched")
+        o_sched = move(o_sched, reverse=True)
+    return {"x": x.detach().numpy(), "moved": xs.detach().numpy(),
+            "back": back.detach().numpy(), "g": g.numpy(),
+            "gx": gx.numpy(), "o_stream": o_stream.numpy(),
+            "o_sched": o_sched.numpy()}
+
+
+# the flags of the pipelined, overlapped train step
+BOTH = dict(overlap=True, layer_pipeline=True)
+
+
+def step_parts(cfg, np_params, ranks, wire_fmt="f32", flags=None):
     """The model, mesh, batch, attention closure and parameters of the
-    smoke train step on ``ranks``'s frames."""
+    smoke train step on ``ranks``'s frames (``flags``: ParallelConfig's
+    ``overlap`` and ``layer_pipeline``)."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.data import SyntheticLoader
     from repro_torch.launch import train as T
@@ -103,7 +151,7 @@ def step_parts(cfg, np_params, ranks, wire_fmt="f32"):
     from repro_torch.runtime import wire
     ranks = ranks or wire.STACKED
     pcfg = ParallelConfig(block_size=STEP_BS, attention_impl="fused_xla",
-                          comm_dtype=wire_fmt)
+                          comm_dtype=wire_fmt, **(flags or {}))
     mesh = StackedMesh((N, 1)).with_ranks(ranks)
     b = SyntheticLoader(**loader_kw(cfg)).next()
     sched = T.build_schedule(cfg, pcfg, b.seqlens, N, STEP_TPW)
@@ -117,27 +165,27 @@ def step_parts(cfg, np_params, ranks, wire_fmt="f32"):
             params_from_numpy(np_params, "cpu"), sched)
 
 
-def step_grads(cfg, np_params, ranks=None):
+def step_grads(cfg, np_params, ranks=None, flags=None):
     """Step-0 loss and gradient leaves (summed over the ranks)."""
     from repro_torch.launch import train as T
     from repro_torch.optimizer import adamw
     from repro_torch.runtime import wire
-    model, _, pcfg, batch, attn, params, _ = step_parts(cfg, np_params,
-                                                        ranks)
+    model, _, pcfg, batch, attn, params, _ = step_parts(
+        cfg, np_params, ranks, flags=flags)
     loss, grads = T.value_and_grad(model, pcfg, attn)(params, batch)
     out = wire.all_sum([loss] + adamw.tree_leaves(grads),
                        ranks or wire.STACKED)
     return float(out[0]), [g.numpy() for g in out[1:]]
 
 
-def step_log(cfg, np_params, ranks=None, steps: int = 3):
+def step_log(cfg, np_params, ranks=None, steps: int = 3, flags=None):
     """Three train steps on the first batch: (loss, gnorm) each and the
     parameter leaves after them."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch import train as T
     from repro_torch.optimizer import adamw
-    model, mesh, pcfg, batch, attn, params, _ = step_parts(cfg, np_params,
-                                                           ranks)
+    model, mesh, pcfg, batch, attn, params, _ = step_parts(
+        cfg, np_params, ranks, flags=flags)
     step = T.build_train_step(model, mesh, pcfg, TrainConfig(**TCFG), attn)
     opt, log = adamw.init(params), []
     for _ in range(steps):
@@ -146,14 +194,14 @@ def step_log(cfg, np_params, ranks=None, steps: int = 3):
     return log, [p.detach().numpy() for p in adamw.tree_leaves(params)]
 
 
-def step_bytes(cfg, np_params, ranks, wire_fmt):
+def step_bytes(cfg, np_params, ranks, wire_fmt, flags=None):
     """The bytes this rank sends in one train step under ``wire_fmt``."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch import train as T
     from repro_torch.optimizer import adamw
     from repro_torch.runtime import wire
     model, mesh, pcfg, batch, attn, params, _ = step_parts(
-        cfg, np_params, ranks, wire_fmt)
+        cfg, np_params, ranks, wire_fmt, flags)
     step = T.build_train_step(model, mesh, pcfg, TrainConfig(**TCFG), attn)
     wire.reset_wire_stats()
     step(params, adamw.init(params), None, batch)
@@ -220,15 +268,20 @@ RANKS_MODULE_ARGV = ["--arch", ARCH, "--smoke", "--mesh", f"{N}x1", "--dist",
                "--no-supervised"]
 
 
+RANKS_MODULE_RUNS = (("fused_xla", 2), ("xla", 1),
+                     ("fused_xla+layer-pipeline+overlap", 1))
+
+
 def ranks_module_run(ranks, out_dir):
     """``repro_torch.launch.ranks`` (the checks the card's smoke runs):
     two CLI runs and the gradient check; each rank's reports and rank
     0's gradient check.  It leaves the group at its end."""
     from repro_torch.launch import ranks as ranks_mod
-    ranks_mod.main(["--out", out_dir, "--runs", "fused_xla:2,xla:1",
-                    "--grad-layers", "2", "--", *RANKS_MODULE_ARGV])
+    ranks_mod.main(["--out", out_dir, "--runs", ",".join(
+        f"{name}:{steps}" for name, steps in RANKS_MODULE_RUNS),
+        "--grad-layers", "2", "--", *RANKS_MODULE_ARGV])
     out = {}
-    for impl in ("fused_xla", "xla"):
+    for impl, _ in RANKS_MODULE_RUNS:
         with open(os.path.join(out_dir, impl,
                                f"rank{ranks.rank}.json")) as f:
             out[impl] = json.load(f)
@@ -249,19 +302,36 @@ def job_ships(ranks):
             for p, perm in enumerate(PERMS) for fmt in FORMATS}
 
 
+def job_four(ranks, params_path):
+    """The four-rank tests: the ships, and the pod step with both flags,
+    each pod split over two ranks."""
+    np_params = torch.load(params_path, weights_only=False)
+    return {"ships": job_ships(ranks),
+            "pod_step_both": pod_step(np_params, ranks, BOTH)}
+
+
 def job_two(ranks, params_path):
     """Everything the two-rank tests hold: the ships, the executor
-    cases, the train step's gradients, steps and wire bytes, the plain
-    Trainer, its checkpoint and resume, and ``launch/ranks.py`` (last:
-    it leaves the group)."""
+    cases, the train step's gradients, steps and wire bytes, the pod
+    step with both flags (a pod a rank), the plain Trainer, its
+    checkpoint and resume, and ``launch/ranks.py`` (last: it leaves the
+    group)."""
     cfg = smoke_cfg()
     np_params = torch.load(params_path, weights_only=False)
     out = {"ships": job_ships(ranks),
            "exec": {c: exec_case(*c, ranks) for c in EXEC_CASES},
+           "exec_overlap": {c: exec_case(*c, ranks, overlap=True)
+                            for c in EXEC_CASES},
+           "reshuffle": reshuffle_case(ranks),
            "grads": step_grads(cfg, np_params, ranks),
            "steps": step_log(cfg, np_params, ranks),
            "bytes": {w: step_bytes(cfg, np_params, ranks, w)
-                     for w in WIRES}}
+                     for w in WIRES},
+           "grads_both": step_grads(cfg, np_params, ranks, BOTH),
+           "steps_both": step_log(cfg, np_params, ranks, flags=BOTH),
+           "bytes_both": {w: step_bytes(cfg, np_params, ranks, w, BOTH)
+                          for w in WIRES},
+           "pod_step_both": pod_step(np_params, ranks, BOTH)}
     out["trainer"] = trainer_run(ranks)
     out["checkpoint"] = checkpoint_resume(ranks, os.path.join(
         os.path.dirname(params_path), "checkpoints"))
@@ -416,9 +486,9 @@ def move_case(dtype_name, ranks):
                                       a[0].nbytes + f[0].nbytes)}
 
 
-def serve_loop(kind, np_params, mesh=SERVE_MESH, ranks=None):
+def serve_loop(kind, np_params, mesh=SERVE_MESH, ranks=None, overlap=False):
     """The port's ServingLoop on the f32 smoke weights (a rank's share
-    under ``ranks``)."""
+    under ``ranks``; ``overlap``: the double-buffered prefill rounds)."""
     from repro_torch.configs.base import ParallelConfig, ServeConfig
     from repro_torch.launch.mesh import StackedMesh
     from repro_torch.models import Model
@@ -429,15 +499,15 @@ def serve_loop(kind, np_params, mesh=SERVE_MESH, ranks=None):
         m = m.with_ranks(ranks)
     return ServingLoop(Model(smoke_cfg()), params_from_numpy(np_params,
                                                              "cpu"),
-                       m, ParallelConfig(block_size=16),
+                       m, ParallelConfig(block_size=16, overlap=overlap),
                        ServeConfig(**serve_config(kind)), device="cpu",
                        attn_impl="fused_xla")
 
 
-def serve_run(kind, np_params, mesh=SERVE_MESH, ranks=None):
+def serve_run(kind, np_params, mesh=SERVE_MESH, ranks=None, overlap=False):
     """Warmup and the stream: every request's tokens, the programs built
     after warmup and the report (its ``ranks`` bytes too)."""
-    loop = serve_loop(kind, np_params, mesh, ranks)
+    loop = serve_loop(kind, np_params, mesh, ranks, overlap)
     base = loop.warmup()
     rep = loop.run(serve_prompts(smoke_cfg().vocab_size), max_new=SERVE_NEW)
     return {"tokens": {r.rid: list(map(int, r.tokens))
@@ -450,7 +520,7 @@ def serve_run(kind, np_params, mesh=SERVE_MESH, ranks=None):
 def job_serve(ranks, params_path=None):
     """Everything the serving tests hold across ``ranks``: the decode
     attention and cache write, the row moves and (given the weights) the
-    ranked loop under both kinds."""
+    ranked loop under both kinds, serial and with ``overlap``."""
     out = {"decode": {c: decode_case(c, ranks) for c in DECODE_CASES},
            "update": update_case(ranks),
            "move": {d: move_case(d, ranks)
@@ -459,6 +529,9 @@ def job_serve(ranks, params_path=None):
         np_params = torch.load(params_path, weights_only=False)
         out["loop"] = {k: serve_run(k, np_params, ranks=ranks)
                        for k in ("decode", "long")}
+        out["loop_overlap"] = {k: serve_run(k, np_params, ranks=ranks,
+                                            overlap=True)
+                               for k in ("decode", "long")}
     return out
 
 
@@ -562,12 +635,16 @@ def sup_view(rec: _Recorder, res: dict) -> dict:
 
 def supervisor_drills(ranked, root) -> dict:
     """The kill drills (worker 1 and worker 0 of a 2x1 fleet, worker 1
-    of a 4x1 fleet), the straggler drill and the pod drill (2x2x1)."""
+    of a 4x1 fleet, again with ``--overlap --layer-pipeline``), the
+    straggler drill and the pod drill (2x2x1)."""
     from repro_torch.launch import drills
     out = {}
-    for name, n, worker in (("kill_w1", 2, 1), ("kill_w0", 2, 0),
-                            ("split", 4, 1)):
-        rec = _Recorder(ranked, sup_pcfg(), n, total=SUP_KILL["total"])
+    for name, n, worker, flags in (("kill_w1", 2, 1, {}),
+                                   ("kill_w0", 2, 0, {}),
+                                   ("split", 4, 1, {}),
+                                   ("split_both", 4, 1, BOTH)):
+        rec = _Recorder(ranked, sup_pcfg(**flags), n,
+                        total=SUP_KILL["total"])
         out[name] = sup_view(rec, drills.kill_drill(
             rec, os.path.join(root, name), fail_worker=worker, **SUP_KILL))
     st = dict(SUP_STRAGGLER)
@@ -584,10 +661,12 @@ def supervisor_drills(ranked, root) -> dict:
     return out
 
 
-def pod_step(np_params, ranks=None):
+def pod_step(np_params, ranks=None, flags=None):
     """The 2x2x1 pod train step with error-feedback compression on
-    ``ranks``'s frames (one pod a rank): step-0 loss and gradients summed
-    over the ranks, then three steps' (loss, gnorm)."""
+    ``ranks``'s frames (two ranks: one pod a rank; four: half a pod;
+    ``flags``: ParallelConfig's ``overlap`` and ``layer_pipeline``):
+    step-0 loss and gradients summed over the ranks, then three steps'
+    (loss, gnorm) and the bytes this rank sent in each."""
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.data import SyntheticLoader
     from repro_torch.launch import train as T
@@ -601,7 +680,7 @@ def pod_step(np_params, ranks=None):
     kw = dict(dist="real_world", n_frames=POD_N, tokens_per_worker=POD_TPW,
               vocab_size=cfg.vocab_size, pods=POD_P, seed=0)
     b = SyntheticLoader(**kw).next()
-    pcfg = ParallelConfig(block_size=POD_BS)
+    pcfg = ParallelConfig(block_size=POD_BS, **(flags or {}))
     mesh = StackedMesh((POD_P, POD_N, 1)).with_ranks(ranks)
     sched = T.build_schedule(cfg, pcfg, b.seqlens, POD_N, POD_TPW)
     masks = T.layer_mask_specs(cfg, pcfg)
@@ -616,12 +695,15 @@ def pod_step(np_params, ranks=None):
     step = T.build_train_step(model, mesh, pcfg, TrainConfig(**POD_TCFG),
                               attn)
     opt, res, log = adamw.init(params), compression.init_residuals(params), []
+    sent = []
     for _ in range(3):
+        wire.reset_wire_stats()
         params, opt, res, loss_i, gnorm = step(params, opt, res, batch)
         log.append((float(loss_i), float(gnorm)))
+        sent.append(wire.wire_stats()["sent_bytes"])
     return {"loss": float(summed[0]),
             "grads": [g.numpy() for g in summed[1:]], "log": log,
-            "frames": mesh.frames}
+            "frames": mesh.frames, "sent_bytes": sent}
 
 
 def uneven_ships(ranks) -> dict:
@@ -654,13 +736,18 @@ def uneven_ships(ranks) -> dict:
     return out
 
 
-def cli_runs(meshes=("2x1", "2x2x1")) -> dict:
-    """The train CLI's default loop on each mesh (the Supervisor across
-    ranks under torchrun's environment, stacked without it)."""
+# the CLI runs: a mesh, and the flags of one with both
+CLI_RUNS = {"2x1": [], "2x2x1": [],
+            "2x1+both": ["--overlap", "--layer-pipeline"]}
+
+
+def cli_runs() -> dict:
+    """The train CLI's default loop on each of CLI_RUNS (the Supervisor
+    across ranks under torchrun's environment, stacked without it)."""
     from repro_torch.launch import train as T
     out = {}
-    for mesh in meshes:
-        sup = T.main(CLI_ARGV + ["--mesh", mesh] + (
+    for mesh, flags in CLI_RUNS.items():
+        sup = T.main(CLI_ARGV + flags + ["--mesh", mesh.split("+")[0]] + (
             ["--dist-backend", "gloo"] if "WORLD_SIZE" in os.environ
             else []))
         rep = sup.report(0.0)
@@ -705,7 +792,7 @@ def job_supervisor(ranks, params_path, root):
     return out
 
 
-JOBS = {"ships": job_ships, "two": job_two, "serve": job_serve,
+JOBS = {"four": job_four, "two": job_two, "serve": job_serve,
         "supervisor": job_supervisor}
 
 
